@@ -28,7 +28,21 @@ Phases (any failure raises and ends the run with a nonzero exit):
    and operations, and the per-call time with launch overhead (CUDA
    events);
 5. a small input: the LUBM(1) drain loop on the card and on the CPU must
-   give byte-identical traces, windows and layouts.
+   give byte-identical traces, windows and layouts;
+6. LM serving, the port's second path: qwen3-0.6b at full width and depth
+   (random weights from a seeded generator, bf16 compute, flash attention)
+   serves 4 prompts of 2048 tokens with one ``lm.prefill_step`` and 32
+   greedy ``lm.decode_step``s against a 2080-slot cache. Launch counts are
+   reset just before and read just after; the flash kernel must launch
+   once per layer in the prefill and in every decode step. Then: wall
+   times, tokens/s, peak memory, the card's idle share over a decode step
+   and a prefill (``torch.profiler``), and checks (b) the plain attention
+   path's logits, (c) teacher-forced decode against the uncached forward,
+   (d) the reduced config in float32 on the card against the CPU;
+7. the flash kernel against its plain version at the prefill and decode
+   shapes of phase 6 and at edge cases, timed as in phase 4 beside
+   ``scaled_dot_product_attention`` and its bound (the larger of its bytes
+   over 3.35 TB/s and its operations over 989 TFLOP/s bf16).
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -36,6 +50,7 @@ The line before the last is ``{"kernels": [...]}``, the last
 from __future__ import annotations
 
 import cProfile
+import dataclasses
 import json
 import math
 import pathlib
@@ -51,6 +66,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12         # H100 SXM float32 rate outside tensor cores
+TENSOR_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 MIGRATION_BUDGET = 4 << 20       # bytes per window: LUBM(10)/8 drains in 4
 # windows served before the adaptation round: the guard amortizes the
 # migration over the observed TM window, and one window of LUBM(10)/8 is
@@ -81,21 +97,28 @@ def call_ms(fn, reps: int = 20, runs: int = 7) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, tries: int = 4) -> float:
     """Device time per call: the summed durations of every CUDA kernel and
     memory operation ``fn`` puts on the card, from a ``torch.profiler``
     trace of ``reps`` calls after a warm-up call. Excludes host launch
     overhead and the idle gaps between launches; 0 for a call that puts no
-    work on the card (the plain one-column pack returns its input)."""
+    work on the card (the plain one-column pack returns its input). A trace
+    that holds no device operation is taken again, up to ``tries`` times:
+    on the H100 machines the profiler now and then returns an empty trace
+    for calls that do launch kernels."""
     fn()
     torch.cuda.synchronize()
     prof = torch.profiler
-    with prof.profile(activities=[prof.ProfilerActivity.CUDA]) as p:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.device_time_total for e in p.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
+    for attempt in range(tries):
+        with prof.profile(activities=[prof.ProfilerActivity.CUDA]) as p:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in p.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            break
+        log(f"[profile] empty device trace (attempt {attempt + 1})")
     return us / 1e3 / reps
 
 
@@ -247,6 +270,34 @@ def _exact(name, got, want) -> int:
     return err
 
 
+def kernel_row(rows, launches, name, source, replaces, err, fn, plain,
+               library, n_bytes, n_ops, note, *,
+               ops_per_s=SCALAR_OPS_PER_S, ops_rate="67 TOP/s"):
+    """Time ``fn`` (the kernel's wrapper), ``plain`` and ``library`` on the
+    card, log them beside the bound from ``n_bytes`` and ``n_ops``, and
+    append the kernel's row (its main-path ``launches``) to ``rows``."""
+    ms, plain_ms = device_ms(fn), device_ms(plain)
+    assert ms > 0, f"{name}: the profiler recorded no kernel time"
+    library_ms = None if library is None else device_ms(library)
+    calls = [call_ms(f) for f in (fn, plain)]
+    bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s) * 1e3
+    bound_by = ("bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / ops_per_s
+                else "operations")
+    rows.append(dict(name=name, route="cuda", source=source,
+                     replaces=replaces, launches=launches.get(name, 0),
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                     bound_ms=bound_ms, bound_by=bound_by,
+                     library_ms=library_ms))
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    log(f"[kernels] {name} ({note}): device time per call: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}; per "
+        f"call with launch overhead: kernel {calls[0]:.4f} ms, plain "
+        f"{calls[1]:.4f} ms; bound {bound_ms:.6f} ms "
+        f"({bound_by}: {n_bytes} B / 3.35 TB/s, {n_ops} ops / "
+        f"{ops_rate}), main-path launches {launches.get(name, 0)}, "
+        f"max_abs_err {err}")
+
+
 def kernels(rec, launches):
     from repro_torch.kernels.jaccard import ops as jac
     from repro_torch.kernels.join import ops as J
@@ -293,27 +344,8 @@ def kernels(rec, launches):
 
     def report(name, source, replaces, err, fn, plain, library,
                n_bytes, n_ops, note):
-        ms, plain_ms = device_ms(fn), device_ms(plain)
-        assert ms > 0, f"{name}: the profiler recorded no kernel time"
-        library_ms = None if library is None else device_ms(library)
-        calls = [call_ms(f) for f in (fn, plain)]
-        bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / SCALAR_OPS_PER_S) \
-            * 1e3
-        bound_by = ("bytes" if n_bytes / HBM_BYTES_PER_S
-                    >= n_ops / SCALAR_OPS_PER_S else "operations")
-        rows.append(dict(name=name, route="cuda", source=source,
-                         replaces=replaces, launches=launches.get(name, 0),
-                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=library_ms))
-        lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
-        log(f"[kernels] {name} ({note}): device time per call: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib}; per "
-            f"call with launch overhead: kernel {calls[0]:.4f} ms, plain "
-            f"{calls[1]:.4f} ms; bound {bound_ms:.6f} ms "
-            f"({bound_by}: {n_bytes} B / 3.35 TB/s, {n_ops} ops / "
-            f"67 TOP/s), main-path launches {launches.get(name, 0)}, "
-            f"max_abs_err {err}")
+        kernel_row(rows, launches, name, source, replaces, err, fn, plain,
+                   library, n_bytes, n_ops, note)
 
     join_src = "src/repro_torch/csrc/join.cu"
     join_ref = "src/repro/kernels/join/kernel.py"
@@ -434,6 +466,315 @@ def small_input() -> None:
         f"{len(gpu_out)} windows and final layouts")
 
 
+# --------------------------------------------------------------------------- #
+# phase 6: LM serving, qwen3-0.6b at full width and depth
+# --------------------------------------------------------------------------- #
+
+# 4 requests of 2048 prompt tokens, then 32 greedy decode steps against a
+# 2080-slot cache. Cut from the repo's prefill_32k (32 x 32768) and
+# decode_32k shapes: their KV cache, 112 KiB per token at qwen3-0.6b
+# (28 layers x k and v x 8 heads x 128 x 2 B), would need about 120 GB
+# for 32 x 32768 tokens, more than one card holds.
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 2048, 32
+LM_CACHE = LM_PROMPT + LM_NEW
+LM_TEACHER = 8          # teacher-forced positions of check (c)
+# bf16 paths agree within this share of the larger logit magnitude: the
+# flash path keeps scores and probabilities in float32, the plain path
+# rounds both to bf16 (2^-9 relative each) in every one of 28 layers, and
+# both round every activation and the head's inputs to bf16, so a logit of
+# magnitude |z| carries a few bf16 steps (2^-8 |z| each) of difference
+LM_BF16_REL = 2.0 ** -4
+FLASH = "flash_attention_fwd"
+
+
+def _mem(tag) -> None:
+    log(f"[lm] {tag}: max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
+        f"memory_allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+
+
+def _close_bf16(what, got, want) -> float:
+    """max |got - want| <= LM_BF16_REL * max |want|; returns the error."""
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    log(f"[lm] check {what}: max abs diff {err:.4f}, max |logit| "
+        f"{scale:.4f}, ratio {err / scale:.5f} (limit {LM_BF16_REL})")
+    assert torch.isfinite(got).all() and err <= LM_BF16_REL * scale, what
+    return err
+
+
+def _fill_cache(cfg, caches, n, dev, transformer):
+    big = transformer.init_decode_caches(cfg, LM_BATCH, LM_CACHE, device=dev)
+    for key in "kv":
+        big[key][:, :, :n] = caches[key]
+    return big
+
+
+def lm_serving():
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm, transformer
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get("qwen3-0.6b"), use_flash=True)
+    plain_cfg = dataclasses.replace(cfg, use_flash=False)
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = lm.init_params(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[lm] {cfg.arch_id}: {cfg.n_layers} layers, d_model {cfg.d_model},"
+        f" {cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.resolved_head_dim}, "
+        f"ff {cfg.d_ff}, vocab {cfg.vocab_size}, {n_params} parameters in "
+        f"{cfg.compute_dtype}, random (seed 0), built in "
+        f"{time.perf_counter() - t:.2f} s")
+    _mem("weights")
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(1), device=dev, dtype=torch.int32)
+    batch = {"tokens": prompts}
+    lm.prefill_step(model, batch, cfg)      # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+
+    # the main path: one prefill, 32 greedy decode steps
+    _build.reset_launches()
+    t = time.perf_counter()
+    logits, caches = lm.prefill_step(model, batch, cfg)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    n_prefill = _build.launches[FLASH]
+    _mem("prefill")
+    prefill_logits = logits
+    caches = _fill_cache(cfg, caches, LM_PROMPT, dev, transformer)
+    torch.cuda.synchronize()
+    tok = logits.argmax(-1)
+    first_tok, per_step, out = tok, [], []
+    t = time.perf_counter()
+    for i in range(LM_NEW):
+        before = _build.launches[FLASH]
+        last_tok = tok
+        logits, caches = lm.decode_step(
+            model, caches, {"token": tok, "pos": LM_PROMPT + i}, cfg)
+        per_step.append(_build.launches[FLASH] - before)
+        if i == 0:
+            first_logits = logits
+        tok = logits.argmax(-1)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    launches = dict(_build.launches)
+    _mem("decode")
+    generated = torch.stack(out, 1)
+    assert generated.shape == (LM_BATCH, LM_NEW)
+    assert torch.isfinite(logits).all()
+    tokens = LM_BATCH * LM_PROMPT
+    log(f"[lm] prefill {LM_BATCH} x {LM_PROMPT} tokens: wall "
+        f"{prefill_s * 1e3:.1f} ms, {tokens / prefill_s:.0f} tokens/s")
+    log(f"[lm] decode {LM_NEW} steps x {LM_BATCH} sequences: wall "
+        f"{decode_s * 1e3:.1f} ms, {decode_s / LM_NEW * 1e3:.3f} ms per "
+        f"step, {LM_BATCH * LM_NEW / decode_s:.1f} tokens/s")
+    log(f"[lm] flash launches: prefill {n_prefill}, per decode step "
+        f"{sorted(set(per_step))}, total {launches.get(FLASH, 0)}")
+    # (a) one flash launch per layer per step
+    assert n_prefill == cfg.n_layers, n_prefill
+    assert per_step == [cfg.n_layers] * LM_NEW, per_step
+
+    # the card's busy and idle share over one decode step (the last step
+    # again: it rewrites slot 2079 with the same token's k/v)
+    prof = torch.profiler
+    acts = [prof.ProfilerActivity.CPU, prof.ProfilerActivity.CUDA]
+    for label, run in (
+            ("decode step", lambda: lm.decode_step(
+                model, caches, {"token": last_tok, "pos": LM_CACHE - 1},
+                cfg)),
+            ("prefill", lambda: lm.prefill_step(model, batch, cfg))):
+        for attempt in range(4):       # an empty trace is taken again
+            torch.cuda.synchronize()
+            with prof.profile(activities=acts) as p:
+                t = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            dev_ev = [e for e in p.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+            if dev_ev:
+                break
+            log(f"[profile] empty device trace (attempt {attempt + 1})")
+        assert dev_ev, f"{label}: the profiler recorded no device work"
+        busy = sum(e.device_time_total for e in dev_ev) / 1e6
+        ref_wall = decode_s / LM_NEW if label == "decode step" else prefill_s
+        by_name = {}
+        for e in dev_ev:
+            n, t_us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, t_us + e.device_time_total)
+        log(f"[lm] profile {label}: wall {wall * 1e3:.3f} ms under the "
+            f"profiler, device busy {busy * 1e3:.3f} ms, idle share "
+            f"{1 - busy / wall:.4f}; against the unprofiled wall "
+            f"{ref_wall * 1e3:.3f} ms: idle share "
+            f"{1 - busy / ref_wall:.4f}; {len(dev_ev)} device operations")
+        for name, (n, t_us) in sorted(by_name.items(),
+                                      key=lambda kv: -kv[1][1])[:8]:
+            log(f"[lm]   {t_us / 1e3:9.3f} ms  {n:5d}x  {name[:90]}")
+
+    # (b) the plain attention path on the same requests
+    plain_logits, plain_caches = lm.prefill_step(model, batch, plain_cfg)
+    _close_bf16("(b) prefill, flash vs plain", prefill_logits, plain_logits)
+    plain_caches = _fill_cache(plain_cfg, plain_caches, LM_PROMPT, dev,
+                               transformer)
+    plain_first, _ = lm.decode_step(model, plain_caches,
+                                    {"token": first_tok, "pos": LM_PROMPT},
+                                    plain_cfg)
+    _close_bf16("(b) first decode step, flash vs plain", first_logits,
+                plain_first)
+    del plain_caches
+    _mem("check (b)")
+
+    # (c) teacher-forced decode of the last 8 prompt positions after
+    # prefilling the rest, against the uncached forward at those positions
+    cut = LM_PROMPT - LM_TEACHER
+    x, _ = transformer.hidden(model, prompts, cfg)
+    want = transformer.lm_head(model, x[:, cut:], cfg)
+    del x
+    _, tf_caches = lm.prefill_step(model, {"tokens": prompts[:, :cut]}, cfg)
+    tf_caches = _fill_cache(cfg, tf_caches, cut, dev, transformer)
+    got = []
+    for pos in range(cut, LM_PROMPT):
+        lg, tf_caches = lm.decode_step(
+            model, tf_caches, {"token": prompts[:, pos], "pos": pos}, cfg)
+        got.append(lg)
+    _close_bf16("(c) teacher-forced decode vs forward",
+                torch.stack(got, 1), want)
+    del tf_caches
+    _mem("check (c)")
+
+    # (d) the reduced config in float32, on the card and on the CPU
+    small = dataclasses.replace(configs.get("qwen3-0.6b").reduced(),
+                                use_flash=True)
+    res = {}
+    for device in ("cuda", "cpu"):
+        m = lm.init_params(small, device="cpu").to(device)
+        toks = prompts[:, :24].remainder(small.vocab_size).to(device)
+        lg, c = lm.prefill_step(m, {"tokens": toks[:, :16]}, small)
+        big = transformer.init_decode_caches(small, LM_BATCH, 24,
+                                             device=device)
+        for key in "kv":
+            big[key][:, :, :16] = c[key]
+        seq = [lg]
+        for pos in range(16, 24):
+            lg, big = lm.decode_step(m, big, {"token": toks[:, pos],
+                                              "pos": pos}, small)
+            seq.append(lg)
+        res[device] = torch.stack(seq).cpu()
+    err_d = float((res["cuda"] - res["cpu"]).abs().max())
+    log(f"[lm] check (d) reduced qwen3-0.6b in float32, prefill + 8 decode "
+        f"steps, card vs CPU: max abs diff {err_d:.3e} (limit 1e-4)")
+    assert err_d <= 1e-4
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# phase 7: the flash kernel against its plain version
+# --------------------------------------------------------------------------- #
+
+# (B, S, T, H, K, D, causal, q_offset, kv_valid_len, dtype): S and T off the
+# 32-key tile, g = 1, 2, 3, 5, non-causal, kv_valid_len < T, D = 64, 80,
+# 112, 128, 256, float32 inputs, and grids small enough that the keys
+# split across blocks
+FLASH_EDGES = [
+    (2, 77, 77, 16, 8, 128, True, 0, None, torch.bfloat16),
+    (1, 130, 130, 4, 4, 64, True, 0, None, torch.bfloat16),
+    (2, 33, 45, 6, 2, 112, False, 0, None, torch.bfloat16),
+    (2, 100, 300, 15, 5, 64, True, 200, None, torch.bfloat16),
+    (2, 1, 200, 4, 2, 128, True, 150, 151, torch.bfloat16),
+    (1, 5, 97, 5, 5, 80, True, 60, 65, torch.float32),
+    (1, 40, 40, 2, 1, 256, True, 0, 23, torch.float32),
+    (3, 64, 64, 16, 8, 128, False, 0, 50, torch.float32),
+    (2, 3, 1000, 4, 2, 64, True, 990, 993, torch.bfloat16),
+    (1, 2, 700, 2, 2, 80, False, 0, 650, torch.float32),
+]
+
+
+def _flash_err(got, want) -> float:
+    """Kernel against plain version, both in the inputs' dtype: 1e-5
+    absolute (the same float32 sums in another order), plus for bf16 one
+    bf16 step, 2^-7 relative, where the two float32 results fall on either
+    side of a rounding boundary. Returns the max abs difference."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    step = 2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    assert bool((diff <= 1e-5 + step * want.abs()).all()), float(diff.max())
+    return float(diff.max())
+
+
+def flash_kernel(rows, launches):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as FA
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def rand(shape, dt=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dt)
+
+    for b, s, t, h, kh, d, causal, off, valid, dt in FLASH_EDGES:
+        q, k, v = rand((b, s, h, d), dt), rand((b, t, kh, d), dt), \
+            rand((b, t, kh, d), dt)
+        kw = dict(causal=causal, q_offset=off, kv_valid_len=valid)
+        got = FA.flash_attention(q, k, v, **kw)
+        assert got.dtype == dt and got.shape == q.shape
+        _flash_err(got, FA.flash_attention_plain(q, k, v, **kw))
+    torch.cuda.synchronize()
+    log(f"[kernels] flash edge cases: {len(FLASH_EDGES)} shapes match the "
+        "plain version")
+
+    src = "src/repro_torch/csrc/flash_attention.cu"
+    replaces = "src/repro/kernels/flash_attention/kernel.py:83"
+    b, s, h, kh, d = LM_BATCH, LM_PROMPT, 16, 8, 128
+    q, k, v = rand((b, s, h, d)), rand((b, s, kh, d)), rand((b, s, kh, d))
+    got = FA.flash_attention(q, k, v)
+    err = _flash_err(got, FA.flash_attention_plain(q, k, v))
+    lib = lambda: F.scaled_dot_product_attention(    # noqa: E731
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        is_causal=True, enable_gqa=True)
+    lib_err = float((lib().transpose(1, 2).float() - got.float()).abs().max())
+    pairs = s * (s + 1) // 2                 # valid (query, key) pairs
+    kernel_row(rows, launches, FLASH, src, replaces, err,
+               lambda: FA.flash_attention(q, k, v),
+               lambda: FA.flash_attention_plain(q, k, v), lib,
+               2 * (2 * q.numel() + 2 * k.numel()), 4 * b * h * d * pairs,
+               f"prefill B={b}, S=T={s}, H={h}, K={kh}, D={d}, bf16, causal;"
+               f" library = scaled_dot_product_attention(enable_gqa), "
+               f"max diff to it {lib_err:.4f}",
+               ops_per_s=TENSOR_OPS_PER_S, ops_rate="989 TFLOP/s bf16")
+
+    valid = LM_CACHE
+    qd, kd, vd = rand((b, 1, h, d)), rand((b, valid, kh, d)), \
+        rand((b, valid, kh, d))
+    kw = dict(causal=True, q_offset=valid - 1, kv_valid_len=valid)
+    got = FA.flash_attention(qd, kd, vd, **kw)
+    err = _flash_err(got, FA.flash_attention_plain(qd, kd, vd, **kw))
+    lib = lambda: F.scaled_dot_product_attention(    # noqa: E731
+        qd.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2),
+        enable_gqa=True)
+    lib_err = float((lib().transpose(1, 2).float() - got.float()).abs().max())
+    decode_rows = []
+    kernel_row(decode_rows, launches, FLASH, src, replaces, err,
+               lambda: FA.flash_attention(qd, kd, vd, **kw),
+               lambda: FA.flash_attention_plain(qd, kd, vd, **kw), lib,
+               2 * (2 * qd.numel() + 2 * kd.numel()),
+               4 * b * h * d * valid,
+               f"decode B={b}, S=1, T={valid}, q_offset={valid - 1}, "
+               f"kv_valid_len={valid}, bf16; library = "
+               f"scaled_dot_product_attention(enable_gqa), max diff to it "
+               f"{lib_err:.4f}",
+               ops_per_s=TENSOR_OPS_PER_S, ops_rate="989 TFLOP/s bf16")
+    log(f"[kernels] flash decode row: {json.dumps(decode_rows[0])}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card",
@@ -486,6 +827,8 @@ def main() -> int:
 
     rows = kernels(rec, launches)
     small_input()
+    lm_launches = lm_serving()
+    flash_kernel(rows, lm_launches)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi[0])
     print(json.dumps({"kernels": rows}))

@@ -1,23 +1,27 @@
 """Build the port's objects from plain state.
 
-The system's state is data, not weights: a dictionary-encoded triple set,
-a query workload, the feature universe, a feature->shard assignment and
-replica holder masks. Each function here takes that state as plain numpy
-arrays and Python values — as any other implementation of the system can
-export it — and returns the ``repro_torch`` object that holds it, so one
-dataset and one layout can be served by this package and compared with
-another's.
+The partitioning service's state is data, not weights: a
+dictionary-encoded triple set, a query workload, the feature universe, a
+feature->shard assignment and replica holder masks. The language models'
+state is their parameter tree. Each function here takes that state as
+plain numpy arrays and Python values — as any other implementation of the
+system can export it — and returns the ``repro_torch`` object that holds
+it, so one dataset, layout or set of weights can be served by this package
+and compared with another's.
 """
 from __future__ import annotations
 
 from typing import Dict, Iterable, Mapping, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from repro_torch.configs.base import ArchConfig
 from repro_torch.core.features import FeatureSpace
 from repro_torch.core.partition import PartitionState
 from repro_torch.graph import lubm
 from repro_torch.graph.triples import Dictionary, TripleStore
+from repro_torch.kernels import dispatch
 from repro_torch.query.pattern import Query
 from repro_torch.replicate import ReplicaMap
 
@@ -91,3 +95,26 @@ def lubm_dataset(triples: np.ndarray, terms: Sequence[str],
                             named=lubm.Named(**{k: int(v)
                                                 for k, v in named.items()}),
                             queries=qs, n_universities=int(n_universities))
+
+
+def lm_params(tree: Mapping[str, np.ndarray], cfg: ArchConfig, *,
+              device="cuda"):
+    """A language model's parameter tree -> the port's
+    ``models.transformer.Transformer`` on ``device``. ``tree`` maps each
+    leaf's path (``"embed"``, ``"ln_f/scale"``, ``"blocks/attn/wq"``, ...)
+    to its array, blocks stacked on a leading ``layers`` axis; the paths
+    and shapes must be exactly those of ``models.lm.param_shapes(cfg)``."""
+    from repro_torch.models import lm, transformer
+    dev = dispatch.resolve_device(device)
+    want = lm.param_shapes(cfg)
+    if set(tree) != set(want):
+        raise ValueError(f"parameter paths differ: missing "
+                         f"{sorted(set(want) - set(tree))}, unexpected "
+                         f"{sorted(set(tree) - set(want))}")
+    flat = {}
+    for path, shape in want.items():
+        a = np.asarray(tree[path])
+        if a.shape != shape:
+            raise ValueError(f"{path}: shape {a.shape}, expected {shape}")
+        flat[path] = torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+    return transformer.Transformer(cfg, flat)

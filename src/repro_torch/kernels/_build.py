@@ -8,7 +8,8 @@ under ``build/repro_torch/`` at the root of the checkout (override with
 ``REPRO_TORCH_BUILD_DIR``). The library's name carries a hash of the
 sources and flags, so an unchanged checkout reuses its library and a
 changed source builds a new one. There is no ``--use_fast_math``: the
-Jaccard division must stay IEEE-rounded.
+Jaccard division must stay IEEE-rounded, and flash attention's ``expf``
+and division accurate.
 
 The library is loaded with ``ctypes``. Every C entry point takes device
 pointers, int64 lengths and the CUDA stream, launches on that stream and
@@ -43,6 +44,9 @@ SIGNATURES = {
     "rt_expand_pairs": (_P, _P, _I64, _I64, _P, _P, _P),
     "rt_gather_rows": (_P, _I64, _P, _I64, _I64, _P, _P),
     "rt_jaccard_distance": (_P, _I64, _P, _I64, _I64, _P, _P),
+    # q, k, v, o, B, S, T, H, K, D, causal, q_offset, kv_valid_len, dtype,
+    # kv_splits, scratch, stream
+    "rt_flash_attention_fwd": (_P, _P, _P, _P) + (_I64,) * 11 + (_P, _P),
 }
 
 # kernel name -> launches since the last reset_launches()

@@ -1,0 +1,150 @@
+"""Grouped-query flash attention (forward).
+
+Counterpart of ``repro/kernels/flash_attention/ops.py``. On a CUDA tensor
+:func:`flash_attention` launches the Hopper kernel of
+``repro_torch/csrc/flash_attention.cu``; on a CPU tensor it runs
+:func:`flash_attention_plain`, which repeats the kernel's arithmetic with
+torch ops. Both compute what the reference's ``_flash_kernel`` computes:
+
+* q (B, S, H, D) and k/v (B, T, K, D), H % K == 0, bfloat16 or float32,
+  read and upcast to float32;
+* scores ``q·kᵀ·(1/√D)`` in float32, set to -1e30 where
+  ``q_offset + i < kpos`` (causal) or ``kpos >= kv_valid_len``;
+* softmax in float32 and P·V in float32, P never rounded;
+* output ``acc / max(l, 1e-30)`` in q's dtype.
+
+``q_offset`` and ``kv_valid_len`` are runtime arguments of the kernel, so a
+decode step against a cache of T slots neither recompiles nor reads the
+slots past ``kv_valid_len``. Every row has at least one valid key (key 0):
+``q_offset >= 0`` and ``kv_valid_len >= 1`` are required.
+
+No backward: the training slice adds it as a ``torch.autograd.Function``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build, dispatch
+
+NEG_INF = -1e30
+MAX_HEAD_DIM = 256
+ROWS_PER_BLOCK = 32      # (query, head) rows of one block of the kernel
+KEY_TILE = 32            # keys the kernel stages per tile
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
+           kv_valid_len: Optional[int]) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dim() != 4:
+            raise ValueError(f"{name}: expected 4 dims, got shape "
+                             f"{tuple(t.shape)}")
+        if t.dtype not in _DTYPE_CODES:
+            raise TypeError(f"{name}: expected float32 or bfloat16, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    b, _, h, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"shapes do not fit: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}")
+    if k.shape[2] == 0 or h % k.shape[2]:
+        raise ValueError(f"{h} query heads do not group over {k.shape[2]} "
+                         "kv heads")
+    if d % 8 or not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d}: expected a multiple of 8 up to "
+                         f"{MAX_HEAD_DIM}")
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} < 0")
+    if kv_valid_len is not None and kv_valid_len < 1:
+        raise ValueError(f"kv_valid_len {kv_valid_len} < 1: every query "
+                         "needs a valid key")
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True, q_offset: int = 0,
+                          kv_valid_len: Optional[int] = None
+                          ) -> torch.Tensor:
+    """The kernel's function in torch ops, in float32, with its -1e30 mask
+    and 1e-30 denominator guards. Materialises the (B, K, g, S, T) scores."""
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    qf = q.to(torch.float32).reshape(b, s, kh, g, d).permute(0, 2, 3, 1, 4)
+    kf = k.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]  # (B,K,1,T,D)
+    vf = v.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
+    scores = torch.matmul(qf, kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+    kpos = torch.arange(t, device=q.device)
+    ok = torch.ones((s, t), dtype=torch.bool, device=q.device)
+    if causal:
+        qpos = torch.arange(s, device=q.device)[:, None] + q_offset
+        ok = qpos >= kpos[None, :]
+    if kv_valid_len is not None:
+        ok = ok & (kpos < kv_valid_len)[None, :]
+    scores = torch.where(ok, scores, torch.full((), NEG_INF,
+                                                device=q.device))
+    m = scores.amax(-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = p.sum(-1, keepdim=True)
+    out = torch.matmul(p, vf) / torch.clamp(l, min=1e-30)   # (B,K,g,S,D)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+
+
+def kv_splits(b: int, s: int, h: int, kh: int, kv_len: int,
+              n_sms: int) -> int:
+    """How many blocks the kernel runs along the keys of one (row block,
+    kv head, sequence): 1 when that grid fills a wave of the card's
+    ``n_sms`` SMs, else enough to give about two blocks per SM, with at
+    least 4 key tiles per block (a decode step: B * K blocks otherwise)."""
+    blocks = -(-s * (h // kh) // ROWS_PER_BLOCK) * kh * b
+    if blocks >= n_sms:
+        return 1
+    return max(1, min(-(-2 * n_sms // blocks),
+                      -(-kv_len // (4 * KEY_TILE))))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0,
+                    kv_valid_len: Optional[int] = None) -> torch.Tensor:
+    """q (B, S, H, D), k/v (B, T, K, D) -> (B, S, H, D) in q's dtype.
+    Replaces ``flash_attention_fwd``."""
+    q_offset = int(q_offset)
+    kv_valid_len = None if kv_valid_len is None else int(kv_valid_len)
+    _check(q, k, v, q_offset, kv_valid_len)
+    t = dispatch.tier(q)
+    dispatch.note_tier("flash_attention.fwd", t)
+    if t == "torch":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     q_offset=q_offset,
+                                     kv_valid_len=kv_valid_len)
+    for name, x in (("q", q), ("k", k), ("v", v)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel reads 16-byte rows; the "
+                             "tensor's storage is not 16-byte aligned")
+    b, s, h, d = q.shape
+    tk, kh = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if q.numel() and tk:
+        kv_len = tk if kv_valid_len is None else min(kv_valid_len, tk)
+        n_sms = torch.cuda.get_device_properties(
+            q.device).multi_processor_count
+        splits = kv_splits(b, s, h, kh, kv_len, n_sms)
+        scratch = None
+        if splits > 1:      # per split: acc (D), row max and row sum per row
+            scratch = torch.empty(b * kh * splits * s * (h // kh) * (d + 2),
+                                  dtype=torch.float32, device=q.device)
+        _build.launch("flash_attention_fwd", "rt_flash_attention_fwd",
+                      q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      out.data_ptr(), b, s, tk, h, kh, d, int(causal),
+                      q_offset, -1 if kv_valid_len is None else kv_valid_len,
+                      _DTYPE_CODES[q.dtype], splits,
+                      None if scratch is None else scratch.data_ptr())
+    return out

@@ -1,0 +1,192 @@
+"""Layer stacks: the attention family (dense / VLM / audio-encoder
+transformers).
+
+Counterpart of ``repro/models/transformer.py``. The reference stacks each
+block's parameters on a leading ``layers`` axis and runs ``lax.scan``; here
+the blocks are an ``nn.ModuleList`` walked by a Python loop, built from the
+same stacked tensors (``Transformer(cfg, flat)``). Caches keep the
+reference's layout, ``{"k": (L, B, T, K, D), "v": ...}`` in the compute
+dtype, and are written in place.
+
+The reference's other stacks are later slices of the port and raise
+``NotImplementedError`` here: RWKV6 (ROADMAP Queue 1, item 1), Mamba2 SSM
+and the zamba2 hybrid (item 2), and mixture-of-experts blocks (item 4).
+"""
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models.layers import (MLP, Attention, Norm, _param,
+                                       attention_apply, dtype, mlp_apply,
+                                       norm_apply)
+
+Caches = Dict[str, torch.Tensor]
+
+
+def require_attention_family(cfg: ArchConfig) -> None:
+    """Raise for a config whose stack this package does not run yet."""
+    if cfg.rwkv:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the RWKV6 stack is not ported yet (ROADMAP "
+            "Queue 1, item 1: rwkv6-3b serving with the WKV kernel)")
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(
+            f"{cfg.arch_id}: the Mamba2 SSM and hybrid stacks are not ported "
+            "yet (ROADMAP Queue 1, item 2: the SSD op, then zamba2)")
+    if cfg.is_moe:
+        raise NotImplementedError(
+            f"{cfg.arch_id}: mixture-of-experts blocks are not ported yet "
+            "(ROADMAP Queue 1, item 4: models/moe.py with AWAPart expert "
+            "placement)")
+
+
+# --------------------------------------------------------------------------- #
+# attention-family block
+# --------------------------------------------------------------------------- #
+
+class Block(nn.Module):
+    def __init__(self, cfg: ArchConfig, w: Mapping[str, torch.Tensor]):
+        super().__init__()
+
+        def sub(prefix):
+            n = len(prefix) + 1
+            return {k[n:]: v for k, v in w.items()
+                    if k.startswith(prefix + "/")}
+
+        self.ln1 = Norm(sub("ln1"))
+        self.attn = Attention(cfg, sub("attn"))
+        self.ln2 = Norm(sub("ln2"))
+        self.mlp = MLP(cfg, sub("mlp"))
+
+
+def attn_block_apply(p: Block, x: torch.Tensor, cfg: ArchConfig, *,
+                     positions: torch.Tensor, cache=None, cache_pos=None):
+    """Pre-norm attention + MLP block -> (x, new_cache, aux); aux is 0 for
+    a dense block (the reference's MoE load-balancing term)."""
+    h = norm_apply(p.ln1, x, cfg)
+    y, new_cache = attention_apply(p.attn, h, cfg, positions=positions,
+                                   cache=cache, cache_pos=cache_pos)
+    x = x + y
+    h = norm_apply(p.ln2, x, cfg)
+    return x + mlp_apply(p.mlp, h, cfg), new_cache, 0.0
+
+
+# --------------------------------------------------------------------------- #
+# the model
+# --------------------------------------------------------------------------- #
+
+class Transformer(nn.Module):
+    """Embedding (absent for ``embedding_inputs``), blocks, final norm and
+    head (absent for ``tied_embeddings``: the embedding serves)."""
+
+    def __init__(self, cfg: ArchConfig, flat: Mapping[str, torch.Tensor]):
+        """``flat``: the reference's parameter tree keyed by its paths
+        (``"embed"``, ``"ln_f/scale"``, ``"blocks/attn/wq"``, ...), blocks
+        stacked on a leading ``layers`` axis, in the parameter dtype."""
+        super().__init__()
+        require_attention_family(cfg)
+        cd = dtype(cfg.compute_dtype)
+        self.embed = (None if cfg.embedding_inputs
+                      else _param(flat["embed"], cd))
+        self.ln_f = Norm({k[5:]: v for k, v in flat.items()
+                          if k.startswith("ln_f/")})
+        self.head = (None if cfg.tied_embeddings
+                     else _param(flat["head"], cd))
+        stacked = {k[7:]: v for k, v in flat.items()
+                   if k.startswith("blocks/")}
+        for k, v in stacked.items():
+            if v.shape[0] != cfg.n_layers:
+                raise ValueError(f"blocks/{k}: {v.shape[0]} layers, config "
+                                 f"has {cfg.n_layers}")
+        self.blocks = nn.ModuleList(
+            Block(cfg, {k: v[i] for k, v in stacked.items()})
+            for i in range(cfg.n_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.ln_f.scale.device
+
+
+def embed_tokens(p: Transformer, tokens: torch.Tensor,
+                 cfg: ArchConfig) -> torch.Tensor:
+    return F.embedding(tokens, p.embed)
+
+
+def lm_head(p: Transformer, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Final norm and vocabulary projection -> float32 logits."""
+    h = norm_apply(p.ln_f, x, cfg).to(dtype(cfg.compute_dtype))
+    logits = F.linear(h, p.embed) if cfg.tied_embeddings else h @ p.head
+    return logits.to(torch.float32)
+
+
+# --------------------------------------------------------------------------- #
+# training/prefill forward
+# --------------------------------------------------------------------------- #
+
+def hidden(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
+           collect_cache: bool = False
+           ) -> Tuple[torch.Tensor, Optional[Caches]]:
+    """The forward through the blocks, before the final norm: (B, S, d)
+    activations and, with ``collect_cache``, the (L, B, S, K, D) caches
+    sized S."""
+    require_attention_family(cfg)
+    if cfg.embedding_inputs:
+        x = inputs.to(dtype(cfg.compute_dtype))
+        b, s = x.shape[:2]
+    else:
+        x = embed_tokens(p, inputs, cfg)
+        b, s = inputs.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    if not collect_cache:
+        for blk in p.blocks:
+            x, _, _ = attn_block_apply(blk, x, cfg, positions=positions)
+        return x, None
+    caches = init_decode_caches(cfg, b, s, device=x.device)
+    for i, blk in enumerate(p.blocks):
+        x, _, _ = attn_block_apply(
+            blk, x, cfg, positions=positions,
+            cache=(caches["k"][i], caches["v"][i]), cache_pos=0)
+    return x, caches
+
+
+def forward(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
+            collect_cache: bool = False):
+    """inputs: tokens (B, S) or embeddings (B, S, d) -> (logits (B, S, V)
+    float32, aux, caches)."""
+    x, caches = hidden(p, inputs, cfg, collect_cache=collect_cache)
+    return lm_head(p, x, cfg), 0.0, caches
+
+
+# --------------------------------------------------------------------------- #
+# decode (one token, cached)
+# --------------------------------------------------------------------------- #
+
+def init_decode_caches(cfg: ArchConfig, batch: int, max_len: int, *,
+                       device="cuda") -> Caches:
+    require_attention_family(cfg)
+    kshape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
+              cfg.resolved_head_dim)
+    cd = dtype(cfg.compute_dtype)
+    return {"k": torch.zeros(kshape, dtype=cd, device=device),
+            "v": torch.zeros(kshape, dtype=cd, device=device)}
+
+
+def decode_step(p: Transformer, caches: Caches, token: torch.Tensor,
+                pos: int, cfg: ArchConfig):
+    """token: (B,) ids, pos: int -> (logits (B, V) float32, caches). The
+    caches are updated in place at ``pos`` and returned."""
+    require_attention_family(cfg)
+    pos = int(pos)
+    x = embed_tokens(p, token[:, None], cfg)            # (B, 1, d)
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int64,
+                           device=x.device)
+    for i, blk in enumerate(p.blocks):
+        x, _, _ = attn_block_apply(
+            blk, x, cfg, positions=positions,
+            cache=(caches["k"][i], caches["v"][i]), cache_pos=pos)
+    return lm_head(p, x, cfg)[:, 0], caches

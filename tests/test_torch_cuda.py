@@ -13,10 +13,20 @@ import pytest
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.kernels.jaccard import ops as jac
 from repro_torch.kernels.join import ops as J
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _exp_initialised():
+    """torch's CPU ``exp`` (2.13, AVX-512 build) now and then returns
+    values about 1e-4 off on its first multi-threaded call in a process
+    (7 of 64 fresh processes); one call on a single element first makes
+    every later call accurate to float32 rounding."""
+    torch.exp(torch.zeros(1))
 
 
 @pytest.fixture()
@@ -106,3 +116,82 @@ def test_service_on_card_matches_cpu():
             svc.query_batch(window)
         traces.append(svc.tracer().to_json())
     assert traces[0] == traces[1]
+
+
+# (B, S, T, H, K, D, causal, q_offset, kv_valid_len, dtype): ragged S and T,
+# g = 1, 2, 3, non-causal, a decode row against a longer cache, float32
+FLASH_CASES = [
+    (2, 77, 77, 4, 2, 128, True, 0, None, torch.bfloat16),
+    (1, 130, 130, 4, 4, 64, True, 0, None, torch.bfloat16),
+    (2, 33, 45, 6, 2, 112, False, 0, None, torch.bfloat16),
+    (2, 1, 200, 4, 2, 128, True, 150, 151, torch.bfloat16),
+    (1, 5, 97, 5, 5, 80, True, 60, 65, torch.float32),
+    (1, 40, 40, 2, 1, 256, True, 0, 23, torch.float32),
+    (3, 16, 16, 4, 2, 16, True, 0, None, torch.float32),
+    # few blocks: the keys split across blocks and merge
+    (4, 1, 2080, 16, 8, 128, True, 2079, 2080, torch.bfloat16),
+    (2, 3, 1000, 4, 2, 64, True, 990, 993, torch.bfloat16),
+    (1, 2, 700, 2, 2, 80, False, 0, 650, torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(dev, case):
+    b, s, t, h, kh, d, causal, off, valid, dt = case
+    g = torch.Generator(device=dev).manual_seed(sum(case[:6]))
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
+               for shape in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d)))
+    kw = dict(causal=causal, q_offset=off, kv_valid_len=valid)
+    got = FA.flash_attention(q, k, v, **kw)
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == q.shape
+    assert _build.launches["flash_attention_fwd"] == 1
+    got, want = got.float(), want.float()
+    # both sum in float32 in different orders; a bf16 output may then round
+    # to the neighbouring value: at most one bf16 step, 2^-7 relative
+    tol = (want.abs() * 2.0 ** -7 + 1e-5 if dt == torch.bfloat16
+           else torch.full_like(want, 1e-5))
+    assert bool(((got - want).abs() <= tol).all()), \
+        float((got - want).abs().max())
+
+
+def test_flash_kernel_refuses_bad_head_dim(dev):
+    q = torch.zeros((1, 4, 2, 12), device=dev)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        FA.flash_attention(q, q, q)
+
+
+def test_lm_on_card_matches_cpu_and_launches_once_per_layer(dev):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import lm, transformer
+
+    cfg = dataclasses.replace(configs.get("qwen3-0.6b").reduced(),
+                              use_flash=True)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16))
+                            .astype(np.int32))
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = lm.init_params(cfg, device="cpu").to(device)
+        _build.reset_launches()
+        logits, caches = lm.prefill_step(
+            model, {"tokens": toks[:, :12].to(device)}, cfg)
+        n_prefill = _build.launches["flash_attention_fwd"]
+        big = transformer.init_decode_caches(cfg, 2, 16, device=device)
+        for key in "kv":
+            big[key][:, :, :12] = caches[key]
+        steps = [logits]
+        for pos in range(12, 16):
+            tok = toks[:, pos].to(device)
+            logits, big = lm.decode_step(model, big,
+                                         {"token": tok, "pos": pos}, cfg)
+            steps.append(logits)
+        out[device] = torch.stack(steps).cpu()
+        if device == "cuda":
+            assert n_prefill == cfg.n_layers
+            assert _build.launches["flash_attention_fwd"] == \
+                cfg.n_layers * 5
+    assert torch.allclose(out["cuda"], out["cpu"], atol=1e-4, rtol=0)

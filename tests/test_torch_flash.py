@@ -1,0 +1,132 @@
+"""repro_torch.kernels.flash_attention against the reference on the CPU.
+
+The port's plain version (what a CPU tensor runs, and what the CUDA kernel
+is held against on the card) against the reference's Pallas kernel in
+interpret mode and against its ``ref.attention``, in float32 on the same
+numpy inputs. Tolerance 1e-5 absolute: all three sum the same float32
+products in different orders (the Pallas kernel tile by tile with an
+online softmax, the others over the whole row), on values of order 1.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention import kernel as rkernel
+from repro.kernels.flash_attention import ref as rref
+from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention import ops as FA
+from repro_torch.kernels.flash_attention import ref as tref
+
+TOL = 1e-5
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _exp_initialised():
+    """torch's CPU ``exp`` (2.13, AVX-512 build) now and then returns
+    values about 1e-4 off on its first multi-threaded call in a process
+    (7 of 64 fresh processes); one call on a single element first makes
+    every later call accurate to float32 rounding."""
+    torch.exp(torch.zeros(1))
+
+# (B, S, T, H, K, D, causal, q_offset, kv_valid_len)
+CASES = [
+    (2, 64, 64, 4, 2, 16, True, 0, None),          # GQA g = 2, causal
+    (1, 64, 64, 4, 2, 32, False, 0, None),         # g = 2, not causal
+    (2, 48, 48, 2, 2, 16, True, 0, None),          # g = 1
+    (1, 40, 72, 3, 3, 16, False, 0, None),         # g = 1, not causal, S != T
+    (2, 1, 96, 4, 2, 16, True, 70, 71),            # decode against a cache
+    (1, 3, 64, 4, 1, 24, True, 40, 43),            # short chunk, g = 4
+    (1, 200, 200, 2, 1, 16, True, 0, None),        # S, T not multiples of 128
+    (1, 130, 150, 2, 2, 8, False, 0, 140),         # ragged, kv_valid_len < T
+]
+
+
+def _inputs(case, seed=0):
+    b, s, t, h, kh, d = case[:6]
+    rng = np.random.default_rng(seed)
+    return tuple(rng.normal(size=shape).astype(np.float32)
+                 for shape in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d)))
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: "-".join(map(str, c)))
+def test_plain_matches_pallas_interpret_and_ref(case):
+    causal, off, valid = case[6:]
+    q, k, v = _inputs(case)
+    kw = dict(causal=causal, q_offset=off, kv_valid_len=valid)
+    got = FA.flash_attention_plain(*map(torch.from_numpy, (q, k, v)), **kw)
+    pallas = np.asarray(rkernel.flash_attention_fwd(
+        *map(jnp.asarray, (q, k, v)), interpret=True, **kw))
+    ref = np.asarray(rref.attention(*map(jnp.asarray, (q, k, v)), **kw))
+    err_pallas = float(np.abs(got.numpy() - pallas).max())
+    err_ref = float(np.abs(got.numpy() - ref).max())
+    print(f"max abs err vs pallas {err_pallas:.2e}, vs ref {err_ref:.2e}")
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    assert err_pallas <= TOL and err_ref <= TOL
+
+
+@pytest.mark.parametrize("case", CASES[:5], ids=lambda c: "-".join(
+    map(str, c)))
+def test_port_ref_matches_reference_ref(case):
+    causal, off, valid = case[6:]
+    q, k, v = _inputs(case, seed=1)
+    kw = dict(causal=causal, q_offset=off, kv_valid_len=valid)
+    got = tref.attention(*map(torch.from_numpy, (q, k, v)), **kw).numpy()
+    want = np.asarray(rref.attention(*map(jnp.asarray, (q, k, v)), **kw))
+    assert float(np.abs(got - want).max()) <= TOL
+
+
+def test_cpu_tensor_runs_the_plain_version_without_a_launch():
+    q, k, v = map(torch.from_numpy, _inputs(CASES[4]))
+    _build.reset_launches()
+    got = FA.flash_attention(q, k, v, q_offset=70, kv_valid_len=71)
+    want = FA.flash_attention_plain(q, k, v, q_offset=70, kv_valid_len=71)
+    assert torch.equal(got, want)
+    assert not _build.launches
+
+
+def test_bf16_inputs_compute_in_float32_and_return_bf16():
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16)
+               for a in _inputs(CASES[0]))
+    got = FA.flash_attention(q, k, v)
+    want = FA.flash_attention_plain(q.float(), k.float(), v.float())
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("bad, match", [
+    (dict(d=12), "multiple of 8"),
+    (dict(d=264), "multiple of 8"),
+    (dict(h=3, kh=2), "do not group"),
+    (dict(dtype=torch.float16), "float32 or bfloat16"),
+    (dict(kv_valid_len=0), "kv_valid_len"),
+    (dict(q_offset=-1), "q_offset"),
+])
+def test_wrapper_refuses_what_the_kernel_does_not_take(bad, match):
+    d, h, kh = bad.get("d", 16), bad.get("h", 4), bad.get("kh", 2)
+    dt = bad.get("dtype", torch.float32)
+    q = torch.zeros((1, 4, h, d), dtype=dt)
+    k = torch.zeros((1, 4, kh, d), dtype=dt)
+    with pytest.raises((ValueError, TypeError), match=match):
+        FA.flash_attention(q, k, k, q_offset=bad.get("q_offset", 0),
+                           kv_valid_len=bad.get("kv_valid_len"))
+
+
+def test_wrapper_refuses_mixed_dtypes_and_strided_inputs():
+    q = torch.zeros((1, 4, 2, 16))
+    with pytest.raises(TypeError, match="dtypes differ"):
+        FA.flash_attention(q, q.to(torch.bfloat16), q.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention(q.transpose(1, 2), q, q)
+
+
+@pytest.mark.parametrize("shape, splits", [
+    ((4, 2048, 16, 8, 2048), 1),      # prefill: 1024 blocks, no split
+    ((4, 1, 16, 8, 2080), 9),         # decode: 32 blocks -> 288
+    ((1, 1, 4, 4, 100), 1),           # too few keys to split
+    ((1, 1, 4, 4, 300), 3),           # at least 4 tiles of 32 per split
+    ((2, 100, 8, 2, 5000), 6),        # 52 blocks -> 312
+])
+def test_kv_splits_fill_a_wave_of_the_card(shape, splits):
+    b, s, h, kh, kv_len = shape
+    assert FA.kv_splits(b, s, h, kh, kv_len, n_sms=132) == splits

@@ -1,0 +1,324 @@
+"""repro_torch's LM serving path against the reference on the CPU.
+
+Weights and inputs are drawn once with numpy and handed to both packages
+(the reference as its parameter tree, the port through
+``interop.lm_params``), at the reduced size of each config (2 layers,
+d_model 64, float32 compute). Logits agree within 1e-4 absolute: the two
+packages take the same float32 sums in different orders (XLA's and
+torch's matmuls, the flash kernels' tiles), through two layers, on logits
+of order 1.
+
+The reference's cached decode raises with ``use_flash=True`` (its
+``flash_attention`` passes a traced ``kv_valid_len`` as a static argument),
+so the decode oracle is the reference's ``use_flash=False`` decode, which
+computes the same function; the port's decode runs both.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as rconfigs
+from repro.models import layers as rlayers
+from repro.models import lm as rlm
+from repro.models import transformer as rtr
+import repro_torch.configs as tconfigs
+from repro_torch import interop
+from repro_torch.kernels import _build
+from repro_torch.models import layers as tlayers
+from repro_torch.models import lm as tlm
+from repro_torch.models import transformer as ttr
+
+TOL = 1e-4
+ARCHS = ["qwen3-0.6b", "smollm-360m", "starcoder2-15b", "qwen2.5-32b",
+         "chameleon-34b", "hubert-xlarge"]
+B, S, EXTRA = 2, 16, 4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _exp_initialised():
+    """torch's CPU ``exp`` (2.13, AVX-512 build) now and then returns
+    values about 1e-4 off on its first multi-threaded call in a process
+    (7 of 64 fresh processes); one call on a single element first makes
+    every later call accurate to float32 rounding."""
+    torch.exp(torch.zeros(1))
+
+
+def _cfgs(arch, **kw):
+    r = dataclasses.replace(rconfigs.get(arch).reduced(), **kw)
+    t = dataclasses.replace(tconfigs.get(arch).reduced(), **kw)
+    return r, t
+
+
+def _path(path):
+    return "/".join(p.key for p in path)
+
+
+def _random_tree(rcfg, seed=0):
+    """The reference's parameter tree filled from numpy: matrices normal
+    over sqrt(fan_in), norm scales near 1, biases small and nonzero."""
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(
+        lambda: rtr.init_params(jax.random.PRNGKey(0), rcfg)[0])
+    flat = {}
+    for path, sd in jax.tree_util.tree_flatten_with_path(shapes)[0]:
+        key, shape = _path(path), sd.shape
+        leaf = key.rsplit("/", 1)[-1]
+        if leaf in ("scale", "q_norm", "k_norm"):
+            a = 1.0 + 0.1 * rng.normal(size=shape)
+        elif leaf.startswith("b"):
+            a = 0.1 * rng.normal(size=shape)
+        else:
+            fan_in = shape[1] if key.startswith("blocks/") else shape[0]
+            if key == "blocks/attn/wo":
+                fan_in = shape[1] * shape[2]
+            a = rng.normal(size=shape) / np.sqrt(fan_in)
+        flat[key] = a.astype(np.float32)
+    tree = jax.tree_util.tree_unflatten(
+        jax.tree_util.tree_structure(shapes),
+        [jnp.asarray(flat[_path(p)]) for p, _ in
+         jax.tree_util.tree_flatten_with_path(shapes)[0]])
+    return flat, tree
+
+
+def _inputs(cfg, rng, b=B, s=S):
+    if cfg.embedding_inputs:
+        e = rng.normal(size=(b, s, cfg.d_model)).astype(np.float32)
+        return {"embeddings": jnp.asarray(e)}, {"embeddings":
+                                                torch.from_numpy(e)}
+    toks = rng.integers(0, cfg.vocab_size, (b, s)).astype(np.int32)
+    return {"tokens": jnp.asarray(toks)}, {"tokens": torch.from_numpy(toks)}
+
+
+def _err(got, want) -> float:
+    return float(np.abs(np.asarray(got, np.float32)
+                        - np.asarray(want, np.float32)).max())
+
+
+# --------------------------------------------------------------------------- #
+# layers
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("norm", ["rmsnorm", "layernorm"])
+def test_norm_matches_reference(norm):
+    rng = np.random.default_rng(1)
+    cfg = dataclasses.replace(tconfigs.get("qwen3-0.6b").reduced(),
+                              norm=norm)
+    x = rng.normal(size=(2, 5, 64)).astype(np.float32) * 3 + 0.5
+    w = {"scale": rng.normal(size=64).astype(np.float32)}
+    if norm == "layernorm":
+        w["bias"] = rng.normal(size=64).astype(np.float32)
+    got = tlayers.norm_apply(
+        tlayers.Norm({k: torch.from_numpy(v) for k, v in w.items()}),
+        torch.from_numpy(x), cfg)
+    want = rlayers.norm_apply({k: jnp.asarray(v) for k, v in w.items()},
+                              jnp.asarray(x), cfg)
+    assert _err(got, want) <= 1e-5
+
+
+def test_rms_head_norm_and_rope_match_reference():
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(2, 7, 4, 16)).astype(np.float32)
+    scale = rng.normal(size=16).astype(np.float32)
+    pos = rng.integers(0, 3000, (2, 7))
+    assert _err(tlayers.rms_head_norm(torch.from_numpy(scale),
+                                      torch.from_numpy(x)),
+                rlayers.rms_head_norm(jnp.asarray(scale),
+                                      jnp.asarray(x))) <= 1e-5
+    for theta in (1e4, 1e6):
+        got = tlayers.rope(torch.from_numpy(x), torch.from_numpy(pos), theta)
+        want = rlayers.rope(jnp.asarray(x), jnp.asarray(pos), theta)
+        # angles up to 3000 rad: float32 cos/sin of two libraries
+        assert _err(got, want) <= 1e-4
+
+
+def _block_weights(rcfg, seed):
+    flat, tree = _random_tree(rcfg, seed)
+    return ({k[7:]: v[0] for k, v in flat.items() if k.startswith("blocks/")},
+            jax.tree.map(lambda a: a[0], tree["blocks"]))
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+@pytest.mark.parametrize("cached", [False, True])
+def test_qk_norm_attention_matches_reference(use_flash, cached):
+    rcfg, tcfg = _cfgs("qwen3-0.6b", use_flash=use_flash)
+    blk, rblk = _block_weights(rcfg, 3)
+    attn = tlayers.Attention(tcfg, {k[5:]: torch.from_numpy(v)
+                                    for k, v in blk.items()
+                                    if k.startswith("attn/")})
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, 6, 64)).astype(np.float32)
+    kw_t = dict(positions=torch.arange(3, 9)[None].expand(2, 6))
+    kw_r = dict(positions=jnp.broadcast_to(jnp.arange(3, 9)[None], (2, 6)))
+    if cached:
+        shape = (2, 12, tcfg.n_kv_heads, tcfg.resolved_head_dim)
+        kc = rng.normal(size=shape).astype(np.float32)
+        vc = rng.normal(size=shape).astype(np.float32)
+        kw_t.update(cache=(torch.from_numpy(kc.copy()),
+                           torch.from_numpy(vc.copy())), cache_pos=3)
+        kw_r.update(cache=(jnp.asarray(kc), jnp.asarray(vc)), cache_pos=3)
+    y, cache = tlayers.attention_apply(attn, torch.from_numpy(x), tcfg,
+                                       **kw_t)
+    ry, rcache = rlayers.attention_apply(rblk["attn"], jnp.asarray(x), rcfg,
+                                         **kw_r)
+    assert _err(y, ry) <= 1e-5
+    if cached:
+        for got, want in zip(cache, rcache):
+            assert _err(got, want) <= 1e-5
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "starcoder2-15b"])
+def test_mlp_matches_reference(arch):
+    rcfg, tcfg = _cfgs(arch)
+    blk, rblk = _block_weights(rcfg, 5)
+    mlp = tlayers.MLP(tcfg, {k[4:]: torch.from_numpy(v)
+                             for k, v in blk.items() if k.startswith("mlp/")})
+    x = np.random.default_rng(6).normal(size=(2, 5, 64)).astype(np.float32)
+    got = tlayers.mlp_apply(mlp, torch.from_numpy(x), tcfg)
+    want = rlayers.mlp_apply(rblk["mlp"], jnp.asarray(x), rcfg)
+    assert _err(got, want) <= 1e-5
+
+
+# --------------------------------------------------------------------------- #
+# the slice: prefill and decode
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_param_shapes_are_the_reference_tree(arch):
+    rcfg, tcfg = _cfgs(arch)
+    shapes = jax.eval_shape(
+        lambda: rtr.init_params(jax.random.PRNGKey(0), rcfg)[0])
+    want = {_path(p): tuple(sd.shape) for p, sd in
+            jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    assert tlm.param_shapes(tcfg) == want
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_match_reference(arch):
+    rcfg, tcfg = _cfgs(arch, use_flash=True)
+    flat, tree = _random_tree(rcfg)
+    model = interop.lm_params(flat, tcfg, device="cpu")
+    rng = np.random.default_rng(7)
+    rb, tb = _inputs(rcfg, rng)
+    rlogits, rcaches = rlm.prefill_step(tree, rb, rcfg, None)
+    _build.reset_launches()
+    logits, caches = tlm.prefill_step(model, tb, tcfg)
+    assert not _build.launches            # the CPU runs the plain version
+    errs = {"prefill": _err(logits, rlogits)}
+    assert logits.shape == (B, tcfg.vocab_size)
+    if not tcfg.has_decode:               # encoder-only: prefill only
+        assert caches is None and rcaches is None
+    else:
+        for key in "kv":
+            errs[f"cache {key}"] = _err(caches[key], rcaches[key])
+        big = rtr.init_decode_caches(rcfg, B, S + EXTRA)
+        big = {k: big[k].at[:, :, :S].set(rcaches[k]) for k in "kv"}
+        tok = rng.integers(0, rcfg.vocab_size, (B,)).astype(np.int32)
+        rdec, _ = rlm.decode_step(
+            tree, big, {"token": jnp.asarray(tok),
+                        "pos": jnp.asarray(S, jnp.int32)},
+            dataclasses.replace(rcfg, use_flash=False), None)
+        for flash in (True, False):
+            cfg = dataclasses.replace(tcfg, use_flash=flash)
+            tbig = ttr.init_decode_caches(cfg, B, S + EXTRA, device="cpu")
+            for key in "kv":
+                tbig[key][:, :, :S] = caches[key]
+            dec, _ = tlm.decode_step(
+                model, tbig, {"token": torch.from_numpy(tok), "pos": S}, cfg)
+            errs[f"decode flash={flash}"] = _err(dec, rdec)
+    print(arch, {k: f"{v:.2e}" for k, v in errs.items()})
+    assert max(errs.values()) <= TOL, errs
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "smollm-360m"])
+def test_plain_attention_prefill_matches_reference(arch):
+    rcfg, tcfg = _cfgs(arch, use_flash=False)
+    flat, tree = _random_tree(rcfg, seed=8)
+    model = interop.lm_params(flat, tcfg, device="cpu")
+    rb, tb = _inputs(rcfg, np.random.default_rng(9))
+    rlogits, rcaches = rlm.prefill_step(tree, rb, rcfg, None)
+    logits, caches = tlm.prefill_step(model, tb, tcfg)
+    assert _err(logits, rlogits) <= TOL
+    assert max(_err(caches[k], rcaches[k]) for k in "kv") <= TOL
+
+
+@pytest.mark.parametrize("use_flash", [True, False])
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2.5-32b"])
+def test_teacher_forced_decode_equals_forward(arch, use_flash):
+    _, cfg = _cfgs(arch, use_flash=use_flash)
+    flat, _ = _random_tree(_cfgs(arch)[0], seed=10)
+    model = interop.lm_params(flat, cfg, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    full, _, _ = ttr.forward(model, toks, cfg)
+    _, caches = tlm.prefill_step(model, {"tokens": toks[:, :8]}, cfg)
+    big = ttr.init_decode_caches(cfg, 2, 16, device="cpu")
+    for key in "kv":
+        big[key][:, :, :8] = caches[key]
+    for pos in range(8, 16):
+        logits, big = tlm.decode_step(
+            model, big, {"token": toks[:, pos], "pos": pos}, cfg)
+        assert _err(logits, full[:, pos]) <= TOL
+
+
+def test_init_params_follows_the_reference_distribution():
+    _, cfg = _cfgs("qwen3-0.6b")
+    model = tlm.init_params(cfg, device="cpu",
+                            generator=torch.Generator().manual_seed(3))
+    again = tlm.init_params(cfg, device="cpu",
+                            generator=torch.Generator().manual_seed(3))
+    assert all(torch.equal(a, b) for a, b in zip(model.parameters(),
+                                                 again.parameters()))
+    wq = model.blocks[0].attn.wq
+    assert abs(float(wq.std()) - 1 / np.sqrt(cfg.d_model)) < 0.02
+    assert torch.equal(model.ln_f.scale, torch.ones(cfg.d_model))
+
+
+def test_entry_points_default_to_the_card():
+    _, cfg = _cfgs("qwen3-0.6b")
+    if torch.cuda.is_available():
+        assert tlm.init_params(cfg).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tlm.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tlm.make_batch(cfg, "prefill_32k", np.random.default_rng(0), 2)
+
+
+@pytest.mark.parametrize("arch", ["hubert-xlarge", "qwen3-0.6b"])
+@pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k", "train_4k"])
+def test_make_batch_draws_what_the_reference_draws(arch, shape):
+    rcfg, tcfg = _cfgs(arch)
+    want = rlm.make_batch(rcfg, shape, np.random.default_rng(12), 2)
+    got = tlm.make_batch(tcfg, shape, np.random.default_rng(12), 2,
+                         device="cpu")
+    assert sorted(got) == sorted(want)
+    for key in got:
+        g = got[key]
+        g = float(g) if isinstance(g, int) else g.float().numpy()
+        assert np.array_equal(g, np.asarray(want[key], np.float32)), key
+
+
+@pytest.mark.parametrize("arch, item", [
+    ("rwkv6-3b", "item 1"), ("zamba2-7b", "item 2"),
+    ("olmoe-1b-7b", "item 4"), ("qwen3-moe-30b-a3b", "item 4")])
+def test_other_stacks_raise_naming_their_roadmap_item(arch, item):
+    _, cfg = _cfgs(arch)
+    with pytest.raises(NotImplementedError, match=item):
+        tlm.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        ttr.init_decode_caches(cfg, 1, 4, device="cpu")
+
+
+def test_lm_params_refuses_a_tree_of_another_config():
+    rcfg, tcfg = _cfgs("qwen3-0.6b")
+    flat, _ = _random_tree(rcfg)
+    with pytest.raises(ValueError, match="paths differ"):
+        interop.lm_params({k: v for k, v in flat.items() if k != "head"},
+                          tcfg, device="cpu")
+    flat["embed"] = flat["embed"][:-1]
+    with pytest.raises(ValueError, match="embed: shape"):
+        interop.lm_params(flat, tcfg, device="cpu")

@@ -56,9 +56,13 @@ def both_loops(small_lubm):
     return ref, port
 
 
-def test_interop_dataset_equals_port_generator(small_lubm):
+def test_interop_dataset_equals_port_generator():
+    from repro.graph import lubm as ref_lubm
     from repro_torch.graph import lubm
-    carried = _port_dataset(small_lubm)
+    # a freshly generated reference dataset: the memoized one that
+    # ``small_lubm`` shares across the process may already carry triples
+    # that write-path tests inserted
+    carried = _port_dataset(ref_lubm.generate(1, 0))
     own = lubm.load(1, seed=0)
     np.testing.assert_array_equal(carried.store.triples, own.store.triples)
     assert carried.queries == own.queries
@@ -128,9 +132,26 @@ svc.query_batch(window)
 rep = svc.adapt(ds.workload([f"EQ{i}" for i in range(1, 11)]))
 svc.drain()
 svc.query_batch(window)
+import dataclasses
+import numpy as np
+from repro_torch import configs
+from repro_torch.models import lm
+cfg = dataclasses.replace(configs.get("qwen3-0.6b").reduced(), use_flash=True)
+model = lm.init_params(cfg, device="cpu")
+batch = lm.make_batch(cfg, "prefill_32k", np.random.default_rng(0), 2,
+                      device="cpu")
+batch["tokens"] = batch["tokens"][:, :12]
+logits, caches = lm.prefill_step(model, batch, cfg)
+big = lm.transformer.init_decode_caches(cfg, 2, 14, device="cpu")
+for key in "kv":
+    big[key][:, :, :12] = caches[key]
+for pos in (12, 13):
+    logits, big = lm.decode_step(
+        model, big, {"token": logits.argmax(-1), "pos": pos}, cfg)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
-print(json.dumps({"accepted": rep.accepted, "bad": bad}))
+print(json.dumps({"accepted": rep.accepted, "bad": bad,
+                  "logits": list(logits.shape)}))
 """
 
 
@@ -140,7 +161,7 @@ def test_port_loop_loads_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got == {"accepted": True, "bad": []}
+    assert got == {"accepted": True, "bad": [], "logits": [2, 128]}
 
 
 def test_default_device_is_the_card(small_lubm):
