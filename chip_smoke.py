@@ -1,6 +1,6 @@
 """Smoke run of repro_torch on one CUDA card: build the kernels, hold each
-against its plain PyTorch version, drive the AWAPart serving loop end to
-end on the card, and report.
+against its plain PyTorch version, drive the AWAPart serving loop and the
+LM serving paths end to end on the card, and report.
 
     python3 chip_smoke.py
 
@@ -42,7 +42,23 @@ Phases (any failure raises and ends the run with a nonzero exit):
 7. the flash kernel against its plain version at the prefill and decode
    shapes of phase 6 and at edge cases, timed as in phase 4 beside
    ``scaled_dot_product_attention`` and its bound (the larger of its bytes
-   over 3.35 TB/s and its operations over 989 TFLOP/s bf16).
+   over 3.35 TB/s and its operations over 989 TFLOP/s bf16);
+8. rwkv6-3b serving, the port's third path: full width and depth (random
+   weights from a seeded generator, bf16 compute, the time mix in float32)
+   serves 4 prompts of 2048 tokens with one ``lm.prefill_step`` and 32
+   greedy ``lm.decode_step``s. Launch counts are reset just before and read
+   just after; the WKV kernel must launch once per layer in the prefill and
+   in every decode step. Then: wall times, tokens/s, peak and resident
+   memory, the idle share over a decode step and a prefill and the WKV
+   kernel's share of the prefill's device time (``torch.profiler``), and
+   checks (e) prefill(S) plus one decode step against prefill(S + 1) in
+   bf16, (c) 64 positions decoded one at a time from the zero state against
+   the uncached forward, at full width in float32 (the bf16 numbers and the
+   bf16-vs-float32 forward are printed beside it), (d) the reduced config in
+   float32 on the card against the CPU;
+9. the WKV kernel against its plain version at the prefill and decode
+   shapes of phase 8 and at edge cases, timed as in phase 4 beside its
+   bound (bytes over 3.35 TB/s, operations over 67 TFLOP/s float32).
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -272,14 +288,17 @@ def _exact(name, got, want) -> int:
 
 def kernel_row(rows, launches, name, source, replaces, err, fn, plain,
                library, n_bytes, n_ops, note, *,
-               ops_per_s=SCALAR_OPS_PER_S, ops_rate="67 TOP/s"):
-    """Time ``fn`` (the kernel's wrapper), ``plain`` and ``library`` on the
-    card, log them beside the bound from ``n_bytes`` and ``n_ops``, and
-    append the kernel's row (its main-path ``launches``) to ``rows``."""
-    ms, plain_ms = device_ms(fn), device_ms(plain)
+               ops_per_s=SCALAR_OPS_PER_S, ops_rate="67 TOP/s",
+               plain_reps=20):
+    """Time ``fn`` (the kernel's wrapper), ``plain`` (``plain_reps`` calls
+    per measurement, fewer where it is slow) and ``library`` on the card,
+    log them beside the bound from ``n_bytes`` and ``n_ops``, and append the
+    kernel's row (its main-path ``launches``) to ``rows``."""
+    ms, plain_ms = device_ms(fn), device_ms(plain, reps=plain_reps)
     assert ms > 0, f"{name}: the profiler recorded no kernel time"
     library_ms = None if library is None else device_ms(library)
-    calls = [call_ms(f) for f in (fn, plain)]
+    calls = [call_ms(fn),
+             call_ms(plain, reps=plain_reps, runs=min(7, plain_reps))]
     bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s) * 1e3
     bound_by = ("bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / ops_per_s
                 else "operations")
@@ -487,20 +506,60 @@ LM_BF16_REL = 2.0 ** -4
 FLASH = "flash_attention_fwd"
 
 
-def _mem(tag) -> None:
-    log(f"[lm] {tag}: max_memory_allocated "
+def _mem(tag, prefix="lm") -> None:
+    log(f"[{prefix}] {tag}: max_memory_allocated "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, "
         f"memory_allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB")
 
 
-def _close_bf16(what, got, want) -> float:
+def _close_bf16(what, got, want, prefix="lm") -> float:
     """max |got - want| <= LM_BF16_REL * max |want|; returns the error."""
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
-    log(f"[lm] check {what}: max abs diff {err:.4f}, max |logit| "
+    log(f"[{prefix}] check {what}: max abs diff {err:.4f}, max |logit| "
         f"{scale:.4f}, ratio {err / scale:.5f} (limit {LM_BF16_REL})")
     assert torch.isfinite(got).all() and err <= LM_BF16_REL * scale, what
     return err
+
+
+def _profile_idle(label, run, ref_wall, prefix, share_of=None) -> None:
+    """The card's busy time and idle share over one call of ``run``
+    (``torch.profiler``), against the unprofiled ``ref_wall`` too; with
+    ``share_of``, the share of device time of the kernels whose name holds
+    it."""
+    prof = torch.profiler
+    acts = [prof.ProfilerActivity.CPU, prof.ProfilerActivity.CUDA]
+    for attempt in range(4):           # an empty trace is taken again
+        torch.cuda.synchronize()
+        with prof.profile(activities=acts) as p:
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        dev_ev = [e for e in p.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if dev_ev:
+            break
+        log(f"[profile] empty device trace (attempt {attempt + 1})")
+    assert dev_ev, f"{label}: the profiler recorded no device work"
+    busy = sum(e.device_time_total for e in dev_ev) / 1e6
+    by_name = {}
+    for e in dev_ev:
+        n, t_us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t_us + e.device_time_total)
+    log(f"[{prefix}] profile {label}: wall {wall * 1e3:.3f} ms under the "
+        f"profiler, device busy {busy * 1e3:.3f} ms, idle share "
+        f"{1 - busy / wall:.4f}; against the unprofiled wall "
+        f"{ref_wall * 1e3:.3f} ms: idle share {1 - busy / ref_wall:.4f}; "
+        f"{len(dev_ev)} device operations")
+    for name, (n, t_us) in sorted(by_name.items(),
+                                  key=lambda kv: -kv[1][1])[:8]:
+        log(f"[{prefix}]   {t_us / 1e3:9.3f} ms  {n:5d}x  {name[:90]}")
+    if share_of is not None:
+        mine = sum(t_us for name, (_, t_us) in by_name.items()
+                   if share_of in name) / 1e6
+        log(f"[{prefix}] {label}: kernels named '{share_of}' take "
+            f"{mine * 1e3:.3f} ms, {mine / busy:.4f} of the device time")
 
 
 def _fill_cache(cfg, caches, n, dev, transformer):
@@ -583,41 +642,12 @@ def lm_serving():
     assert per_step == [cfg.n_layers] * LM_NEW, per_step
 
     # the card's busy and idle share over one decode step (the last step
-    # again: it rewrites slot 2079 with the same token's k/v)
-    prof = torch.profiler
-    acts = [prof.ProfilerActivity.CPU, prof.ProfilerActivity.CUDA]
-    for label, run in (
-            ("decode step", lambda: lm.decode_step(
-                model, caches, {"token": last_tok, "pos": LM_CACHE - 1},
-                cfg)),
-            ("prefill", lambda: lm.prefill_step(model, batch, cfg))):
-        for attempt in range(4):       # an empty trace is taken again
-            torch.cuda.synchronize()
-            with prof.profile(activities=acts) as p:
-                t = time.perf_counter()
-                run()
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t
-            dev_ev = [e for e in p.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
-            if dev_ev:
-                break
-            log(f"[profile] empty device trace (attempt {attempt + 1})")
-        assert dev_ev, f"{label}: the profiler recorded no device work"
-        busy = sum(e.device_time_total for e in dev_ev) / 1e6
-        ref_wall = decode_s / LM_NEW if label == "decode step" else prefill_s
-        by_name = {}
-        for e in dev_ev:
-            n, t_us = by_name.get(e.name, (0, 0.0))
-            by_name[e.name] = (n + 1, t_us + e.device_time_total)
-        log(f"[lm] profile {label}: wall {wall * 1e3:.3f} ms under the "
-            f"profiler, device busy {busy * 1e3:.3f} ms, idle share "
-            f"{1 - busy / wall:.4f}; against the unprofiled wall "
-            f"{ref_wall * 1e3:.3f} ms: idle share "
-            f"{1 - busy / ref_wall:.4f}; {len(dev_ev)} device operations")
-        for name, (n, t_us) in sorted(by_name.items(),
-                                      key=lambda kv: -kv[1][1])[:8]:
-            log(f"[lm]   {t_us / 1e3:9.3f} ms  {n:5d}x  {name[:90]}")
+    # again: it rewrites slot 2079 with the same token's k/v) and a prefill
+    _profile_idle("decode step", lambda: lm.decode_step(
+        model, caches, {"token": last_tok, "pos": LM_CACHE - 1}, cfg),
+        decode_s / LM_NEW, "lm")
+    _profile_idle("prefill", lambda: lm.prefill_step(model, batch, cfg),
+                  prefill_s, "lm")
 
     # (b) the plain attention path on the same requests
     plain_logits, plain_caches = lm.prefill_step(model, batch, plain_cfg)
@@ -761,8 +791,7 @@ def flash_kernel(rows, launches):
         qd.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2),
         enable_gqa=True)
     lib_err = float((lib().transpose(1, 2).float() - got.float()).abs().max())
-    decode_rows = []
-    kernel_row(decode_rows, launches, FLASH, src, replaces, err,
+    kernel_row(rows, launches, FLASH, src, replaces, err,
                lambda: FA.flash_attention(qd, kd, vd, **kw),
                lambda: FA.flash_attention_plain(qd, kd, vd, **kw), lib,
                2 * (2 * qd.numel() + 2 * kd.numel()),
@@ -772,7 +801,300 @@ def flash_kernel(rows, launches):
                f"scaled_dot_product_attention(enable_gqa), max diff to it "
                f"{lib_err:.4f}",
                ops_per_s=TENSOR_OPS_PER_S, ops_rate="989 TFLOP/s bf16")
-    log(f"[kernels] flash decode row: {json.dumps(decode_rows[0])}")
+
+
+# --------------------------------------------------------------------------- #
+# phase 8: rwkv6-3b serving at full width and depth
+# --------------------------------------------------------------------------- #
+
+# 4 requests of 2048 prompt tokens, then 32 greedy decode steps. Cut from
+# the repo's prefill_32k shape (32 x 32768): at rwkv6-3b one layer's float32
+# time mix over 2^20 tokens holds a dozen (2^20, 2560) activations of
+# 10.7 GB and the (2^20, 5, 2560) ddlerp mix of 54 GB at once, more than
+# the card's 80 GB (the prefill is not chunked, as the reference's is not),
+# and its matrix products are about 2 PFLOP of float32. The states do not
+# grow with the sequence: 0.66 MB of WKV state per sequence and layer.
+RWKV_BATCH, RWKV_PROMPT, RWKV_NEW = 4, 2048, 32
+RWKV_TEACHER = 64       # positions of check (c), decoded from the zero state
+# check (c) in float32: decode and forward sum the same float32 products in
+# other orders (cuBLAS picks other kernels for 4 rows than for 256), about
+# 2^-18 relative over 2560 to 8960 terms; the random stack amplifies a
+# relative change of its activations by up to about 2^9 at its first
+# positions (bf16 rounding, 2^-9, moves them by up to about 0.8 of the
+# largest logit, which this phase prints), so about 2^-9 of the largest
+# logit, and the limit leaves a factor 8 above that. Not in bf16: at 32
+# layers bf16 rounding alone takes the reference's own teacher-forced
+# decode past 2^-4 of its forward (tests/test_torch_rwkv_bf16.py)
+RWKV_F32_REL = 2.0 ** -6
+WKV = "rwkv6_wkv"
+
+
+def _teacher_forced(model, cfg, prompts, transformer, lm):
+    """(forward logits, decode logits) of the first RWKV_TEACHER prompt
+    positions: the uncached forward, and one decode step per position from
+    the zero state with the prompt's own tokens."""
+    x, _ = transformer.hidden(model, prompts[:, :RWKV_TEACHER], cfg)
+    want = transformer.lm_head(model, x, cfg)
+    del x
+    caches = transformer.init_decode_caches(cfg, RWKV_BATCH, 0,
+                                            device=prompts.device)
+    got = []
+    for pos in range(RWKV_TEACHER):
+        lg, caches = lm.decode_step(model, caches, {"token": prompts[:, pos],
+                                                    "pos": pos}, cfg)
+        got.append(lg)
+    return want, torch.stack(got, 1)
+
+
+def _rel_by_position(got, want) -> str:
+    """max |got - want| over the largest |want|, overall and at positions
+    0, 1, 7 and the last."""
+    scale = float(want.abs().max())
+    by_pos = (got - want).abs().amax(dim=(0, 2)) / scale
+    picks = ", ".join(f"{i}: {float(by_pos[i]):.4f}"
+                      for i in (0, 1, 7, len(by_pos) - 1))
+    return f"ratio {float(by_pos.max()):.4f} (by position {picks})"
+
+
+def rwkv_serving():
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm, transformer
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False   # the time mix is float32
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get("rwkv6-3b"), use_flash=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = lm.init_params(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    by_dtype = {}
+    for prm in model.parameters():
+        by_dtype[str(prm.dtype)] = by_dtype.get(str(prm.dtype), 0) \
+            + prm.numel()
+    log(f"[rwkv] {cfg.arch_id}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.d_model // cfg.rwkv_head_dim} heads x "
+        f"{cfg.rwkv_head_dim}, ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{sum(by_dtype.values())} parameters counted from the tensors "
+        f"({by_dtype}; the time mix float32, the rest {cfg.compute_dtype}), "
+        f"random (seed 0), built in {time.perf_counter() - t:.2f} s")
+    _mem("weights", "rwkv")
+    prompts = torch.randint(0, cfg.vocab_size, (RWKV_BATCH, RWKV_PROMPT),
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(1), device=dev, dtype=torch.int32)
+    batch = {"tokens": prompts}
+    lm.prefill_step(model, batch, cfg)      # warm-up: cuBLAS, allocator
+    torch.cuda.synchronize()
+
+    # the main path: one prefill, 32 greedy decode steps
+    _build.reset_launches()
+    t = time.perf_counter()
+    logits, caches = lm.prefill_step(model, batch, cfg)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t
+    n_prefill = _build.launches[WKV]
+    _mem("prefill", "rwkv")
+    tok = logits.argmax(-1)
+    first_tok, per_step, out = tok, [], []
+    t = time.perf_counter()
+    for i in range(RWKV_NEW):
+        before = _build.launches[WKV]
+        logits, caches = lm.decode_step(
+            model, caches, {"token": tok, "pos": RWKV_PROMPT + i}, cfg)
+        per_step.append(_build.launches[WKV] - before)
+        if i == 0:
+            first_logits = logits
+        tok = logits.argmax(-1)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t
+    launches = dict(_build.launches)
+    _mem("decode", "rwkv")
+    generated = torch.stack(out, 1)
+    assert generated.shape == (RWKV_BATCH, RWKV_NEW)
+    assert torch.isfinite(logits).all()
+    assert all(bool(torch.isfinite(c).all()) for c in caches.values())
+    tokens = RWKV_BATCH * RWKV_PROMPT
+    log(f"[rwkv] prefill {RWKV_BATCH} x {RWKV_PROMPT} tokens: wall "
+        f"{prefill_s * 1e3:.1f} ms, {tokens / prefill_s:.0f} tokens/s")
+    log(f"[rwkv] decode {RWKV_NEW} steps x {RWKV_BATCH} sequences: wall "
+        f"{decode_s * 1e3:.1f} ms, {decode_s / RWKV_NEW * 1e3:.3f} ms per "
+        f"step, {RWKV_BATCH * RWKV_NEW / decode_s:.1f} tokens/s")
+    log(f"[rwkv] WKV launches: prefill {n_prefill}, per decode step "
+        f"{sorted(set(per_step))}, total {launches.get(WKV, 0)}")
+    # (a) one WKV launch per layer in the prefill and in every decode step
+    assert n_prefill == cfg.n_layers, n_prefill
+    assert per_step == [cfg.n_layers] * RWKV_NEW, per_step
+
+    # the card's busy and idle share over one decode step (one more step of
+    # the last token) and one prefill, and the WKV kernel's share of it
+    _profile_idle("decode step", lambda: lm.decode_step(
+        model, caches, {"token": tok, "pos": RWKV_PROMPT + RWKV_NEW}, cfg),
+        decode_s / RWKV_NEW, "rwkv", share_of="wkv")
+    _profile_idle("prefill", lambda: lm.prefill_step(model, batch, cfg),
+                  prefill_s, "rwkv", share_of="wkv")
+    del caches
+
+    # (e) state handoff: the prefill's states plus one decode step give the
+    # logits of a prefill one token longer (2049 tokens: a ragged chunk)
+    longer = torch.cat([prompts, first_tok[:, None].to(prompts.dtype)], 1)
+    want, _ = lm.prefill_step(model, {"tokens": longer}, cfg)
+    _close_bf16("(e) prefill(S) + one decode step vs prefill(S + 1)",
+                first_logits, want, "rwkv")
+    _mem("check (e)", "rwkv")
+
+    # (c) teacher-forced decode of the first 64 prompt tokens from the zero
+    # state against the uncached forward at every position, in float32 at
+    # full width and depth (the same weights). In bf16 the random stack
+    # answers rounding alone with differences beyond any bf16 limit at its
+    # first positions; both bf16 numbers are printed, neither is a check.
+    fwd16, dec16 = _teacher_forced(model, cfg, prompts, transformer, lm)
+    log(f"[rwkv] bf16 teacher-forced decode of {RWKV_TEACHER} positions vs "
+        f"forward: {_rel_by_position(dec16, fwd16)} (not a check)")
+    del model, dec16
+    torch.cuda.empty_cache()
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model = lm.init_params(cfg32, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    fwd32, dec32 = _teacher_forced(model, cfg32, prompts, transformer, lm)
+    log(f"[rwkv] bf16 forward vs float32 forward, the stack's answer to "
+        f"bf16 rounding: {_rel_by_position(fwd16, fwd32)} (not a check)")
+    err = float((dec32 - fwd32).abs().max())
+    scale = float(fwd32.abs().max())
+    log(f"[rwkv] check (c) float32 teacher-forced decode of {RWKV_TEACHER} "
+        f"positions vs forward: max abs diff {err:.6f}, max |logit| "
+        f"{scale:.4f}, ratio {err / scale:.6f} (limit {RWKV_F32_REL}); by "
+        f"position {_rel_by_position(dec32, fwd32)}")
+    assert torch.isfinite(dec32).all() and err <= RWKV_F32_REL * scale
+    del model, fwd16, fwd32, dec32
+    torch.cuda.empty_cache()
+    _mem("check (c)", "rwkv")
+
+    # (d) the reduced config in float32, on the card and on the CPU:
+    # logits of a prefill and 8 decode steps, and the final states
+    small = dataclasses.replace(configs.get("rwkv6-3b").reduced(),
+                                use_flash=True)
+    res = {}
+    for device in ("cuda", "cpu"):
+        m = lm.init_params(small, device="cpu").to(device)
+        toks = prompts[:, :24].remainder(small.vocab_size).to(device)
+        lg, c = lm.prefill_step(m, {"tokens": toks[:, :16]}, small)
+        seq = [lg]
+        for pos in range(16, 24):
+            lg, c = lm.decode_step(m, c, {"token": toks[:, pos],
+                                          "pos": pos}, small)
+            seq.append(lg)
+        res[device] = [torch.stack(seq).cpu()] + [c[k].cpu()
+                                                  for k in sorted(c)]
+    err_d = max(float((g - w).abs().max())
+                for g, w in zip(res["cuda"], res["cpu"]))
+    log(f"[rwkv] check (d) reduced rwkv6-3b in float32, prefill + 8 decode "
+        f"steps (logits and states), card vs CPU: max abs diff {err_d:.3e} "
+        f"(limit 1e-4)")
+    assert err_d <= 1e-4
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# phase 9: the WKV kernel against its plain version
+# --------------------------------------------------------------------------- #
+
+# (B, S, H, hd, decay, s0 scale): S = 1, 63, 65, 100 (ragged against the
+# kernel's 24-step chunk at hd 64), hd 16 and 128, strong decay (w about
+# 0.03) and w = 0 exactly, nonzero s0, grids under one wave of the card
+# (B * H under 132: the state columns split across blocks) and a full wave
+# of whole heads at hd 128 (blocks of 1024 threads)
+WKV_EDGES = [
+    (4, 1, 40, 64, "model", 0.5),
+    (2, 63, 8, 64, "model", 0.0),
+    (2, 65, 8, 64, "model", 0.5),
+    (1, 100, 3, 64, "model", 0.5),
+    (3, 50, 4, 16, "model", 0.5),
+    (2, 40, 4, 128, "model", 0.5),
+    (2, 64, 4, 64, "strong", 0.0),
+    (2, 64, 4, 64, "zero", 0.5),
+    (1, 300, 2, 64, "model", 0.5),
+    (33, 30, 4, 128, "model", 0.5),
+]
+
+
+def _wkv_inputs(case, gen):
+    """r, k, v ~ N(0, 1), w = exp(-exp(0.5 N(0, 1) - 2)) as the random
+    model's decays (w0 = -2), or about 0.03 (strong), or with every third
+    step 0; u = 0.1 N(0, 1) as ``rwkv6_init`` draws it."""
+    b, s, h, hd, decay, s0_scale = case
+    dev = torch.device("cuda")
+    r, k, v, z = (torch.randn((b, s, h, hd), generator=gen, device=dev)
+                  for _ in range(4))
+    w = torch.exp(-torch.exp(0.5 * z + (1.25 if decay == "strong" else -2.0)))
+    if decay == "zero":
+        w[:, ::3] = 0.0
+    u = 0.1 * torch.randn((h, hd), generator=gen, device=dev)
+    s0 = s0_scale * torch.randn((b, h, hd, hd), generator=gen, device=dev)
+    return r, k, v, w, u, s0
+
+
+def _wkv_err(got, want):
+    """Kernel against plain version: within 1e-5 of the largest magnitude
+    of y (of the state, for the state): the same float32 recurrence, the
+    sum over i taken in another order. Returns the max abs difference and
+    the larger of the two relative ones."""
+    errs, rels = [], []
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        errs.append(float((g - w).abs().max()))
+        rels.append(errs[-1] / max(float(w.abs().max()), 1e-30))
+        assert rels[-1] <= 1e-5, rels
+    return max(errs), max(rels)
+
+
+def _wkv_cost(b, s, h, hd):
+    """Bytes (r, k, v, w read and y written once each, u, s0 read and the
+    state written once) and the fewest operations the function needs, a
+    multiply-add counted as two: per (b, t, h), sum_i r_i S_ij (2 hd^2)
+    and the state update w_i S_ij + k_i v_j (3 hd^2), plus the bonus
+    v_j sum_i r_i u_i k_i (5 hd), so 5 hd^2 + 5 hd."""
+    return (4 * (5 * b * s * h * hd + h * hd + 2 * b * h * hd * hd),
+            b * s * h * (5 * hd * hd + 5 * hd))
+
+
+def wkv_kernel(rows, launches):
+    from repro_torch.kernels.rwkv6_wkv import ops as W
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    for case in WKV_EDGES:
+        args = _wkv_inputs(case, gen)
+        _, rel = _wkv_err(W.wkv(*args), W.wkv_plain(*args))
+        ms = device_ms(lambda: W.wkv(*args), reps=5)
+        plain_ms = device_ms(lambda: W.wkv_plain(*args), reps=1)
+        n_bytes, n_ops = _wkv_cost(*case[:4])
+        bound_ms = max(n_bytes / HBM_BYTES_PER_S,
+                       n_ops / SCALAR_OPS_PER_S) * 1e3
+        log(f"[kernels] {WKV} edge B, S, H, hd, decay, s0 = {case}: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms,"
+            f" max rel err {rel:.2e}")
+    torch.cuda.synchronize()
+    log(f"[kernels] {WKV} edge cases: {len(WKV_EDGES)} shapes match the "
+        "plain version")
+
+    src = "src/repro_torch/csrc/rwkv6_wkv.cu"
+    replaces = "src/repro/kernels/rwkv6_wkv/kernel.py:79"
+    h, hd = 40, 64
+    for s, reps, what in ((RWKV_PROMPT, 2, "prefill"), (1, 20, "decode")):
+        shape = (RWKV_BATCH, s, h, hd)
+        args = _wkv_inputs(shape + ("model", 0.0 if s > 1 else 0.5), gen)
+        err, rel = _wkv_err(W.wkv(*args), W.wkv_plain(*args))
+        n_bytes, n_ops = _wkv_cost(*shape)
+        kernel_row(rows, launches, WKV, src, replaces, err,
+                   lambda: W.wkv(*args), lambda: W.wkv_plain(*args), None,
+                   n_bytes, n_ops,
+                   f"{what} B={RWKV_BATCH}, S={s}, H={h}, hd={hd}, float32,"
+                   f" max rel err {rel:.2e}; no single library call "
+                   "computes it",
+                   plain_reps=reps)
 
 
 def main() -> int:
@@ -829,6 +1151,9 @@ def main() -> int:
     small_input()
     lm_launches = lm_serving()
     flash_kernel(rows, lm_launches)
+    torch.cuda.empty_cache()       # the qwen3 model and caches are gone
+    rwkv_launches = rwkv_serving()
+    wkv_kernel(rows, rwkv_launches)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi[0])
     print(json.dumps({"kernels": rows}))

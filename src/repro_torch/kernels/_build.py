@@ -47,6 +47,8 @@ SIGNATURES = {
     # q, k, v, o, B, S, T, H, K, D, causal, q_offset, kv_valid_len, dtype,
     # kv_splits, scratch, stream
     "rt_flash_attention_fwd": (_P, _P, _P, _P) + (_I64,) * 11 + (_P, _P),
+    # r, k, v, w, u, s0, y, s_out, B, S, H, hd, tile, stream
+    "rt_wkv_fwd": (_P,) * 8 + (_I64,) * 5 + (_P,),
 }
 
 # kernel name -> launches since the last reset_launches()

@@ -1,0 +1,110 @@
+"""RWKV6 WKV recurrence with data-dependent decay (forward).
+
+Counterpart of ``repro/kernels/rwkv6_wkv/ops.py``. On a CUDA tensor
+:func:`wkv` launches the Hopper kernel of ``repro_torch/csrc/rwkv6_wkv.cu``;
+on a CPU tensor it runs :func:`wkv_plain`, which repeats the kernel's
+arithmetic step by step with torch ops. Both compute the reference's
+recurrence, per (b, h), with S the (hd, hd) float32 state starting at
+``s0``:
+
+* ``y_t = r_t·(diag(u) k_t v_tᵀ + S_{t-1})``, with ``u·k_t`` formed first;
+* ``S_t = diag(w_t) S_{t-1} + k_t v_tᵀ``.
+
+The reference's gates are gone: ``use_kernel`` (the scan where the TPU
+kernel did not pay), ``S % chunk == 0`` and ``interpret``. They guarded the
+TPU's chunked closed form, whose ``exp(−L)`` needs chunks of at most 64
+steps; the CUDA kernel runs the recurrence itself, so it takes any S ≥ 0,
+ragged S and single decode steps included, and ``w = 0`` exactly.
+
+No backward: the training slice adds it as a ``torch.autograd.Function``.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _build, dispatch
+
+HEAD_DIMS = (16, 32, 64, 128)   # the kernel's compiled head sizes
+MIN_TILE = 8                    # state columns of the smallest block
+
+
+def _check(r, k, v, w, u, s0) -> None:
+    for name, t in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u),
+                    ("s0", s0)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+        if t.device != r.device:
+            raise ValueError(f"{name} on {t.device}, r on {r.device}")
+    if r.dim() != 4:
+        raise ValueError(f"r: expected (B, S, H, hd), got shape "
+                         f"{tuple(r.shape)}")
+    b, _, h, hd = r.shape
+    for name, t in (("k", k), ("v", v), ("w", w)):
+        if t.shape != r.shape:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, r has "
+                             f"{tuple(r.shape)}")
+    if u.shape != (h, hd):
+        raise ValueError(f"u: shape {tuple(u.shape)}, expected {(h, hd)}")
+    if s0.shape != (b, h, hd, hd):
+        raise ValueError(f"s0: shape {tuple(s0.shape)}, expected "
+                         f"{(b, h, hd, hd)}")
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd}: the kernel takes {HEAD_DIMS}")
+
+
+def wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's function in torch ops, one step at a time."""
+    state = s0.clone()
+    uk = u * k
+    y = torch.empty_like(r)
+    for t in range(r.shape[1]):
+        vt = v[:, t, :, None, :]
+        y[:, t] = torch.einsum("bhi,bhij->bhj", r[:, t],
+                               uk[:, t, :, :, None] * vt + state)
+        state = w[:, t, :, :, None] * state + k[:, t, :, :, None] * vt
+    return y, state
+
+
+def col_tiles(b: int, h: int, hd: int, n_sms: int) -> int:
+    """How many blocks share one (b, h): 1 when B * H blocks fill a wave
+    of the card's ``n_sms`` SMs, else the fewest powers of two that do,
+    keeping at least ``MIN_TILE`` state columns per block."""
+    tiles = 1
+    while b * h * tiles < n_sms and hd // (2 * tiles) >= MIN_TILE:
+        tiles *= 2
+    return tiles
+
+
+def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+        u: torch.Tensor, s0: torch.Tensor
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r/k/v/w (B, S, H, hd), u (H, hd), s0 (B, H, hd, hd), float32 ->
+    (y (B, S, H, hd), final state (B, H, hd, hd)). Replaces
+    ``wkv_pallas``."""
+    _check(r, k, v, w, u, s0)
+    t = dispatch.tier(r)
+    dispatch.note_tier("wkv", t)
+    if t == "torch":
+        return wkv_plain(r, k, v, w, u, s0)
+    for name, x in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
+        if x.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel reads 16-byte groups; the "
+                             "tensor's storage is not 16-byte aligned")
+    b, s, h, hd = r.shape
+    y = torch.empty_like(r)
+    s_out = torch.empty_like(s0)
+    if b and h:
+        n_sms = torch.cuda.get_device_properties(
+            r.device).multi_processor_count
+        tile = hd // col_tiles(b, h, hd, n_sms)
+        _build.launch("rwkv6_wkv", "rt_wkv_fwd", r.device, r.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
+                      s0.data_ptr(), y.data_ptr(), s_out.data_ptr(), b, s, h,
+                      hd, tile)
+    return y, s_out

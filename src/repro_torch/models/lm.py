@@ -14,16 +14,30 @@ import torch
 
 from repro_torch.configs.base import SHAPES, ArchConfig
 from repro_torch.kernels import dispatch
-from repro_torch.models import transformer
+from repro_torch.models import rwkv, transformer
 from repro_torch.models.layers import dtype
 
 Batch = Dict[str, torch.Tensor]
 
 
+def _rwkv_block_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
+    """One RWKV6 block's ``tm`` leaves (``rwkv6_init``'s tree)."""
+    d, f, lora = cfg.d_model, cfg.d_ff, cfg.rwkv_lora_dim
+    nh, hd, mix = rwkv.n_heads(cfg), cfg.rwkv_head_dim, rwkv.MIX_LORA
+    blk = {"mu_x": (d,), "mu": (5, d), "mix_w1": (d, 5 * mix),
+           "mix_w2": (5, mix, d), "w0": (d,), "decay_w1": (d, lora),
+           "decay_w2": (lora, d), "u": (nh, hd)}
+    blk.update({name: (d, d) for name in ("wr", "wk", "wv", "wg", "wo")})
+    blk.update({"ln_x_scale": (d,), "ln_x_bias": (d,), "cm_mu_k": (d,),
+                "cm_mu_r": (d,), "cm_k": (d, f), "cm_v": (f, d),
+                "cm_r": (d, d)})
+    return {f"tm/{name}": s for name, s in blk.items()}
+
+
 def param_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
-    """The reference's parameter tree for an attention-family config,
-    keyed by path, blocks stacked on a leading ``layers`` axis."""
-    transformer.require_attention_family(cfg)
+    """The reference's parameter tree for an attention-family or RWKV6
+    config, keyed by path, blocks stacked on a leading ``layers`` axis."""
+    transformer.require_ported(cfg)
     d, h, k = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     hd, f, v, n = cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size, \
         cfg.n_layers
@@ -35,6 +49,13 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
         shapes[f"ln_f/{name}"] = (d,)
     if not cfg.tied_embeddings:
         shapes["head"] = (d, v)
+    if cfg.rwkv:
+        blk = _rwkv_block_shapes(cfg)
+        for ln in ("ln1", "ln2"):
+            for name in norm:
+                blk[f"{ln}/{name}"] = (d,)
+        shapes.update({f"blocks/{key}": (n,) + s for key, s in blk.items()})
+        return shapes
     blk = {"attn/wq": (d, h, hd), "attn/wk": (d, k, hd),
            "attn/wv": (d, k, hd), "attn/wo": (h, hd, d)}
     if cfg.qkv_bias:
@@ -61,13 +82,21 @@ def _fan_in(path: str, shape: tuple, cfg: ArchConfig) -> int:
     return shape[1] if path.startswith("blocks/") else shape[0]
 
 
+# RWKV6 leaves the reference initialises otherwise (``rwkv6_init``):
+# constants, and normals at a fixed scale instead of 1/sqrt(fan_in)
+RWKV_CONSTANTS = {"mu_x": 0.5, "mu": 0.5, "cm_mu_k": 0.5, "cm_mu_r": 0.5,
+                  "w0": -2.0, "ln_x_scale": 1.0, "ln_x_bias": 0.0}
+RWKV_NORMAL_SCALES = {"mix_w2": 0.01, "decay_w2": 0.01, "u": 0.1}
+
+
 def init_params(cfg: ArchConfig, *, device="cuda",
                 generator: Optional[torch.Generator] = None
                 ) -> transformer.Transformer:
     """Random weights in the reference's distribution (normal scaled by
-    1/sqrt(fan_in) for matrices, ones for norm scales, zeros for biases),
-    drawn on ``device`` from ``generator`` (a generator on that device;
-    seed 0 when omitted)."""
+    1/sqrt(fan_in) for matrices, ones for norm scales, zeros for biases;
+    RWKV6's ``tm`` leaves as ``rwkv6_init`` draws them), drawn on
+    ``device`` from ``generator`` (a generator on that device; seed 0 when
+    omitted)."""
     dev = dispatch.resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -75,7 +104,13 @@ def init_params(cfg: ArchConfig, *, device="cuda",
     flat = {}
     for path, shape in param_shapes(cfg).items():
         leaf = path.rsplit("/", 1)[-1]
-        if leaf in ("scale", "q_norm", "k_norm"):
+        rwkv_leaf = cfg.rwkv and path.startswith("blocks/tm/")
+        if rwkv_leaf and leaf in RWKV_CONSTANTS:
+            t = torch.full(shape, RWKV_CONSTANTS[leaf], device=dev)
+        elif rwkv_leaf and leaf in RWKV_NORMAL_SCALES:
+            t = torch.randn(shape, generator=generator, device=dev)
+            t *= RWKV_NORMAL_SCALES[leaf]
+        elif leaf in ("scale", "q_norm", "k_norm"):
             t = torch.ones(shape, device=dev)
         elif leaf.startswith("b"):
             t = torch.zeros(shape, device=dev)

@@ -1,16 +1,18 @@
 """Layer stacks: the attention family (dense / VLM / audio-encoder
-transformers).
+transformers) and RWKV6.
 
 Counterpart of ``repro/models/transformer.py``. The reference stacks each
 block's parameters on a leading ``layers`` axis and runs ``lax.scan``; here
 the blocks are an ``nn.ModuleList`` walked by a Python loop, built from the
 same stacked tensors (``Transformer(cfg, flat)``). Caches keep the
-reference's layout, ``{"k": (L, B, T, K, D), "v": ...}`` in the compute
-dtype, and are written in place.
+reference's layouts and are written in place: ``{"k": (L, B, T, K, D),
+"v": ...}`` in the compute dtype for the attention family;
+``{"tm_shift": (L, B, d), "cm_shift": (L, B, d), "wkv": (L, B, H, hd,
+hd)}``, all float32, for RWKV6.
 
 The reference's other stacks are later slices of the port and raise
-``NotImplementedError`` here: RWKV6 (ROADMAP Queue 1, item 1), Mamba2 SSM
-and the zamba2 hybrid (item 2), and mixture-of-experts blocks (item 4).
+``NotImplementedError`` here: Mamba2 SSM and the zamba2 hybrid (ROADMAP
+Queue 1, item 2), and mixture-of-experts blocks (item 4).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import rwkv
 from repro_torch.models.layers import (MLP, Attention, Norm, _param,
                                        attention_apply, dtype, mlp_apply,
                                        norm_apply)
@@ -28,13 +31,9 @@ from repro_torch.models.layers import (MLP, Attention, Norm, _param,
 Caches = Dict[str, torch.Tensor]
 
 
-def require_attention_family(cfg: ArchConfig) -> None:
+def require_ported(cfg: ArchConfig) -> None:
     """Raise for a config whose stack this package does not run yet."""
-    if cfg.rwkv:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the RWKV6 stack is not ported yet (ROADMAP "
-            "Queue 1, item 1: rwkv6-3b serving with the WKV kernel)")
-    if cfg.family in ("ssm", "hybrid"):
+    if cfg.family in ("ssm", "hybrid") and not cfg.rwkv:
         raise NotImplementedError(
             f"{cfg.arch_id}: the Mamba2 SSM and hybrid stacks are not ported "
             "yet (ROADMAP Queue 1, item 2: the SSD op, then zamba2)")
@@ -89,7 +88,7 @@ class Transformer(nn.Module):
         (``"embed"``, ``"ln_f/scale"``, ``"blocks/attn/wq"``, ...), blocks
         stacked on a leading ``layers`` axis, in the parameter dtype."""
         super().__init__()
-        require_attention_family(cfg)
+        require_ported(cfg)
         cd = dtype(cfg.compute_dtype)
         self.embed = (None if cfg.embedding_inputs
                       else _param(flat["embed"], cd))
@@ -103,8 +102,9 @@ class Transformer(nn.Module):
             if v.shape[0] != cfg.n_layers:
                 raise ValueError(f"blocks/{k}: {v.shape[0]} layers, config "
                                  f"has {cfg.n_layers}")
+        block = rwkv.RWKVBlock if cfg.rwkv else Block
         self.blocks = nn.ModuleList(
-            Block(cfg, {k: v[i] for k, v in stacked.items()})
+            block(cfg, {k: v[i] for k, v in stacked.items()})
             for i in range(cfg.n_layers))
 
     @property
@@ -132,15 +132,26 @@ def hidden(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
            collect_cache: bool = False
            ) -> Tuple[torch.Tensor, Optional[Caches]]:
     """The forward through the blocks, before the final norm: (B, S, d)
-    activations and, with ``collect_cache``, the (L, B, S, K, D) caches
-    sized S."""
-    require_attention_family(cfg)
+    activations and, with ``collect_cache``, the decode caches: (L, B, S,
+    K, D) key/value caches sized S, or RWKV6's states after position S-1
+    (shift states cast to float32, as the reference's forward casts them
+    when it collects them)."""
+    require_ported(cfg)
     if cfg.embedding_inputs:
         x = inputs.to(dtype(cfg.compute_dtype))
         b, s = x.shape[:2]
     else:
         x = embed_tokens(p, inputs, cfg)
         b, s = inputs.shape
+    if cfg.rwkv:
+        caches = (init_decode_caches(cfg, b, s, device=x.device)
+                  if collect_cache else None)
+        for i, blk in enumerate(p.blocks):
+            x, st = rwkv.rwkv_block_apply(blk, x, cfg)
+            if caches is not None:
+                for key, val in st.items():
+                    caches[key][i].copy_(val)
+        return x, caches
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     if not collect_cache:
         for blk in p.blocks:
@@ -168,7 +179,13 @@ def forward(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
 
 def init_decode_caches(cfg: ArchConfig, batch: int, max_len: int, *,
                        device="cuda") -> Caches:
-    require_attention_family(cfg)
+    """Zero caches for ``batch`` sequences of up to ``max_len`` positions
+    (RWKV6's states do not grow: ``max_len`` is unused there)."""
+    require_ported(cfg)
+    if cfg.rwkv:
+        st = rwkv.rwkv_init_state(cfg, cfg.n_layers * batch, device=device)
+        return {key: val.reshape(cfg.n_layers, batch, *val.shape[1:])
+                for key, val in st.items()}
     kshape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
               cfg.resolved_head_dim)
     cd = dtype(cfg.compute_dtype)
@@ -179,8 +196,17 @@ def init_decode_caches(cfg: ArchConfig, batch: int, max_len: int, *,
 def decode_step(p: Transformer, caches: Caches, token: torch.Tensor,
                 pos: int, cfg: ArchConfig):
     """token: (B,) ids, pos: int -> (logits (B, V) float32, caches). The
-    caches are updated in place at ``pos`` and returned."""
-    require_attention_family(cfg)
+    caches are updated in place (at ``pos`` for the attention family;
+    RWKV6's states do not read ``pos``) and returned."""
+    require_ported(cfg)
+    if cfg.rwkv:
+        x = embed_tokens(p, token, cfg)                  # (B, d)
+        for i, blk in enumerate(p.blocks):
+            x, st = rwkv.rwkv_block_decode(
+                blk, x, {key: val[i] for key, val in caches.items()}, cfg)
+            for key, val in st.items():
+                caches[key][i].copy_(val)
+        return lm_head(p, x[:, None], cfg)[:, 0], caches
     pos = int(pos)
     x = embed_tokens(p, token[:, None], cfg)            # (B, 1, d)
     positions = torch.full((x.shape[0], 1), pos, dtype=torch.int64,

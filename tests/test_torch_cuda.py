@@ -16,6 +16,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.kernels.jaccard import ops as jac
 from repro_torch.kernels.join import ops as J
+from repro_torch.kernels.rwkv6_wkv import ops as W
 
 pytestmark = pytest.mark.cuda
 
@@ -195,3 +196,93 @@ def test_lm_on_card_matches_cpu_and_launches_once_per_layer(dev):
             assert _build.launches["flash_attention_fwd"] == \
                 cfg.n_layers * 5
     assert torch.allclose(out["cuda"], out["cpu"], atol=1e-4, rtol=0)
+
+
+# (B, S, H, hd, w, s0 scale): ragged S around the kernel's 24-step chunk at
+# hd 64 (S = 1, 63, 65, 100), hd 16 and 128, strong decay (w about 0.03)
+# and w = 0 exactly, nonzero s0, grids under one wave (column tiles) and a
+# full wave of whole heads at hd 128 (blocks of 1024 threads)
+WKV_CASES = [
+    (4, 1, 40, 64, "model", 0.5),
+    (2, 63, 8, 64, "model", 0.0),
+    (2, 65, 8, 64, "model", 0.5),
+    (1, 100, 3, 64, "model", 0.5),
+    (3, 50, 4, 16, "model", 0.5),
+    (2, 40, 4, 128, "model", 0.5),
+    (2, 64, 4, 64, "strong", 0.0),
+    (2, 64, 4, 64, "zero", 0.5),
+    (1, 300, 2, 64, "model", 0.5),
+    (160, 5, 1, 32, "model", 0.5),
+    (33, 30, 4, 128, "model", 0.5),
+]
+
+
+def _wkv_inputs(case, dev):
+    b, s, h, hd, decay, s0_scale = case
+    g = torch.Generator(device=dev).manual_seed(sum(case[:4]))
+    r, k, v, logit = (torch.randn((b, s, h, hd), generator=g, device=dev)
+                      for _ in range(4))
+    w = torch.exp(-torch.exp(logit * 0.5 + (1.25 if decay == "strong"
+                                             else -2.0)))
+    if decay == "zero":
+        w[:, ::3] = 0.0
+    u = 0.1 * torch.randn((h, hd), generator=g, device=dev)
+    s0 = s0_scale * torch.randn((b, h, hd, hd), generator=g, device=dev)
+    return r, k, v, w, u, s0
+
+
+@pytest.mark.parametrize("case", WKV_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_wkv_kernel_matches_plain(dev, case):
+    args = _wkv_inputs(case, dev)
+    y, st = W.wkv(*args)
+    py, pst = W.wkv_plain(*args)
+    torch.cuda.synchronize()
+    assert _build.launches["rwkv6_wkv"] == 1
+    assert y.shape == py.shape and st.shape == pst.shape
+    # the same float32 recurrence, the sum over i in another order
+    for got, want in ((y, py), (st, pst)):
+        assert bool(torch.isfinite(got).all())
+        err = float((got - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), err
+
+
+def test_wkv_kernel_with_no_steps_returns_the_state(dev):
+    r, k, v, w, u, s0 = _wkv_inputs((2, 0, 3, 64, "model", 1.0), dev)
+    y, st = W.wkv(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    assert y.shape == (2, 0, 3, 64) and torch.equal(st, s0)
+
+
+def test_rwkv_on_card_matches_cpu_and_launches_once_per_layer(dev):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(configs.get("rwkv6-3b").reduced(),
+                              use_flash=True)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 16))
+                            .astype(np.int32))
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = lm.init_params(cfg, device="cpu").to(device)
+        _build.reset_launches()
+        logits, caches = lm.prefill_step(
+            model, {"tokens": toks[:, :12].to(device)}, cfg)
+        n_prefill = _build.launches["rwkv6_wkv"]
+        steps = [logits]
+        for pos in range(12, 16):
+            logits, caches = lm.decode_step(
+                model, caches, {"token": toks[:, pos].to(device),
+                                "pos": pos}, cfg)
+            steps.append(logits)
+        out[device] = (torch.stack(steps).cpu(),
+                       [caches[k].cpu() for k in sorted(caches)])
+        if device == "cuda":
+            assert n_prefill == cfg.n_layers
+            assert _build.launches["rwkv6_wkv"] == cfg.n_layers * 5
+    assert torch.allclose(out["cuda"][0], out["cpu"][0], atol=1e-4, rtol=0)
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        assert torch.allclose(got, want, atol=1e-4, rtol=1e-5)

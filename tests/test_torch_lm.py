@@ -24,12 +24,14 @@ import torch
 import repro.configs as rconfigs
 from repro.models import layers as rlayers
 from repro.models import lm as rlm
+from repro.models import rwkv as rrwkv
 from repro.models import transformer as rtr
 import repro_torch.configs as tconfigs
 from repro_torch import interop
 from repro_torch.kernels import _build
 from repro_torch.models import layers as tlayers
 from repro_torch.models import lm as tlm
+from repro_torch.models import rwkv as trwkv
 from repro_torch.models import transformer as ttr
 
 TOL = 1e-4
@@ -186,7 +188,7 @@ def test_mlp_matches_reference(arch):
 # the slice: prefill and decode
 # --------------------------------------------------------------------------- #
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ["rwkv6-3b"])
 def test_param_shapes_are_the_reference_tree(arch):
     rcfg, tcfg = _cfgs(arch)
     shapes = jax.eval_shape(
@@ -303,8 +305,8 @@ def test_make_batch_draws_what_the_reference_draws(arch, shape):
 
 
 @pytest.mark.parametrize("arch, item", [
-    ("rwkv6-3b", "item 1"), ("zamba2-7b", "item 2"),
-    ("olmoe-1b-7b", "item 4"), ("qwen3-moe-30b-a3b", "item 4")])
+    ("zamba2-7b", "item 2"), ("olmoe-1b-7b", "item 4"),
+    ("qwen3-moe-30b-a3b", "item 4")])
 def test_other_stacks_raise_naming_their_roadmap_item(arch, item):
     _, cfg = _cfgs(arch)
     with pytest.raises(NotImplementedError, match=item):
@@ -322,3 +324,190 @@ def test_lm_params_refuses_a_tree_of_another_config():
     flat["embed"] = flat["embed"][:-1]
     with pytest.raises(ValueError, match="embed: shape"):
         interop.lm_params(flat, tcfg, device="cpu")
+
+
+# --------------------------------------------------------------------------- #
+# RWKV6 (reduced rwkv6-3b: 2 layers, d_model 64, 4 heads x 16, float32).
+# The reference's prefill runs its Pallas WKV kernel in interpret mode under
+# use_flash=True and its scan otherwise; its decode always scans. The port
+# runs its WKV op (here the plain version) in both.
+# --------------------------------------------------------------------------- #
+
+RWKV = "rwkv6-3b"
+RWKV_CACHES = ("tm_shift", "cm_shift", "wkv")
+
+
+def _rwkv_model(seed=0, **kw):
+    rcfg, tcfg = _cfgs(RWKV, **kw)
+    flat, tree = _random_tree(rcfg, seed)
+    return rcfg, tcfg, tree, interop.lm_params(flat, tcfg, device="cpu")
+
+
+def _tokens(cfg, seed, b=B, s=S):
+    return np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)
+
+
+def _rel_err(got, want) -> float:
+    """Max abs difference over the largest magnitude: the WKV states grow
+    to magnitudes of 10 and more, where 1e-5 absolute is below float32's
+    step."""
+    return _err(got, want) / float(np.abs(np.asarray(want)).max())
+
+
+def _rwkv_block(rcfg, tcfg, seed):
+    blk, rblk = _block_weights(rcfg, seed)
+    return trwkv.RWKVBlock(tcfg, {k: torch.from_numpy(v)
+                                  for k, v in blk.items()}), rblk
+
+
+@pytest.mark.parametrize("part", ["time_mix", "time_mix_state",
+                                  "channel_mix"])
+def test_rwkv_mixes_match_reference(part):
+    rcfg, tcfg = _cfgs(RWKV)
+    blk, rblk = _rwkv_block(rcfg, tcfg, 13)
+    rng = np.random.default_rng(14)
+    x = rng.normal(size=(2, 6, 64)).astype(np.float32)
+    xs = rng.normal(size=(2, 6, 64)).astype(np.float32)
+    if part == "channel_mix":
+        got = trwkv.channel_mix(blk.cm, torch.from_numpy(x),
+                                torch.from_numpy(xs), tcfg)
+        want = rrwkv.channel_mix(rblk["tm"], jnp.asarray(x), jnp.asarray(xs),
+                                 rcfg)
+        assert _err(got, want) <= 1e-5
+        return
+    st = None
+    if part == "time_mix_state":
+        st = rng.normal(size=(2, 4, 16, 16)).astype(np.float32)
+    y, new = trwkv.time_mix(blk.tm, torch.from_numpy(x), torch.from_numpy(xs),
+                            None if st is None else torch.from_numpy(st),
+                            tcfg)
+    ry, rnew = rrwkv.time_mix(rblk["tm"], jnp.asarray(x), jnp.asarray(xs),
+                              None if st is None else jnp.asarray(st), rcfg)
+    assert _err(y, ry) <= 1e-5 and _rel_err(new, rnew) <= 1e-5
+
+
+def test_rwkv_block_decode_matches_reference():
+    rcfg, tcfg = _cfgs(RWKV)
+    blk, rblk = _rwkv_block(rcfg, tcfg, 15)
+    rng = np.random.default_rng(16)
+    x = rng.normal(size=(3, 64)).astype(np.float32)
+    st = {"tm_shift": rng.normal(size=(3, 64)),
+          "cm_shift": rng.normal(size=(3, 64)),
+          "wkv": rng.normal(size=(3, 4, 16, 16))}
+    st = {k: v.astype(np.float32) for k, v in st.items()}
+    y, new = trwkv.rwkv_block_decode(
+        blk, torch.from_numpy(x), {k: torch.from_numpy(v)
+                                   for k, v in st.items()}, tcfg)
+    ry, rnew = rrwkv.rwkv_block_decode(
+        rblk, jnp.asarray(x), {k: jnp.asarray(v) for k, v in st.items()},
+        rcfg)
+    assert _err(y, ry) <= 1e-5
+    assert max(_rel_err(new[k], rnew[k]) for k in RWKV_CACHES) <= 1e-5
+
+
+@pytest.mark.parametrize("ref_flash", [True, False])
+def test_rwkv_prefill_matches_reference(ref_flash):
+    """Logits and all three caches against the reference's prefill through
+    its interpret-mode Pallas kernel and through its scan."""
+    rcfg, tcfg, tree, model = _rwkv_model(use_flash=True)
+    toks = _tokens(tcfg, 17)
+    rlogits, rcaches = rlm.prefill_step(
+        tree, {"tokens": jnp.asarray(toks)},
+        dataclasses.replace(rcfg, use_flash=ref_flash), None)
+    _build.reset_launches()
+    logits, caches = tlm.prefill_step(model, {"tokens":
+                                              torch.from_numpy(toks)}, tcfg)
+    assert not _build.launches            # the CPU runs the plain version
+    assert logits.shape == (B, tcfg.vocab_size)
+    errs = {"logits": _err(logits, rlogits)}
+    for key in RWKV_CACHES:
+        assert caches[key].dtype == torch.float32
+        assert tuple(caches[key].shape) == rcaches[key].shape
+        errs[key] = _err(caches[key], rcaches[key])
+    print({k: f"{v:.2e}" for k, v in errs.items()})
+    assert max(errs.values()) <= TOL, errs
+
+
+def test_rwkv_decode_matches_reference_for_eight_steps():
+    rcfg, tcfg, tree, model = _rwkv_model(seed=1, use_flash=True)
+    toks = _tokens(tcfg, 18, s=S + 8)
+    _, rcaches = rlm.prefill_step(tree, {"tokens": jnp.asarray(toks[:, :S])},
+                                  rcfg, None)
+    _, caches = tlm.prefill_step(
+        model, {"tokens": torch.from_numpy(toks[:, :S])}, tcfg)
+    for pos in range(S, S + 8):
+        rlogits, rcaches = rlm.decode_step(
+            tree, rcaches, {"token": jnp.asarray(toks[:, pos]),
+                            "pos": jnp.asarray(pos, jnp.int32)}, rcfg, None)
+        logits, caches = tlm.decode_step(
+            model, caches, {"token": torch.from_numpy(toks[:, pos]),
+                            "pos": pos}, tcfg)
+        assert _err(logits, rlogits) <= TOL, pos
+    assert max(_err(caches[k], rcaches[k]) for k in RWKV_CACHES) <= TOL
+
+
+def test_rwkv_teacher_forced_decode_equals_forward():
+    """Every position decoded one at a time from the zero state, and after
+    a prefill of half the sequence, against the uncached forward."""
+    _, cfg, _, model = _rwkv_model(seed=2)
+    toks = torch.from_numpy(_tokens(cfg, 19))
+    full, _, _ = ttr.forward(model, toks, cfg)
+    caches = ttr.init_decode_caches(cfg, B, 0, device="cpu")
+    for pos in range(S):
+        logits, caches = tlm.decode_step(
+            model, caches, {"token": toks[:, pos], "pos": pos}, cfg)
+        assert _err(logits, full[:, pos]) <= TOL, pos
+    _, caches = tlm.prefill_step(model, {"tokens": toks[:, :S // 2]}, cfg)
+    for pos in range(S // 2, S):
+        logits, caches = tlm.decode_step(
+            model, caches, {"token": toks[:, pos], "pos": pos}, cfg)
+        assert _err(logits, full[:, pos]) <= TOL, pos
+
+
+def test_rwkv_state_handoff_prefill_then_decode_equals_longer_prefill():
+    _, cfg, _, model = _rwkv_model(seed=3)
+    toks = torch.from_numpy(_tokens(cfg, 20, s=S + 1))
+    _, caches = tlm.prefill_step(model, {"tokens": toks[:, :S]}, cfg)
+    logits, caches = tlm.decode_step(
+        model, caches, {"token": toks[:, S], "pos": S}, cfg)
+    want, want_caches = tlm.prefill_step(model, {"tokens": toks}, cfg)
+    assert _err(logits, want) <= TOL
+    assert max(_err(caches[k], want_caches[k]) for k in RWKV_CACHES) <= TOL
+
+
+def test_rwkv_init_decode_caches_take_the_reference_layout():
+    rcfg, tcfg = _cfgs(RWKV)
+    want = rtr.init_decode_caches(rcfg, 3, 7)
+    got = ttr.init_decode_caches(tcfg, 3, 7, device="cpu")
+    assert sorted(got) == sorted(want) == sorted(RWKV_CACHES)
+    for key in RWKV_CACHES:
+        assert tuple(got[key].shape) == want[key].shape
+        assert got[key].dtype == torch.float32 and not got[key].any()
+
+
+def test_rwkv_init_params_draws_the_reference_constants():
+    """The leaves ``rwkv6_init`` sets to constants equal the reference's;
+    the fixed-scale normals (mix_w2, decay_w2: 0.01; u: 0.1) and the
+    matrices (1/sqrt(fan_in)) have the reference's spread."""
+    rcfg, tcfg = _cfgs(RWKV)
+    rparams, _ = rtr.init_params(jax.random.PRNGKey(0), rcfg)
+    rflat = {_path(p): np.asarray(a) for p, a in
+             jax.tree_util.tree_flatten_with_path(rparams)[0]}
+    model = tlm.init_params(tcfg, device="cpu",
+                            generator=torch.Generator().manual_seed(4))
+    got = {f"blocks/tm/{name}": torch.stack(
+        [getattr(blk.tm if hasattr(blk.tm, name) else blk.cm, name)
+         for blk in model.blocks]).numpy()
+        for name in trwkv.TIME_MIX_LEAVES + trwkv.CHANNEL_MIX_LEAVES}
+    for name in tlm.RWKV_CONSTANTS:
+        path = f"blocks/tm/{name}"
+        assert np.array_equal(got[path], rflat[path]), path
+    for name in ("ln1/scale", "ln2/scale"):
+        blks = [getattr(b, name.split("/")[0]).scale for b in model.blocks]
+        assert np.array_equal(torch.stack(blks).numpy(),
+                              rflat[f"blocks/{name}"])
+    for name in tuple(tlm.RWKV_NORMAL_SCALES) + ("wr", "cm_v", "decay_w1"):
+        path = f"blocks/tm/{name}"
+        ratio = got[path].std() / rflat[path].std()
+        assert 0.85 < ratio < 1.15, (path, ratio)

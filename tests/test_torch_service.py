@@ -148,10 +148,17 @@ for key in "kv":
 for pos in (12, 13):
     logits, big = lm.decode_step(
         model, big, {"token": logits.argmax(-1), "pos": pos}, cfg)
+rcfg = configs.get("rwkv6-3b").reduced()
+rmodel = lm.init_params(rcfg, device="cpu")
+rlogits, state = lm.prefill_step(rmodel, {"tokens": batch["tokens"]}, rcfg)
+for pos in (12, 13):
+    rlogits, state = lm.decode_step(
+        rmodel, state, {"token": rlogits.argmax(-1), "pos": pos}, rcfg)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"accepted": rep.accepted, "bad": bad,
-                  "logits": list(logits.shape)}))
+                  "logits": list(logits.shape),
+                  "rwkv_logits": list(rlogits.shape)}))
 """
 
 
@@ -161,7 +168,8 @@ def test_port_loop_loads_neither_jax_nor_reference():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert got == {"accepted": True, "bad": [], "logits": [2, 128]}
+    assert got == {"accepted": True, "bad": [], "logits": [2, 128],
+                   "rwkv_logits": [2, 128]}
 
 
 def test_default_device_is_the_card(small_lubm):
