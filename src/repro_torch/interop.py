@@ -101,10 +101,11 @@ def lm_params(tree: Mapping[str, np.ndarray], cfg: ArchConfig, *,
               device="cuda"):
     """A language model's parameter tree -> the port's
     ``models.transformer.Transformer`` on ``device``. ``tree`` maps each
-    leaf's path (``"embed"``, ``"ln_f/scale"``, ``"blocks/attn/wq"`` or, for
-    RWKV6, ``"blocks/tm/wr"``, ...) to its array, blocks stacked on a
-    leading ``layers`` axis; the paths and shapes must be exactly those of
-    ``models.lm.param_shapes(cfg)``."""
+    leaf's path (``"embed"``, ``"ln_f/scale"``, ``"blocks/attn/wq"``; for
+    RWKV6 ``"blocks/tm/wr"``; for Mamba2 ``"blocks/mamba/in_proj"`` and the
+    hybrid's unstacked ``"shared/attn/wq"``, ...) to its array, blocks
+    stacked on a leading ``layers`` axis; the paths and shapes must be
+    exactly those of ``models.lm.param_shapes(cfg)``."""
     from repro_torch.models import lm, transformer
     dev = dispatch.resolve_device(device)
     want = lm.param_shapes(cfg)

@@ -49,6 +49,9 @@ SIGNATURES = {
     "rt_flash_attention_fwd": (_P, _P, _P, _P) + (_I64,) * 11 + (_P, _P),
     # r, k, v, w, u, s0, y, s_out, B, S, H, hd, tile, stream
     "rt_wkv_fwd": (_P,) * 8 + (_I64,) * 5 + (_P,),
+    # x, b, c, dt, a, d, s0, y, s_out, B, S, H, hd, N, strides of x, b, c
+    # and dt over batch and time, stream
+    "rt_ssd_fwd": (_P,) * 9 + (_I64,) * 13 + (_P,),
 }
 
 # kernel name -> launches since the last reset_launches()

@@ -19,7 +19,7 @@ path (``cfg.use_flash``) goes through
 from __future__ import annotations
 
 import math
-from typing import Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +41,13 @@ def dtype(name: str) -> torch.dtype:
 
 def _param(t: torch.Tensor, dt: torch.dtype) -> nn.Parameter:
     return nn.Parameter(t.to(dt).contiguous(), requires_grad=False)
+
+
+def _sub(w: Mapping[str, torch.Tensor], prefix: str
+         ) -> Dict[str, torch.Tensor]:
+    """The leaves of ``w`` under ``prefix/``, keyed by the rest."""
+    n = len(prefix) + 1
+    return {k[n:]: v for k, v in w.items() if k.startswith(prefix + "/")}
 
 
 # --------------------------------------------------------------------------- #

@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.configs.base import SHAPES, ArchConfig
 from repro_torch.kernels import dispatch
-from repro_torch.models import rwkv, transformer
+from repro_torch.models import rwkv, ssm, transformer
 from repro_torch.models.layers import dtype
 
 Batch = Dict[str, torch.Tensor]
@@ -34,28 +34,23 @@ def _rwkv_block_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
     return {f"tm/{name}": s for name, s in blk.items()}
 
 
-def param_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
-    """The reference's parameter tree for an attention-family or RWKV6
-    config, keyed by path, blocks stacked on a leading ``layers`` axis."""
-    transformer.require_ported(cfg)
+def _mamba_block_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
+    """One Mamba2 layer's ``mamba`` leaves (``mamba2_init``'s tree)."""
+    dm = ssm.dims(cfg)
+    d_in, nh, conv_dim = dm["d_in"], dm["n_heads"], dm["conv_dim"]
+    proj = 2 * d_in + 2 * ssm.N_GROUPS * cfg.ssm_state + nh
+    blk = {"in_proj": (cfg.d_model, proj),
+           "conv_w": (cfg.ssm_conv, conv_dim), "conv_b": (conv_dim,),
+           "dt_bias": (nh,), "A_log": (nh,), "D": (nh,), "norm": (d_in,),
+           "out_proj": (d_in, cfg.d_model)}
+    return {f"mamba/{name}": s for name, s in blk.items()}
+
+
+def _attn_block_shapes(cfg: ArchConfig, norms: Dict[str, tuple]
+                       ) -> Dict[str, tuple]:
+    """One attention + MLP block's leaves (``attn_block_init``'s tree)."""
     d, h, k = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
-    hd, f, v, n = cfg.resolved_head_dim, cfg.d_ff, cfg.vocab_size, \
-        cfg.n_layers
-    norm = ("scale", "bias") if cfg.norm == "layernorm" else ("scale",)
-    shapes: Dict[str, tuple] = {}
-    if not cfg.embedding_inputs:
-        shapes["embed"] = (v, d)
-    for name in norm:
-        shapes[f"ln_f/{name}"] = (d,)
-    if not cfg.tied_embeddings:
-        shapes["head"] = (d, v)
-    if cfg.rwkv:
-        blk = _rwkv_block_shapes(cfg)
-        for ln in ("ln1", "ln2"):
-            for name in norm:
-                blk[f"{ln}/{name}"] = (d,)
-        shapes.update({f"blocks/{key}": (n,) + s for key, s in blk.items()})
-        return shapes
+    hd, f = cfg.resolved_head_dim, cfg.d_ff
     blk = {"attn/wq": (d, h, hd), "attn/wk": (d, k, hd),
            "attn/wv": (d, k, hd), "attn/wo": (h, hd, d)}
     if cfg.qkv_bias:
@@ -65,11 +60,40 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
     if cfg.qk_norm:
         blk.update({"attn/q_norm": (hd,), "attn/k_norm": (hd,)})
     for ln in ("ln1", "ln2"):
-        for name in norm:
-            blk[f"{ln}/{name}"] = (d,)
+        blk.update({f"{ln}/{name}": s for name, s in norms.items()})
     if cfg.activation == "silu":
         blk["mlp/wg"] = (d, f)
     blk.update({"mlp/wi": (d, f), "mlp/wo": (f, d)})
+    return blk
+
+
+def param_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
+    """The reference's parameter tree for an attention-family, RWKV6 or
+    Mamba2 (hybrid or not) config, keyed by path, blocks stacked on a
+    leading ``layers`` axis; the hybrid's ``shared`` block is not
+    stacked."""
+    transformer.require_ported(cfg)
+    d, v, n = cfg.d_model, cfg.vocab_size, cfg.n_layers
+    names = ("scale", "bias") if cfg.norm == "layernorm" else ("scale",)
+    norms = {name: (d,) for name in names}
+    shapes: Dict[str, tuple] = {}
+    if not cfg.embedding_inputs:
+        shapes["embed"] = (v, d)
+    shapes.update({f"ln_f/{name}": s for name, s in norms.items()})
+    if not cfg.tied_embeddings:
+        shapes["head"] = (d, v)
+    if cfg.rwkv:
+        blk = _rwkv_block_shapes(cfg)
+        for ln in ("ln1", "ln2"):
+            blk.update({f"{ln}/{name}": s for name, s in norms.items()})
+    elif cfg.family in ("ssm", "hybrid"):
+        blk = _mamba_block_shapes(cfg)
+        blk.update({f"ln/{name}": s for name, s in norms.items()})
+        if cfg.attn_every:
+            shapes.update({f"shared/{key}": s for key, s in
+                           _attn_block_shapes(cfg, norms).items()})
+    else:
+        blk = _attn_block_shapes(cfg, norms)
     shapes.update({f"blocks/{key}": (n,) + s for key, s in blk.items()})
     return shapes
 
@@ -77,7 +101,7 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
 def _fan_in(path: str, shape: tuple, cfg: ArchConfig) -> int:
     if path == "embed":
         return cfg.d_model
-    if path == "blocks/attn/wo":
+    if path.endswith("attn/wo"):
         return cfg.n_heads * cfg.resolved_head_dim
     return shape[1] if path.startswith("blocks/") else shape[0]
 
@@ -89,23 +113,56 @@ RWKV_CONSTANTS = {"mu_x": 0.5, "mu": 0.5, "cm_mu_k": 0.5, "cm_mu_r": 0.5,
 RWKV_NORMAL_SCALES = {"mix_w2": 0.01, "decay_w2": 0.01, "u": 0.1}
 
 
+def mamba_constants(cfg: ArchConfig) -> Dict[str, np.ndarray]:
+    """The (H,) and (d_in,) leaves ``mamba2_init`` sets without the key,
+    float32, the same in every layer: ``dt_bias``, the softplus-inverse of
+    dt drawn log-uniform in [1e-3, 1e-1] from ``np.random.default_rng(0)``
+    (re-seeded at every call), ``A_log = log(linspace(1, 16, H))``, ``D``
+    and ``norm`` ones, ``conv_b`` zeros. ``linspace`` is ``jnp.linspace``'s
+    float32 formula; its log is rounded from float64, within one float32
+    step of XLA's (whose log is not correctly rounded)."""
+    dm = ssm.dims(cfg)
+    nh, f32 = dm["n_heads"], np.float32
+    dt0 = np.exp(np.random.default_rng(0).uniform(
+        np.log(1e-3), np.log(1e-1), nh)).astype(f32)
+    if nh > 1:
+        step = np.arange(nh - 1, dtype=f32) / f32(nh - 1)
+        lin = np.append(f32(1) * (f32(1) - step) + f32(16) * step, f32(16))
+    else:
+        lin = np.ones(nh, f32)
+    return {"dt_bias": (dt0 + np.log(-np.expm1(-dt0))).astype(f32),
+            "A_log": np.log(lin.astype(np.float64)).astype(f32),
+            "D": np.ones(nh, f32), "norm": np.ones(dm["d_in"], f32),
+            "conv_b": np.zeros(dm["conv_dim"], f32)}
+
+
+MAMBA_CONV_SCALE = 0.1      # conv_w ~ N(0, 1) * 0.1, not 1/sqrt(fan_in)
+
+
 def init_params(cfg: ArchConfig, *, device="cuda",
                 generator: Optional[torch.Generator] = None
                 ) -> transformer.Transformer:
     """Random weights in the reference's distribution (normal scaled by
     1/sqrt(fan_in) for matrices, ones for norm scales, zeros for biases;
-    RWKV6's ``tm`` leaves as ``rwkv6_init`` draws them), drawn on
-    ``device`` from ``generator`` (a generator on that device; seed 0 when
-    omitted)."""
+    RWKV6's ``tm`` leaves as ``rwkv6_init`` draws them, Mamba2's as
+    ``mamba2_init`` does), drawn on ``device`` from ``generator`` (a
+    generator on that device; seed 0 when omitted)."""
     dev = dispatch.resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     pdt = dtype(cfg.param_dtype)
+    mamba = mamba_constants(cfg) if transformer.is_mamba_stack(cfg) else {}
     flat = {}
     for path, shape in param_shapes(cfg).items():
         leaf = path.rsplit("/", 1)[-1]
         rwkv_leaf = cfg.rwkv and path.startswith("blocks/tm/")
-        if rwkv_leaf and leaf in RWKV_CONSTANTS:
+        mamba_leaf = path.startswith("blocks/mamba/")
+        if mamba_leaf and leaf in mamba:
+            t = torch.from_numpy(mamba[leaf]).to(dev).expand(shape)
+        elif mamba_leaf and leaf == "conv_w":
+            t = torch.randn(shape, generator=generator, device=dev)
+            t *= MAMBA_CONV_SCALE
+        elif rwkv_leaf and leaf in RWKV_CONSTANTS:
             t = torch.full(shape, RWKV_CONSTANTS[leaf], device=dev)
         elif rwkv_leaf and leaf in RWKV_NORMAL_SCALES:
             t = torch.randn(shape, generator=generator, device=dev)

@@ -36,7 +36,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.rwkv6_wkv import ops as wkv_ops
-from repro_torch.models.layers import Norm, _param, dtype, norm_apply
+from repro_torch.models.layers import Norm, _param, _sub, dtype, norm_apply
 
 MIX_LORA = 32
 HEAD_NORM_EPS = 64e-5
@@ -80,16 +80,10 @@ class RWKVBlock(nn.Module):
 
     def __init__(self, cfg: ArchConfig, w: Mapping[str, torch.Tensor]):
         super().__init__()
-
-        def sub(prefix):
-            n = len(prefix) + 1
-            return {k[n:]: v for k, v in w.items()
-                    if k.startswith(prefix + "/")}
-
-        tm = sub("tm")
-        self.ln1 = Norm(sub("ln1"))
+        tm = _sub(w, "tm")
+        self.ln1 = Norm(_sub(w, "ln1"))
         self.tm = TimeMix(tm)
-        self.ln2 = Norm(sub("ln2"))
+        self.ln2 = Norm(_sub(w, "ln2"))
         self.cm = ChannelMix(cfg, tm)
 
 

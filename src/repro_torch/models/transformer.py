@@ -1,5 +1,5 @@
 """Layer stacks: the attention family (dense / VLM / audio-encoder
-transformers) and RWKV6.
+transformers), RWKV6, and Mamba2 with zamba2's shared attention block.
 
 Counterpart of ``repro/models/transformer.py``. The reference stacks each
 block's parameters on a leading ``layers`` axis and runs ``lax.scan``; here
@@ -8,11 +8,17 @@ same stacked tensors (``Transformer(cfg, flat)``). Caches keep the
 reference's layouts and are written in place: ``{"k": (L, B, T, K, D),
 "v": ...}`` in the compute dtype for the attention family;
 ``{"tm_shift": (L, B, d), "cm_shift": (L, B, d), "wkv": (L, B, H, hd,
-hd)}``, all float32, for RWKV6.
+hd)}``, all float32, for RWKV6; for Mamba2 stacks ``conv`` (L, B, K-1,
+conv_dim) in the compute dtype and ``ssm`` (L, B, H, N, hd) float32, plus
+for the hybrid ``k``/``v`` (A, B, T, K, D), one slot per application of
+the shared block.
 
-The reference's other stacks are later slices of the port and raise
-``NotImplementedError`` here: Mamba2 SSM and the zamba2 hybrid (ROADMAP
-Queue 1, item 2), and mixture-of-experts blocks (item 4).
+The hybrid (zamba2) applies one shared attention + MLP block, with its own
+residual, before every ``attn_every``-th Mamba2 layer (layers 0,
+``attn_every``, ...); ``attn_every = 0`` is the pure Mamba2 stack.
+
+Mixture-of-experts blocks are a later slice of the port and raise
+``NotImplementedError`` here (ROADMAP Queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -23,8 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import rwkv
-from repro_torch.models.layers import (MLP, Attention, Norm, _param,
+from repro_torch.models import rwkv, ssm
+from repro_torch.models.layers import (MLP, Attention, Norm, _param, _sub,
                                        attention_apply, dtype, mlp_apply,
                                        norm_apply)
 
@@ -33,10 +39,6 @@ Caches = Dict[str, torch.Tensor]
 
 def require_ported(cfg: ArchConfig) -> None:
     """Raise for a config whose stack this package does not run yet."""
-    if cfg.family in ("ssm", "hybrid") and not cfg.rwkv:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the Mamba2 SSM and hybrid stacks are not ported "
-            "yet (ROADMAP Queue 1, item 2: the SSD op, then zamba2)")
     if cfg.is_moe:
         raise NotImplementedError(
             f"{cfg.arch_id}: mixture-of-experts blocks are not ported yet "
@@ -51,16 +53,10 @@ def require_ported(cfg: ArchConfig) -> None:
 class Block(nn.Module):
     def __init__(self, cfg: ArchConfig, w: Mapping[str, torch.Tensor]):
         super().__init__()
-
-        def sub(prefix):
-            n = len(prefix) + 1
-            return {k[n:]: v for k, v in w.items()
-                    if k.startswith(prefix + "/")}
-
-        self.ln1 = Norm(sub("ln1"))
-        self.attn = Attention(cfg, sub("attn"))
-        self.ln2 = Norm(sub("ln2"))
-        self.mlp = MLP(cfg, sub("mlp"))
+        self.ln1 = Norm(_sub(w, "ln1"))
+        self.attn = Attention(cfg, _sub(w, "attn"))
+        self.ln2 = Norm(_sub(w, "ln2"))
+        self.mlp = MLP(cfg, _sub(w, "mlp"))
 
 
 def attn_block_apply(p: Block, x: torch.Tensor, cfg: ArchConfig, *,
@@ -75,13 +71,36 @@ def attn_block_apply(p: Block, x: torch.Tensor, cfg: ArchConfig, *,
     return x + mlp_apply(p.mlp, h, cfg), new_cache, 0.0
 
 
+class MambaBlock(nn.Module):
+    """Pre-norm Mamba2 layer: ``ln`` and ``mamba`` leaves."""
+
+    def __init__(self, cfg: ArchConfig, w: Mapping[str, torch.Tensor]):
+        super().__init__()
+        self.ln = Norm(_sub(w, "ln"))
+        self.mamba = ssm.Mamba2(cfg, _sub(w, "mamba"))
+
+
+def n_shared_apps(cfg: ArchConfig) -> int:
+    """How many times the hybrid applies its shared block (one K/V cache
+    slot each)."""
+    if not cfg.attn_every:
+        return 0
+    return (cfg.n_layers + cfg.attn_every - 1) // cfg.attn_every
+
+
+def is_mamba_stack(cfg: ArchConfig) -> bool:
+    """Mamba2 layers, with (hybrid) or without the shared block."""
+    return cfg.family in ("ssm", "hybrid") and not cfg.rwkv
+
+
 # --------------------------------------------------------------------------- #
 # the model
 # --------------------------------------------------------------------------- #
 
 class Transformer(nn.Module):
     """Embedding (absent for ``embedding_inputs``), blocks, final norm and
-    head (absent for ``tied_embeddings``: the embedding serves)."""
+    head (absent for ``tied_embeddings``: the embedding serves); for the
+    zamba2 hybrid, the ``shared`` attention block (None otherwise)."""
 
     def __init__(self, cfg: ArchConfig, flat: Mapping[str, torch.Tensor]):
         """``flat``: the reference's parameter tree keyed by its paths
@@ -102,10 +121,13 @@ class Transformer(nn.Module):
             if v.shape[0] != cfg.n_layers:
                 raise ValueError(f"blocks/{k}: {v.shape[0]} layers, config "
                                  f"has {cfg.n_layers}")
-        block = rwkv.RWKVBlock if cfg.rwkv else Block
+        block = (rwkv.RWKVBlock if cfg.rwkv else
+                 MambaBlock if is_mamba_stack(cfg) else Block)
         self.blocks = nn.ModuleList(
             block(cfg, {k: v[i] for k, v in stacked.items()})
             for i in range(cfg.n_layers))
+        self.shared = (Block(cfg, _sub(flat, "shared"))
+                       if is_mamba_stack(cfg) and cfg.attn_every else None)
 
     @property
     def device(self) -> torch.device:
@@ -133,9 +155,10 @@ def hidden(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
            ) -> Tuple[torch.Tensor, Optional[Caches]]:
     """The forward through the blocks, before the final norm: (B, S, d)
     activations and, with ``collect_cache``, the decode caches: (L, B, S,
-    K, D) key/value caches sized S, or RWKV6's states after position S-1
+    K, D) key/value caches sized S, RWKV6's states after position S-1
     (shift states cast to float32, as the reference's forward casts them
-    when it collects them)."""
+    when it collects them), or the Mamba2 states after position S-1 with
+    the shared block's (A, B, S, K, D) key/value caches."""
     require_ported(cfg)
     if cfg.embedding_inputs:
         x = inputs.to(dtype(cfg.compute_dtype))
@@ -153,6 +176,25 @@ def hidden(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
                     caches[key][i].copy_(val)
         return x, caches
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    if is_mamba_stack(cfg):
+        caches = (init_decode_caches(cfg, b, s, device=x.device)
+                  if collect_cache else None)
+        for i, blk in enumerate(p.blocks):
+            if p.shared is not None and i % cfg.attn_every == 0:
+                app = i // cfg.attn_every
+                kv = ((caches["k"][app], caches["v"][app]) if collect_cache
+                      else None)
+                x, _, _ = attn_block_apply(
+                    p.shared, x, cfg, positions=positions, cache=kv,
+                    cache_pos=0 if collect_cache else None)
+            h = norm_apply(blk.ln, x, cfg)
+            y, st = ssm.mamba2_apply(blk.mamba, h, cfg,
+                                     return_state=collect_cache)
+            x = x + y
+            if collect_cache:
+                caches["conv"][i].copy_(st["conv"])
+                caches["ssm"][i].copy_(st["ssm"])
+        return x, caches
     if not collect_cache:
         for blk in p.blocks:
             x, _, _ = attn_block_apply(blk, x, cfg, positions=positions)
@@ -180,12 +222,22 @@ def forward(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
 def init_decode_caches(cfg: ArchConfig, batch: int, max_len: int, *,
                        device="cuda") -> Caches:
     """Zero caches for ``batch`` sequences of up to ``max_len`` positions
-    (RWKV6's states do not grow: ``max_len`` is unused there)."""
+    (RWKV6's and Mamba2's states do not grow: ``max_len`` sizes only the
+    shared block's key/value caches)."""
     require_ported(cfg)
-    if cfg.rwkv:
-        st = rwkv.rwkv_init_state(cfg, cfg.n_layers * batch, device=device)
-        return {key: val.reshape(cfg.n_layers, batch, *val.shape[1:])
-                for key, val in st.items()}
+    if cfg.rwkv or is_mamba_stack(cfg):
+        init = rwkv.rwkv_init_state if cfg.rwkv else ssm.mamba2_init_state
+        st = init(cfg, cfg.n_layers * batch, device=device)
+        caches = {key: val.reshape(cfg.n_layers, batch, *val.shape[1:])
+                  for key, val in st.items()}
+        if cfg.rwkv or not cfg.attn_every:
+            return caches
+        kshape = (n_shared_apps(cfg), batch, max_len, cfg.n_kv_heads,
+                  cfg.resolved_head_dim)
+        cd = dtype(cfg.compute_dtype)
+        caches["k"] = torch.zeros(kshape, dtype=cd, device=device)
+        caches["v"] = torch.zeros(kshape, dtype=cd, device=device)
+        return caches
     kshape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads,
               cfg.resolved_head_dim)
     cd = dtype(cfg.compute_dtype)
@@ -196,9 +248,29 @@ def init_decode_caches(cfg: ArchConfig, batch: int, max_len: int, *,
 def decode_step(p: Transformer, caches: Caches, token: torch.Tensor,
                 pos: int, cfg: ArchConfig):
     """token: (B,) ids, pos: int -> (logits (B, V) float32, caches). The
-    caches are updated in place (at ``pos`` for the attention family;
-    RWKV6's states do not read ``pos``) and returned."""
+    caches are updated in place (at ``pos`` for the attention family and
+    the shared block; RWKV6's and Mamba2's states do not read ``pos``) and
+    returned."""
     require_ported(cfg)
+    if is_mamba_stack(cfg):
+        pos = int(pos)
+        x = embed_tokens(p, token, cfg)                  # (B, d)
+        positions = torch.full((x.shape[0], 1), pos, dtype=torch.int64,
+                               device=x.device)
+        for i, blk in enumerate(p.blocks):
+            if p.shared is not None and i % cfg.attn_every == 0:
+                app = i // cfg.attn_every
+                y, _, _ = attn_block_apply(
+                    p.shared, x[:, None], cfg, positions=positions,
+                    cache=(caches["k"][app], caches["v"][app]),
+                    cache_pos=pos)
+                x = y[:, 0]
+            h = norm_apply(blk.ln, x, cfg)
+            y, _ = ssm.mamba2_decode(
+                blk.mamba, h, {"conv": caches["conv"][i],
+                               "ssm": caches["ssm"][i]}, cfg)
+            x = x + y
+        return lm_head(p, x[:, None], cfg)[:, 0], caches
     if cfg.rwkv:
         x = embed_tokens(p, token, cfg)                  # (B, d)
         for i, blk in enumerate(p.blocks):

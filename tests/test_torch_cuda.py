@@ -8,6 +8,8 @@ run where jax is not installed:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +18,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import ops as FA
 from repro_torch.kernels.jaccard import ops as jac
 from repro_torch.kernels.join import ops as J
+from repro_torch.kernels.mamba2_ssd import ops as SSD
 from repro_torch.kernels.rwkv6_wkv import ops as W
 
 pytestmark = pytest.mark.cuda
@@ -283,6 +286,137 @@ def test_rwkv_on_card_matches_cpu_and_launches_once_per_layer(dev):
         if device == "cuda":
             assert n_prefill == cfg.n_layers
             assert _build.launches["rwkv6_wkv"] == cfg.n_layers * 5
+    assert torch.allclose(out["cuda"][0], out["cpu"][0], atol=1e-4, rtol=0)
+    for got, want in zip(out["cuda"][1], out["cpu"][1]):
+        assert torch.allclose(got, want, atol=1e-4, rtol=1e-5)
+
+
+# (B, S, H, hd, N, dt, s0): the zamba2-7b decode shape (S = 1), S = 0 and
+# S = 2049 (ragged against every chunk of the kernel's staging), odd H with
+# hd = N = 16, mixed hd and N, dt tiny (the state barely moves) and huge
+# (the decay underflows to 0), s0 zero, and a batch stride that is not
+# contiguous
+SSD_CASES = [
+    (4, 1, 112, 64, 64, "model", "random", False),
+    (2, 0, 3, 64, 64, "model", "random", False),
+    (1, 2049, 8, 64, 64, "model", "random", False),
+    (2, 65, 5, 16, 16, "model", "random", False),
+    (2, 40, 3, 32, 128, "model", "random", False),
+    (1, 30, 2, 128, 16, "model", "random", False),
+    (2, 100, 4, 64, 64, "tiny", "random", False),
+    (2, 100, 4, 64, 64, "huge", "random", False),
+    (1, 300, 2, 64, 64, "model", "zero", False),
+    (3, 40, 7, 64, 64, "model", "random", True),
+]
+
+
+def _ssd_inputs(case, dev):
+    """x, b, c ~ N(0, 1); dt log-uniform in [1e-3, 1e-1] (``mamba2_init``),
+    about 1e-6 (tiny) or 5 to 20 (huge); a = -linspace(1, 16, H); d ~
+    N(0, 1); s0 N(0, 1) or zero; with ``strided`` x, b, c and dt are every
+    other sequence of a batch twice as large."""
+    b, s, h, hd, n, dt, s0, strided = case
+    g = torch.Generator(device=dev).manual_seed(sum(case[:5]))
+    bb = 2 * b if strided else b
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    x, bm, cm = randn(bb, s, h, hd), randn(bb, s, n), randn(bb, s, n)
+    u = torch.rand((bb, s, h), generator=g, device=dev)
+    if dt == "model":
+        dtv = torch.exp(math.log(1e-3) + u * math.log(100.0))
+    elif dt == "tiny":
+        dtv = 1e-6 * (0.5 + u)
+    else:
+        dtv = 5.0 + 15.0 * u
+    if strided:
+        x, bm, cm, dtv = x[::2], bm[::2], cm[::2], dtv[::2]
+    a = -torch.linspace(1.0, 16.0, h, device=dev)
+    d = randn(h)
+    st = randn(b, h, n, hd) if s0 == "random" else torch.zeros(
+        (b, h, n, hd), device=dev)
+    return x, bm, cm, dtv, a, d, st
+
+
+@pytest.mark.parametrize("case", SSD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_ssd_kernel_matches_plain(dev, case):
+    args = _ssd_inputs(case, dev)
+    y, st = SSD.ssd(*args)
+    py, pst = SSD.ssd_plain(*args)
+    torch.cuda.synchronize()
+    assert _build.launches["mamba2_ssd"] == 1
+    assert y.shape == py.shape and st.shape == pst.shape
+    # the same float32 recurrence, the sum over N in another order
+    for got, want in ((y, py), (st, pst)):
+        assert bool(torch.isfinite(got).all())
+        err = float((got - want).abs().max()) if got.numel() else 0.0
+        scale = float(want.abs().max()) if want.numel() else 0.0
+        assert err <= 1e-5 * scale, err
+
+
+def test_ssd_kernel_with_no_steps_returns_the_state(dev):
+    args = _ssd_inputs((2, 0, 3, 64, 64, "model", "random", False), dev)
+    y, st = SSD.ssd(*args)
+    torch.cuda.synchronize()
+    assert y.shape == (2, 0, 3, 64) and torch.equal(st, args[-1])
+    assert _build.launches["mamba2_ssd"] == 1
+
+
+def test_ssd_kernel_writes_the_state_in_place(dev):
+    """A decode step: s0 and ``state_out`` are the same cache tensor."""
+    args = _ssd_inputs((4, 1, 112, 64, 64, "model", "random", False), dev)
+    py, pst = SSD.ssd_plain(*args)
+    cache = args[-1].clone()
+    y, st = SSD.ssd(*args[:-1], cache, state_out=cache)
+    torch.cuda.synchronize()
+    assert st is cache
+    assert float((cache - pst).abs().max()) <= 1e-5 * float(pst.abs().max())
+    assert float((y - py).abs().max()) <= 1e-5 * float(py.abs().max())
+
+
+@pytest.mark.parametrize("attn_every", [2, 0])
+def test_zamba_on_card_matches_cpu_and_launches_once_per_layer(
+        dev, attn_every):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import lm, transformer
+
+    cfg = dataclasses.replace(configs.get("zamba2-7b").reduced(),
+                              use_flash=True, attn_every=attn_every)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 20))
+                            .astype(np.int32))
+    napps = transformer.n_shared_apps(cfg)
+    out = {}
+    for device in ("cpu", "cuda"):
+        model = lm.init_params(cfg, device="cpu").to(device)
+        _build.reset_launches()
+        logits, pre = lm.prefill_step(
+            model, {"tokens": toks[:, :16].to(device)}, cfg)
+        launched = dict(_build.launches)
+        caches = transformer.init_decode_caches(cfg, 2, 20, device=device)
+        for key in caches:
+            if key in "kv":
+                caches[key][:, :, :16] = pre[key]
+            else:
+                caches[key].copy_(pre[key])
+        steps = [logits]
+        for pos in range(16, 20):
+            logits, caches = lm.decode_step(
+                model, caches, {"token": toks[:, pos].to(device),
+                                "pos": pos}, cfg)
+            steps.append(logits)
+        out[device] = (torch.stack(steps).cpu(),
+                       [caches[k].cpu() for k in sorted(caches)])
+        if device == "cuda":
+            assert launched.get("mamba2_ssd") == cfg.n_layers
+            assert launched.get("flash_attention_fwd", 0) == napps
+            assert _build.launches["mamba2_ssd"] == cfg.n_layers * 5
+            assert _build.launches.get("flash_attention_fwd", 0) == \
+                napps * 5
     assert torch.allclose(out["cuda"][0], out["cpu"][0], atol=1e-4, rtol=0)
     for got, want in zip(out["cuda"][1], out["cpu"][1]):
         assert torch.allclose(got, want, atol=1e-4, rtol=1e-5)

@@ -154,11 +154,25 @@ rlogits, state = lm.prefill_step(rmodel, {"tokens": batch["tokens"]}, rcfg)
 for pos in (12, 13):
     rlogits, state = lm.decode_step(
         rmodel, state, {"token": rlogits.argmax(-1), "pos": pos}, rcfg)
+zcfg = configs.get("zamba2-7b").reduced()
+zmodel = lm.init_params(zcfg, device="cpu")
+zlogits, zc = lm.prefill_step(zmodel, {"tokens": batch["tokens"][:, :8]},
+                              zcfg)
+zbig = lm.transformer.init_decode_caches(zcfg, 2, 10, device="cpu")
+for key in zbig:
+    if key in "kv":
+        zbig[key][:, :, :8] = zc[key]
+    else:
+        zbig[key].copy_(zc[key])
+for pos in (8, 9):
+    zlogits, zbig = lm.decode_step(
+        zmodel, zbig, {"token": zlogits.argmax(-1), "pos": pos}, zcfg)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"accepted": rep.accepted, "bad": bad,
                   "logits": list(logits.shape),
-                  "rwkv_logits": list(rlogits.shape)}))
+                  "rwkv_logits": list(rlogits.shape),
+                  "zamba_logits": list(zlogits.shape)}))
 """
 
 
@@ -169,7 +183,7 @@ def test_port_loop_loads_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"accepted": True, "bad": [], "logits": [2, 128],
-                   "rwkv_logits": [2, 128]}
+                   "rwkv_logits": [2, 128], "zamba_logits": [2, 128]}
 
 
 def test_default_device_is_the_card(small_lubm):
