@@ -34,15 +34,19 @@ Phases (any failure raises and ends the run with a nonzero exit):
    serves 4 prompts of 2048 tokens with one ``lm.prefill_step`` and 32
    greedy ``lm.decode_step``s against a 2080-slot cache. Launch counts are
    reset just before and read just after; the flash kernel must launch
-   once per layer in the prefill and in every decode step. Then: wall
+   once per layer in the prefill, all on its tensor-core variant ("tc"),
+   and in every decode step, all on its scalar variant. Then: wall
    times, tokens/s, peak memory, the card's idle share over a decode step
    and a prefill (``torch.profiler``), and checks (b) the plain attention
    path's logits, (c) teacher-forced decode against the uncached forward,
-   (d) the reduced config in float32 on the card against the CPU;
+   (d) the reduced config in float32 on the card against the CPU (the
+   scalar variant only);
 7. the flash kernel against its plain version at the prefill and decode
-   shapes of phase 6 and at edge cases, timed as in phase 4 beside
-   ``scaled_dot_product_attention`` and its bound (the larger of its bytes
-   over 3.35 TB/s and its operations over 989 TFLOP/s bf16);
+   shapes of phase 6 and at edge cases, each edge through the variant it
+   must take, timed as in phase 4 beside ``scaled_dot_product_attention``
+   and its bound (the larger of its bytes over 3.35 TB/s and its
+   operations over 989 TFLOP/s bf16), and the decode call again over five
+   input sets in turn, L2-cold as a decode step finds its cache;
 8. rwkv6-3b serving, the port's third path: full width and depth (random
    weights from a seeded generator, bf16 compute, the time mix in float32)
    serves 4 prompts of 2048 tokens with one ``lm.prefill_step`` and 32
@@ -66,7 +70,8 @@ Phases (any failure raises and ends the run with a nonzero exit):
    tokens with one ``lm.prefill_step`` and 32 greedy ``lm.decode_step``s.
    Launch counts are reset just before and read just after; the SSD kernel
    must launch once per layer and the flash kernel once per application
-   of the shared block, in the prefill and in every decode step. Then:
+   of the shared block, in the prefill (tc) and in every decode step
+   (scalar); the float32 checks run the scalar variant only. Then:
    wall times, tokens/s, memory, the idle share and top device operations
    over a decode step and a prefill (``torch.profiler``), and checks (e)
    prefill(S) plus one decode step against prefill(S + 1) in bf16, (b)
@@ -77,7 +82,8 @@ Phases (any failure raises and ends the run with a nonzero exit):
    shapes of phase 10 and at edge cases, timed as in phase 4 beside its
    bound (bytes over 3.35 TB/s, operations over 67 TFLOP/s float32); the
    decode row takes eight input sets in turn, so that each call finds its
-   state outside the card's L2, as a decode step does.
+   state outside the card's L2, as a decode step does; then the flash
+   kernel at zamba2-7b's prefill shape, as in phase 7.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -85,6 +91,7 @@ The line before the last is ``{"kernels": [...]}``, the last
 from __future__ import annotations
 
 import cProfile
+import collections
 import dataclasses
 import functools
 import itertools
@@ -147,10 +154,13 @@ def device_ms(fn, reps: int = 20, tries: int = 4) -> float:
     memory operation ``fn`` puts on the card, from a ``torch.profiler``
     trace of ``reps`` calls after a warm-up call. Excludes host launch
     overhead and the idle gaps between launches; 0 for a call that puts no
-    work on the card (the plain one-column pack returns its input). A trace
-    that holds no device operation is taken again, up to ``tries`` times:
-    on the H100 machines the profiler now and then returns an empty trace
-    for calls that do launch kernels."""
+    work on the card (the plain one-column pack returns its input). On the
+    H100 machines the profiler now and then returns an empty trace for
+    calls that do launch kernels (taken again, up to ``tries`` times), or
+    leaves some operations out of a trace (16 of 20 launches of the flash
+    kernel at zamba2-7b's prefill shape once): so each operation name
+    counts ``round(n / reps)`` times per call, at least once, at the mean
+    duration of its ``n`` recorded operations."""
     fn()
     torch.cuda.synchronize()
     prof = torch.profiler
@@ -159,12 +169,23 @@ def device_ms(fn, reps: int = 20, tries: int = 4) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.device_time_total for e in p.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA)
-        if us > 0:
+        by_name = collections.defaultdict(list)
+        for e in p.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name].append(e.device_time_total)
+        if by_name:
             break
         log(f"[profile] empty device trace (attempt {attempt + 1})")
-    return us / 1e3 / reps
+    per_call = {name: max(1, round(len(us) / reps))
+                for name, us in by_name.items()}
+    missing = sum(reps * n - len(by_name[name])
+                  for name, n in per_call.items())
+    if missing > 0:
+        log(f"[profile] the trace lacks {missing} of "
+            f"{reps * sum(per_call.values())} device operations; each "
+            "counts at the mean duration of its name")
+    return sum(n * statistics.fmean(by_name[name])
+               for name, n in per_call.items()) / 1e3
 
 
 def canon(bindings) -> np.ndarray:
@@ -318,11 +339,13 @@ def _exact(name, got, want) -> int:
 def kernel_row(rows, launches, name, source, replaces, err, fn, plain,
                library, n_bytes, n_ops, note, *,
                ops_per_s=SCALAR_OPS_PER_S, ops_rate="67 TOP/s",
-               plain_reps=20):
+               plain_reps=20, variant=None):
     """Time ``fn`` (the kernel's wrapper), ``plain`` (``plain_reps`` calls
     per measurement, fewer where it is slow) and ``library`` on the card,
     log them beside the bound from ``n_bytes`` and ``n_ops``, and append the
-    kernel's row (its main-path ``launches``) to ``rows``."""
+    kernel's row to ``rows``: its main-path ``launches``, those of
+    ``variant`` where the kernel has more than one design (the row's
+    ``variant``, else null)."""
     ms, plain_ms = device_ms(fn), device_ms(plain, reps=plain_reps)
     assert ms > 0, f"{name}: the profiler recorded no kernel time"
     library_ms = None if library is None else device_ms(library)
@@ -331,8 +354,10 @@ def kernel_row(rows, launches, name, source, replaces, err, fn, plain,
     bound_ms = max(n_bytes / HBM_BYTES_PER_S, n_ops / ops_per_s) * 1e3
     bound_by = ("bytes" if n_bytes / HBM_BYTES_PER_S >= n_ops / ops_per_s
                 else "operations")
+    n_launch = launches.get(name if variant is None else
+                            f"{name}.{variant}", 0)
     rows.append(dict(name=name, route="cuda", source=source,
-                     replaces=replaces, launches=launches.get(name, 0),
+                     replaces=replaces, variant=variant, launches=n_launch,
                      max_abs_err=err, ms=ms, plain_ms=plain_ms,
                      bound_ms=bound_ms, bound_by=bound_by,
                      library_ms=library_ms))
@@ -342,7 +367,7 @@ def kernel_row(rows, launches, name, source, replaces, err, fn, plain,
         f"call with launch overhead: kernel {calls[0]:.4f} ms, plain "
         f"{calls[1]:.4f} ms; bound {bound_ms:.6f} ms "
         f"({bound_by}: {n_bytes} B / 3.35 TB/s, {n_ops} ops / "
-        f"{ops_rate}), main-path launches {launches.get(name, 0)}, "
+        f"{ops_rate}), main-path launches {n_launch}, "
         f"max_abs_err {err}; {card()}")
 
 
@@ -533,6 +558,21 @@ LM_TEACHER = 8          # teacher-forced positions of check (c)
 # magnitude |z| carries a few bf16 steps (2^-8 |z| each) of difference
 LM_BF16_REL = 2.0 ** -4
 FLASH = "flash_attention_fwd"
+FLASH_VARIANTS = ("tc", "scalar")
+
+
+def flash_variants(since=None) -> dict:
+    """Flash launches by variant (kernels/flash_attention/ops.variant) so
+    far, or since the counts ``since``."""
+    from repro_torch.kernels import _build
+
+    now = {v: _build.launches[f"{FLASH}.{v}"] for v in FLASH_VARIANTS}
+    return now if since is None else {v: now[v] - since[v] for v in now}
+
+
+def _distinct(counts) -> list:
+    """The distinct dicts of a list of them, in first-seen order."""
+    return [dict(c) for c in dict.fromkeys(tuple(c.items()) for c in counts)]
 
 
 def _mem(tag, prefix="lm") -> None:
@@ -643,19 +683,21 @@ def lm_serving():
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
     n_prefill = _build.launches[FLASH]
+    prefill_var = flash_variants()
     _mem("prefill")
     prefill_logits = logits
     caches = _fill_cache(cfg, caches, LM_PROMPT, dev, transformer)
     torch.cuda.synchronize()
     tok = logits.argmax(-1)
-    first_tok, per_step, out = tok, [], []
+    first_tok, per_step, step_var, out = tok, [], [], []
     t = time.perf_counter()
     for i in range(LM_NEW):
-        before = _build.launches[FLASH]
+        before, before_var = _build.launches[FLASH], flash_variants()
         last_tok = tok
         logits, caches = lm.decode_step(
             model, caches, {"token": tok, "pos": LM_PROMPT + i}, cfg)
         per_step.append(_build.launches[FLASH] - before)
+        step_var.append(flash_variants(before_var))
         if i == 0:
             first_logits = logits
         tok = logits.argmax(-1)
@@ -676,9 +718,14 @@ def lm_serving():
         f"step, {LM_BATCH * LM_NEW / decode_s:.1f} tokens/s; {card()}")
     log(f"[lm] flash launches: prefill {n_prefill}, per decode step "
         f"{sorted(set(per_step))}, total {launches.get(FLASH, 0)}")
-    # (a) one flash launch per layer per step
+    log(f"[lm] flash variants: prefill {prefill_var}, decode steps "
+        f"{_distinct(step_var)}")
+    # (a) one flash launch per layer per step: the prefill's on the tensor
+    # cores, each decode step's on the scalar kernel
     assert n_prefill == cfg.n_layers, n_prefill
     assert per_step == [cfg.n_layers] * LM_NEW, per_step
+    assert prefill_var == dict(tc=cfg.n_layers, scalar=0), prefill_var
+    assert step_var == [dict(tc=0, scalar=cfg.n_layers)] * LM_NEW, step_var
 
     # the card's busy and idle share over one decode step (the last step
     # again: it rewrites slot 2079 with the same token's k/v) and a prefill
@@ -723,6 +770,7 @@ def lm_serving():
     small = dataclasses.replace(configs.get("qwen3-0.6b").reduced(),
                                 use_flash=True)
     res = {}
+    before_var = flash_variants()
     for device in ("cuda", "cpu"):
         m = lm.init_params(small, device="cpu").to(device)
         toks = prompts[:, :24].remainder(small.vocab_size).to(device)
@@ -738,9 +786,12 @@ def lm_serving():
             seq.append(lg)
         res[device] = torch.stack(seq).cpu()
     err_d = float((res["cuda"] - res["cpu"]).abs().max())
+    d_var = flash_variants(before_var)
     log(f"[lm] check (d) reduced qwen3-0.6b in float32, prefill + 8 decode "
-        f"steps, card vs CPU: max abs diff {err_d:.3e} (limit 1e-4)")
+        f"steps, card vs CPU: max abs diff {err_d:.3e} (limit 1e-4); flash "
+        f"variants {d_var}")
     assert err_d <= 1e-4
+    assert d_var == dict(tc=0, scalar=9 * small.n_layers), d_var
     return launches
 
 
@@ -748,22 +799,36 @@ def lm_serving():
 # phase 7: the flash kernel against its plain version
 # --------------------------------------------------------------------------- #
 
-# (B, S, T, H, K, D, causal, q_offset, kv_valid_len, dtype): S and T off the
-# 32-key tile, g = 1, 2, 3, 5, non-causal, kv_valid_len < T, D = 64, 80,
-# 112, 128, 256, float32 inputs, and grids small enough that the keys
-# split across blocks
+# (B, S, T, H, K, D, causal, q_offset, kv_valid_len, dtype, variant): S and
+# T off the 32- and 64-key tiles, g = 1, 2, 3, 5, non-causal,
+# kv_valid_len < T, q_offset > 0 with S < T, D = 32, 64, 80, 112, 128,
+# 256, S * g at 63, 64 and just over, float32 inputs, grids of fewer
+# blocks than SMs (the scalar kernel then splits the keys), and the
+# variant each must run
+BF16, F32 = torch.bfloat16, torch.float32
 FLASH_EDGES = [
-    (2, 77, 77, 16, 8, 128, True, 0, None, torch.bfloat16),
-    (1, 130, 130, 4, 4, 64, True, 0, None, torch.bfloat16),
-    (2, 33, 45, 6, 2, 112, False, 0, None, torch.bfloat16),
-    (2, 100, 300, 15, 5, 64, True, 200, None, torch.bfloat16),
-    (2, 1, 200, 4, 2, 128, True, 150, 151, torch.bfloat16),
-    (1, 5, 97, 5, 5, 80, True, 60, 65, torch.float32),
-    (1, 40, 40, 2, 1, 256, True, 0, 23, torch.float32),
-    (3, 64, 64, 16, 8, 128, False, 0, 50, torch.float32),
-    (2, 3, 1000, 4, 2, 64, True, 990, 993, torch.bfloat16),
-    (1, 2, 700, 2, 2, 80, False, 0, 650, torch.float32),
+    (2, 77, 77, 16, 8, 128, True, 0, None, BF16, "tc"),
+    (1, 130, 130, 4, 4, 64, True, 0, None, BF16, "tc"),
+    (2, 33, 45, 6, 2, 112, False, 0, None, BF16, "tc"),
+    (2, 100, 300, 15, 5, 64, True, 200, None, BF16, "tc"),
+    (1, 33, 70, 4, 2, 64, True, 37, None, BF16, "tc"),
+    (2, 65, 130, 10, 2, 80, True, 65, None, BF16, "tc"),
+    (1, 200, 333, 6, 2, 128, True, 100, 290, BF16, "tc"),
+    (2, 100, 100, 8, 8, 112, True, 0, None, BF16, "tc"),
+    (1, 300, 300, 4, 2, 32, False, 0, 257, BF16, "tc"),
+    (1, 256, 256, 2, 1, 128, True, 0, None, BF16, "tc"),
+    (2, 2100, 2100, 4, 4, 112, True, 0, 2050, BF16, "tc"),
+    (1, 64, 64, 1, 1, 64, True, 0, None, BF16, "tc"),
+    (1, 63, 63, 1, 1, 64, True, 0, None, BF16, "scalar"),
+    (2, 1, 200, 4, 2, 128, True, 150, 151, BF16, "scalar"),
+    (1, 5, 97, 5, 5, 80, True, 60, 65, F32, "scalar"),
+    (1, 40, 40, 2, 1, 256, True, 0, 23, F32, "scalar"),
+    (3, 64, 64, 16, 8, 128, False, 0, 50, F32, "scalar"),
+    (2, 3, 1000, 4, 2, 64, True, 990, 993, BF16, "scalar"),
+    (1, 2, 700, 2, 2, 80, False, 0, 650, F32, "scalar"),
 ]
+FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
+FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:83"
 
 
 def _flash_err(got, want) -> float:
@@ -779,67 +844,105 @@ def _flash_err(got, want) -> float:
     return float(diff.max())
 
 
-def flash_kernel(rows, launches):
+def _flash_rand(gen):
+    def rand(shape, dt=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dt)
+    return rand
+
+
+def flash_prefill_row(rows, launches, rand, what, b, s, h, kh, d):
+    """The flash kernel at a bf16 causal prefill shape against its plain
+    version, timed beside ``scaled_dot_product_attention``; one row of
+    ``rows`` with the main path's launches of the variant it runs."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as FA
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(2)
-
-    def rand(shape, dt=torch.bfloat16):
-        return torch.randn(shape, generator=gen, device=dev).to(dt)
-
-    for b, s, t, h, kh, d, causal, off, valid, dt in FLASH_EDGES:
-        q, k, v = rand((b, s, h, d), dt), rand((b, t, kh, d), dt), \
-            rand((b, t, kh, d), dt)
-        kw = dict(causal=causal, q_offset=off, kv_valid_len=valid)
-        got = FA.flash_attention(q, k, v, **kw)
-        assert got.dtype == dt and got.shape == q.shape
-        _flash_err(got, FA.flash_attention_plain(q, k, v, **kw))
-    torch.cuda.synchronize()
-    log(f"[kernels] flash edge cases: {len(FLASH_EDGES)} shapes match the "
-        "plain version")
-
-    src = "src/repro_torch/csrc/flash_attention.cu"
-    replaces = "src/repro/kernels/flash_attention/kernel.py:83"
-    b, s, h, kh, d = LM_BATCH, LM_PROMPT, 16, 8, 128
     q, k, v = rand((b, s, h, d)), rand((b, s, kh, d)), rand((b, s, kh, d))
+    var = FA.variant(q.dtype, s, h // kh, d)
+    before = flash_variants()
     got = FA.flash_attention(q, k, v)
+    assert flash_variants(before)[var] == 1 and var == "tc", var
     err = _flash_err(got, FA.flash_attention_plain(q, k, v))
     lib = lambda: F.scaled_dot_product_attention(    # noqa: E731
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         is_causal=True, enable_gqa=True)
     lib_err = float((lib().transpose(1, 2).float() - got.float()).abs().max())
     pairs = s * (s + 1) // 2                 # valid (query, key) pairs
-    kernel_row(rows, launches, FLASH, src, replaces, err,
+    kernel_row(rows, launches, FLASH, FLASH_SRC, FLASH_REPLACES, err,
                lambda: FA.flash_attention(q, k, v),
                lambda: FA.flash_attention_plain(q, k, v), lib,
                2 * (2 * q.numel() + 2 * k.numel()), 4 * b * h * d * pairs,
-               f"prefill B={b}, S=T={s}, H={h}, K={kh}, D={d}, bf16, causal;"
-               f" library = scaled_dot_product_attention(enable_gqa), "
-               f"max diff to it {lib_err:.4f}",
-               ops_per_s=TENSOR_OPS_PER_S, ops_rate="989 TFLOP/s bf16")
+               f"{what} prefill B={b}, S=T={s}, H={h}, K={kh}, D={d}, bf16, "
+               f"causal, kernel {var}; library = scaled_dot_product_"
+               f"attention(enable_gqa), max diff to it {lib_err:.4f}",
+               ops_per_s=TENSOR_OPS_PER_S, ops_rate="989 TFLOP/s bf16",
+               variant=var)
+
+
+def flash_kernel(rows, launches):
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as FA
+
+    rand = _flash_rand(torch.Generator(device="cuda").manual_seed(2))
+    for b, s, t, h, kh, d, causal, off, valid, dt, var in FLASH_EDGES:
+        q, k, v = rand((b, s, h, d), dt), rand((b, t, kh, d), dt), \
+            rand((b, t, kh, d), dt)
+        kw = dict(causal=causal, q_offset=off, kv_valid_len=valid)
+        before = flash_variants()
+        got = FA.flash_attention(q, k, v, **kw)
+        ran = flash_variants(before)
+        assert ran == {v_: int(v_ == var) for v_ in FLASH_VARIANTS}, \
+            ((b, s, t, h, kh, d), var, ran)
+        assert got.dtype == dt and got.shape == q.shape
+        _flash_err(got, FA.flash_attention_plain(q, k, v, **kw))
+    torch.cuda.synchronize()
+    n_tc = sum(e[-1] == "tc" for e in FLASH_EDGES)
+    log(f"[kernels] flash edge cases: {len(FLASH_EDGES)} shapes match the "
+        f"plain version, each through its variant ({n_tc} tc, "
+        f"{len(FLASH_EDGES) - n_tc} scalar)")
+
+    b, s, h, kh, d = LM_BATCH, LM_PROMPT, 16, 8, 128
+    flash_prefill_row(rows, launches, rand, "qwen3-0.6b", b, s, h, kh, d)
 
     valid = LM_CACHE
     qd, kd, vd = rand((b, 1, h, d)), rand((b, valid, kh, d)), \
         rand((b, valid, kh, d))
     kw = dict(causal=True, q_offset=valid - 1, kv_valid_len=valid)
+    var = FA.variant(qd.dtype, 1, h // kh, d)
     got = FA.flash_attention(qd, kd, vd, **kw)
     err = _flash_err(got, FA.flash_attention_plain(qd, kd, vd, **kw))
-    lib = lambda: F.scaled_dot_product_attention(    # noqa: E731
-        qd.transpose(1, 2), kd.transpose(1, 2), vd.transpose(1, 2),
-        enable_gqa=True)
-    lib_err = float((lib().transpose(1, 2).float() - got.float()).abs().max())
-    kernel_row(rows, launches, FLASH, src, replaces, err,
+
+    def lib_of(q, k, v):
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            enable_gqa=True)
+
+    lib_err = float((lib_of(qd, kd, vd).transpose(1, 2).float()
+                     - got.float()).abs().max())
+    kernel_row(rows, launches, FLASH, FLASH_SRC, FLASH_REPLACES, err,
                lambda: FA.flash_attention(qd, kd, vd, **kw),
-               lambda: FA.flash_attention_plain(qd, kd, vd, **kw), lib,
+               lambda: FA.flash_attention_plain(qd, kd, vd, **kw),
+               lambda: lib_of(qd, kd, vd),
                2 * (2 * qd.numel() + 2 * kd.numel()),
                4 * b * h * d * valid,
                f"decode B={b}, S=1, T={valid}, q_offset={valid - 1}, "
-               f"kv_valid_len={valid}, bf16; library = "
+               f"kv_valid_len={valid}, bf16, kernel {var}; library = "
                f"scaled_dot_product_attention(enable_gqa), max diff to it "
                f"{lib_err:.4f}",
-               ops_per_s=TENSOR_OPS_PER_S, ops_rate="989 TFLOP/s bf16")
+               ops_per_s=TENSOR_OPS_PER_S, ops_rate="989 TFLOP/s bf16",
+               variant=var)
+    # the same decode call L2-cold, as a decode step finds its layer's
+    # cache (27 other layers' caches pass between two reads): five input
+    # sets in turn, 170 MB against the card's 50 MB L2
+    sets = [(qd, kd, vd)] + [(rand((b, 1, h, d)), rand((b, valid, kh, d)),
+                              rand((b, valid, kh, d))) for _ in range(4)]
+    turn = itertools.cycle(sets)
+    cold = device_ms(lambda: FA.flash_attention(*next(turn), **kw))
+    cold_lib = device_ms(lambda: lib_of(*next(turn)))
+    log(f"[kernels] {FLASH} decode B={b}, S=1, T={valid}, kernel {var}, "
+        f"{len(sets)} input sets in turn (L2-cold): device time per call: "
+        f"kernel {cold:.4f} ms, library {cold_lib:.4f} ms "
+        f"(scaled_dot_product_attention(enable_gqa)); {card()}")
 
 
 # --------------------------------------------------------------------------- #
@@ -1224,21 +1327,24 @@ def zamba_serving():
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
     n_prefill = (_build.launches[SSD], _build.launches[FLASH])
+    prefill_var = flash_variants()
     _mem("prefill", "zamba")
     caches = _copy_caches(pre, transformer.init_decode_caches(
         cfg, ZAMBA_BATCH, ZAMBA_CACHE, device=dev), ZAMBA_PROMPT)
     del pre
     torch.cuda.synchronize()
     tok = logits.argmax(-1)
-    first_tok, per_step, out = tok, [], []
+    first_tok, per_step, step_var, out = tok, [], [], []
     t = time.perf_counter()
     for i in range(ZAMBA_NEW):
         before = (_build.launches[SSD], _build.launches[FLASH])
+        before_var = flash_variants()
         last_tok = tok
         logits, caches = lm.decode_step(
             model, caches, {"token": tok, "pos": ZAMBA_PROMPT + i}, cfg)
         per_step.append((_build.launches[SSD] - before[0],
                          _build.launches[FLASH] - before[1]))
+        step_var.append(flash_variants(before_var))
         if i == 0:
             first_logits = logits
         tok = logits.argmax(-1)
@@ -1261,10 +1367,15 @@ def zamba_serving():
     log(f"[zamba] launches: prefill (SSD, flash) {n_prefill}, per decode "
         f"step {sorted(set(per_step))}, total SSD {launches.get(SSD, 0)}, "
         f"flash {launches.get(FLASH, 0)}")
+    log(f"[zamba] flash variants: prefill {prefill_var}, decode steps "
+        f"{_distinct(step_var)}")
     # (a) one SSD launch per layer and one flash launch per application of
-    # the shared block, in the prefill and in every decode step
+    # the shared block, in the prefill (on the tensor cores) and in every
+    # decode step (on the scalar kernel)
     assert n_prefill == (cfg.n_layers, napps), n_prefill
     assert per_step == [(cfg.n_layers, napps)] * ZAMBA_NEW, per_step
+    assert prefill_var == dict(tc=napps, scalar=0), prefill_var
+    assert step_var == [dict(tc=0, scalar=napps)] * ZAMBA_NEW, step_var
 
     # the card's busy and idle share over one decode step (the last step
     # again: it rewrites slot 2079 with the same token's k/v and moves the
@@ -1312,6 +1423,7 @@ def zamba_serving():
         return lg, lm.decode_step(model, big, {"token": tok,
                                                "pos": ZAMBA_PROMPT}, c)[0], tok
 
+    before_var = flash_variants()
     flash_lg, flash_step, tok1 = prefill_and_step(cfg32, None)
     plain_lg, plain_step, _ = prefill_and_step(plain32, tok1)
     _rel_check("(b) prefill, flash vs plain attention, float32", flash_lg,
@@ -1372,6 +1484,10 @@ def zamba_serving():
         f"decode steps (logits and the conv, ssm, k, v caches), card vs "
         f"CPU: max abs diff {err_d:.3e} (limit 1e-4)")
     assert err_d <= 1e-4
+    f32_var = flash_variants(before_var)
+    log(f"[zamba] flash variants of the float32 checks (b), (c), (d): "
+        f"{f32_var}")
+    assert f32_var["tc"] == 0 and f32_var["scalar"] > 0, f32_var
     return launches
 
 
@@ -1498,6 +1614,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
     from repro_torch.kernels import _build
     from repro_torch.kernels.jaccard import ops as jac_ops
     from repro_torch.kernels.join import ops as join_ops
@@ -1549,6 +1666,10 @@ def main() -> int:
     torch.cuda.empty_cache()       # the rwkv6-3b model and states are gone
     zamba_launches = zamba_serving()
     ssd_kernel(rows, zamba_launches)
+    zcfg = configs.get("zamba2-7b")
+    flash_prefill_row(rows, zamba_launches, _flash_rand(torch.Generator(
+        device="cuda").manual_seed(5)), "zamba2-7b", ZAMBA_BATCH,
+        ZAMBA_PROMPT, zcfg.n_heads, zcfg.n_kv_heads, zcfg.resolved_head_dim)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card())
     print(json.dumps({"kernels": rows}))

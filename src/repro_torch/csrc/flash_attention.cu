@@ -3,29 +3,70 @@
 // Replaces the Pallas TPU kernel flash_attention_fwd (_flash_kernel) of
 // repro/kernels/flash_attention/kernel.py.  Inputs: q (B, S, H, D) and
 // k, v (B, T, K, D), H % K == 0, all float32 or all bfloat16, contiguous;
-// output o (B, S, H, D) in q's dtype.  Every element is upcast to float32;
-// scores are q.k * (1/sqrt(D)) in float32, set to -1e30 where
-// q_offset + i < kpos (causal) or kpos >= kv_valid_len; the softmax runs
-// online in float32 (row max m, row sum l) and P.V accumulates in float32
-// with P never rounded; o = acc / max(l, 1e-30).
+// output o (B, S, H, D) in q's dtype.  Scores are q.k * (1/sqrt(D)) in
+// float32, set to -1e30 where q_offset + i < kpos (causal) or
+// kpos >= kv_valid_len; the softmax runs online in float32 (row max m, row
+// sum l); o = acc / max(l, 1e-30).  Two kernels compute it; ops.py picks
+// one by the call's dtype and shape alone (variant()):
+//
+// * flash_tc_kernel ("tc": bfloat16, D % 16 == 0, D <= 128, S * H/K >= 64,
+//   the prefill) runs both products on the tensor cores (wgmma).  Q, K and
+//   V enter exact (they are bfloat16 already) and every sum is float32.  P
+//   is carried as P_hi + P_lo, two bfloat16 terms (P_hi = bf16(P),
+//   P_lo = bf16(P - P_hi)), each multiplied with V into the same float32
+//   accumulator: P keeps about 16 significant bits, a relative error of at
+//   most about 2^-16 per element.  Why two terms: P rounded once to
+//   bfloat16 (2^-9 relative, as FlashAttention-2/3 do) moves the bf16
+//   output past one bf16 step of the float32 function on random inputs,
+//   which the card tests and chip_smoke.py hold it to; the two-term
+//   product stays inside it (tests/test_torch_flash.py emulates both).
+// * flash_fwd_kernel ("scalar": every float32 call, decode steps and other
+//   short calls) upcasts every element to float32 and accumulates P.V in
+//   float32 with P never rounded.
 //
 // What bounds it on this card: the matrix products.  Prefill attention at
 // (B, S, H, K, D) = (4, 2048, 16, 8, 128), causal, is about 6.9e10
 // operations (4*B*H*D per valid query-key pair) against about 100 MB of
 // q, k, v and o, so its bound is the tensor cores' 989 TFLOP/s (about
-// 70 us), not the 3.35 TB/s of device memory (about 30 us).  A decode step
+// 70 us; the second P term adds half the tensor work again, about 104 us),
+// not the 3.35 TB/s of device memory (about 30 us).  A decode step
 // (S = 1) against a cache of about 2,080 valid slots reads about 34 MB of
 // K/V per layer for 1.7e8 operations: there the bytes bound it.
 //
-// What the design does about it, and what it leaves for later: this first
-// kernel is scalar float32 (no mma/wgmma), so prefill sits well above its
-// tensor-core bound.  It keeps the TPU kernel's one saving that matters on
-// both machines: no tile past the causal horizon of a block's last row or
-// past kv_valid_len is read, so causal prefill does half the work and a
-// decode step reads only the valid part of the cache.  q_offset and
-// kv_valid_len are runtime arguments, so decode does not specialise.
+// Both kernels keep the TPU kernel's one saving that matters on both
+// machines: no tile past the causal horizon of a block's last row or past
+// kv_valid_len is read, so causal prefill does half the work and a decode
+// step reads only the valid part of the cache.  q_offset and kv_valid_len
+// are runtime arguments, so decode does not specialise.
 //
-// Layout of the work.  A block takes one (b, kv head) pair and kRows
+// The tc kernel.  A block owns one (b, query head) pair and 128 query rows,
+// two consumer warpgroups of 64; the g query heads of a kv group are
+// neighbouring blocks, so their repeated K/V reads come from L2 (all of K
+// and V at qwen3-0.6b's prefill shape is 33.5 MB, under the 50 MB L2).
+// Row tiles run longest first: the grid's slowest axis walks them from
+// the last one.  A producer warp loads the Q tile once and the K and V
+// tiles of 64 keys into a ring of kTcStages stages by TMA, each stage with
+// a "full" mbarrier (TMA bytes) and an "empty" one (one arrival per
+// consumer warp).  Tensor maps are 4-D, (D, heads, positions, B), with
+// 128-byte swizzle: a box row is 64 bf16, so a row of D > 64 is two boxes
+// and the columns past D (D = 80, 112), the rows past S and the keys past
+// T arrive as zeros from TMA's out-of-bounds fill; nothing is padded in
+// device memory.  Per tile and warpgroup: S = Q.K^T by D/16 wgmma
+// m64n64k16 (Q and K from shared memory, K-major); the online softmax on
+// the accumulator fragment in registers, in the reference's order (mask,
+// row max, exp(s - m_new), alpha = exp(m_prev - m_new), l and acc scaled
+// by alpha), masks only on tiles that cross the causal diagonal or
+// kv_valid_len, expf (no fast math, see kernels/_build.py); then
+// O += P_hi.V + P_lo.V by wgmma m64nNk16 with P in registers as the A
+// operand (the accumulator fragment of S is the A fragment of P.V) and V
+// from shared memory as B.  V is stored (key, d), d contiguous: for P.V
+// that is MN-major, so B takes the transpose bit; N is D rounded up to 64.
+// The epilogue divides by max(l, 1e-30), rounds to bf16 and stores only
+// rows < S and columns < D.  The consumers need at most about 170
+// registers (two accumulators, both P terms), within the 224 that one
+// block of 288 threads per SM may hold, so no setmaxnreg.
+//
+// The scalar kernel.  A block takes one (b, kv head) pair and kRows
 // consecutive (query position, head of the group) rows, so the g query
 // heads that share a kv head read each K/V tile once.  The block stages its
 // q rows, then walks the keys in tiles of 32 staged in shared memory as
@@ -48,6 +89,7 @@
 // splits per output element.
 
 #include <cstdint>
+#include <cuda.h>           // CUtensorMap and its enums; no libcuda link
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -348,6 +390,451 @@ cudaError_t dispatch(const Args& a, int64_t batch, cudaStream_t stream) {
   }
 }
 
+
+// ----------------------------------------------------------------------------
+// The tensor-core kernel (bfloat16 prefill)
+// ----------------------------------------------------------------------------
+
+constexpr int kTcRows = 128;              // query rows a block: 2 warpgroups
+constexpr int kTcKeys = 64;               // keys per K/V tile
+constexpr int kTcStages = 3;              // K/V ring depth
+constexpr int kTcConsumerWarps = 8;
+constexpr int kTcThreads = kTcConsumerWarps * 32 + 32;   // + producer warp
+constexpr int kSwizzleRow = 128;          // bytes of one swizzled box row
+constexpr int kBoxCols = kSwizzleRow / 2; // bf16 columns of one box row
+
+struct TcArgs {
+  __nv_bfloat16* o;
+  int s, h, kh, d;
+  int q_offset;
+  int kv_lim;         // min(T, kv_valid_len)
+  int causal;
+  int row_tiles;      // ceil(S / kTcRows)
+  float scale;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// returns once the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n"
+      "}\n" :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// one box of a 4-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled tile starting at
+// shared address `addr` (the tile 1024-byte aligned, so base offset 0):
+// lbo and sbo in bytes
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// keeps the compiler from moving accesses of accumulator registers across
+// the asynchronous wgmma that owns them
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+#define TC_D4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define TC_D16(i) TC_D4(i), TC_D4(i + 4), TC_D4(i + 8), TC_D4(i + 12)
+
+// d (64 x 64, float32) = [d +] A.B^T: A (64 x 16) and B (64 x 16) bf16 in
+// shared memory, both K-major
+__device__ __forceinline__ void wgmma_64x64_ss(float (&d)[32], uint64_t da,
+                                               uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : TC_D16(0), TC_D16(16)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64) += A.B: A (64 x 16) bf16 in registers, B (16 x 64) bf16 in
+// shared memory, MN-major (transposed)
+__device__ __forceinline__ void wgmma_64x64_rs(float (&d)[32],
+                                               const uint32_t* a,
+                                               uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : TC_D16(0), TC_D16(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128) += A.B, as wgmma_64x64_rs with N = 128
+__device__ __forceinline__ void wgmma_64x128_rs(float (&d)[64],
+                                                const uint32_t* a,
+                                                uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n"
+      "}\n"
+      : TC_D16(0), TC_D16(16), TC_D16(32), TC_D16(48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int NC>
+__device__ __forceinline__ void wgmma_pv(float (&d)[32 * NC],
+                                         const uint32_t* a, uint64_t db) {
+  if constexpr (NC == 1) {
+    wgmma_64x64_rs(d, a, db);
+  } else {
+    wgmma_64x128_rs(d, a, db);
+  }
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat16 lo,
+                                              __nv_bfloat16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16;
+}
+
+// KS = D / 16 k-steps of Q.K^T; NC = ceil(D / 64) column chunks of a row
+template <int KS>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv, TcArgs a) {
+  constexpr int NC = (KS + 3) / 4;
+  constexpr int kQChunk = kTcRows * kSwizzleRow;     // bytes
+  constexpr int kKVChunk = kTcKeys * kSwizzleRow;
+  constexpr int kStage = 2 * NC * kKVChunk;          // K chunks, V chunks
+  extern __shared__ uint8_t smem_raw[];
+  // swizzled tiles start on 1024-byte boundaries (the launch adds 1 KB)
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* qs = base;
+  uint8_t* kvs = qs + NC * kQChunk;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(kvs + kTcStages * kStage);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + kTcStages;
+
+  const int head = blockIdx.x;
+  const int b = blockIdx.y;
+  const int m0 = (a.row_tiles - 1 - static_cast<int>(blockIdx.z)) * kTcRows;
+  const int kvh = head / (a.h / a.kh);
+  // tiles the block walks: up to the causal horizon of its last row
+  int n_keys = a.kv_lim;
+  if (a.causal) n_keys = min(n_keys, a.q_offset + min(m0 + kTcRows, a.s));
+  const int n_tiles = (n_keys + kTcKeys - 1) / kTcKeys;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int i = 0; i < kTcStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], kTcConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (warp == kTcConsumerWarps) {                  // the producer warp
+    if (lane == 0) {
+      mbar_expect_tx(q_full, NC * kQChunk);
+      for (int c = 0; c < NC; ++c) {
+        tma_load(qs + c * kQChunk, &tq, q_full, c * kBoxCols, head, m0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int st = j % kTcStages;
+        if (j >= kTcStages) mbar_wait(&empty[st], (j / kTcStages - 1) & 1);
+        uint8_t* ks = kvs + st * kStage;
+        uint8_t* vs = ks + NC * kKVChunk;
+        mbar_expect_tx(&full[st], kStage);
+        for (int c = 0; c < NC; ++c) {
+          tma_load(ks + c * kKVChunk, &tk, &full[st], c * kBoxCols, kvh,
+                   j * kTcKeys, b);
+          tma_load(vs + c * kKVChunk, &tv, &full[st], c * kBoxCols, kvh,
+                   j * kTcKeys, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg takes rows m0 + 64 wg ..; this thread holds
+  // rows r0 and r0 + 8 of them, keys (columns) 8 n + 2 (lane % 4) + {0, 1}
+  // of each n-block of 8, the wgmma accumulator layout
+  const int wg = warp / 4;
+  const int wg_row0 = m0 + 64 * wg;
+  const int r0 = wg_row0 + 16 * (warp % 4) + lane / 4;
+  const int col = 2 * (lane % 4);
+  int my_tiles = 0;                                // 0: no row below S
+  if (wg_row0 < a.s) {
+    int nk = a.kv_lim;
+    if (a.causal) nk = min(nk, a.q_offset + min(wg_row0 + 64, a.s));
+    my_tiles = (nk + kTcKeys - 1) / kTcKeys;
+  }
+  const uint32_t q_addr = smem_u32(qs) + wg * 64 * kSwizzleRow;
+
+  float o[32 * NC];
+#pragma unroll
+  for (int i = 0; i < 32 * NC; ++i) o[i] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf};
+  float l_r[2] = {0.f, 0.f};                       // this thread's share
+  mbar_wait(q_full, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int st = j % kTcStages;
+    mbar_wait(&full[st], (j / kTcStages) & 1);
+    if (j < my_tiles) {
+      const uint32_t k_addr = smem_u32(kvs + st * kStage);
+      const uint32_t v_addr = k_addr + NC * kKVChunk;
+
+      // S = Q.K^T: k-step ks reads 16 columns, 32 bytes into a 128-byte
+      // swizzled row of chunk ks / 4; 8-row groups 1024 bytes apart
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        const uint32_t off = (ks % 4) * 32;
+        wgmma_64x64_ss(
+            s, sw128_desc(q_addr + (ks / 4) * kQChunk + off, 16, 1024),
+            sw128_desc(k_addr + (ks / 4) * kKVChunk + off, 16, 1024),
+            ks > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
+
+      // online softmax, row by row of this thread's two
+      const int t0 = j * kTcKeys;
+      const bool masked = t0 + kTcKeys > a.kv_lim ||
+                          (a.causal && t0 + kTcKeys - 1 > a.q_offset + wg_row0);
+      float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int half = (i / 2) % 2;              // row r0 or r0 + 8
+        float x = s[i] * a.scale;
+        if (masked) {
+          const int key = t0 + 8 * (i / 4) + col + i % 2;
+          if (key >= a.kv_lim ||
+              (a.causal && key > a.q_offset + r0 + 8 * half)) {
+            x = kNegInf;
+          }
+        }
+        s[i] = x;
+        mx[half] = fmaxf(mx[half], x);
+      }
+      float alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+        alpha[r] = expf(m_r[r] - mx[r]);
+        m_r[r] = mx[r];
+        l_r[r] *= alpha[r];
+      }
+      // P split into two bf16 terms, packed as the A fragments of P.V:
+      // k-step kk takes s[8 kk .. 8 kk + 7]
+      uint32_t p_hi[16], p_lo[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int half = i % 2;
+        const float p0 = expf(s[2 * i] - mx[half]);
+        const float p1 = expf(s[2 * i + 1] - mx[half]);
+        l_r[half] += p0;
+        l_r[half] += p1;
+        const __nv_bfloat16 h0 = __float2bfloat16_rn(p0);
+        const __nv_bfloat16 h1 = __float2bfloat16_rn(p1);
+        p_hi[i] = pack_bf16(h0, h1);
+        p_lo[i] = pack_bf16(__float2bfloat16_rn(p0 - __bfloat162float(h0)),
+                            __float2bfloat16_rn(p1 - __bfloat162float(h1)));
+      }
+#pragma unroll
+      for (int i = 0; i < 32 * NC; ++i) o[i] *= alpha[(i / 2) % 2];
+
+      // O += P_hi.V + P_lo.V: k-step kk reads keys 16 kk .., two 8-key
+      // groups of 1024 bytes; column chunks of V 8 KB apart
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_pv<NC>(o, p_hi + 4 * kk,
+                     sw128_desc(v_addr + kk * 2048, kKVChunk, 1024));
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_pv<NC>(o, p_lo + 4 * kk,
+                     sw128_desc(v_addr + kk * 2048, kKVChunk, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(o);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);        // this warp is done
+  }
+
+  if (my_tiles == 0) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_r[r] += __shfl_xor_sync(kFull, l_r[r], 1);
+    l_r[r] += __shfl_xor_sync(kFull, l_r[r], 2);
+    l_r[r] = fmaxf(l_r[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= a.s) continue;
+    __nv_bfloat16* dst =
+        a.o + ((static_cast<int64_t>(b) * a.s + row) * a.h + head) * a.d;
+#pragma unroll
+    for (int n = 0; n < 8 * NC; ++n) {
+      const int c = 8 * n + col;
+      if (c < a.d) {
+        *reinterpret_cast<__nv_bfloat162*>(dst + c) = __floats2bfloat162_rn(
+            o[4 * n + 2 * r] / l_r[r], o[4 * n + 2 * r + 1] / l_r[r]);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the runtime's entry-point
+// query, so that the library needs no libcuda link
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// the 4-D map (D, heads, positions, batch) of a contiguous bf16 tensor
+// (B, len, heads, D), in boxes of (64, 1, rows, 1) with 128-byte swizzle;
+// out-of-bounds elements read as zero
+bool encode_map(CUtensorMap* map, const void* ptr, int64_t batch,
+                int64_t len, int64_t heads, int64_t d, uint32_t rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(len),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(2 * d),
+                                 static_cast<cuuint64_t>(2 * d * heads),
+                                 static_cast<cuuint64_t>(2 * d * heads * len)};
+  const cuuint32_t box[4] = {kBoxCols, 1, rows, 1};
+  const cuuint32_t step[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
+            dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int KS>
+cudaError_t launch_tc(const CUtensorMap& tq, const CUtensorMap& tk,
+                      const CUtensorMap& tv, const TcArgs& a, int64_t batch,
+                      cudaStream_t stream) {
+  constexpr int NC = (KS + 3) / 4;
+  constexpr int smem = 1024 + NC * kTcRows * kSwizzleRow +
+                       kTcStages * 2 * NC * kTcKeys * kSwizzleRow +
+                       (1 + 2 * kTcStages) * 8;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_tc_kernel<KS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(a.h), static_cast<unsigned>(batch),
+                  static_cast<unsigned>(a.row_tiles));
+  flash_tc_kernel<KS><<<grid, kTcThreads, smem, stream>>>(tq, tk, tv, a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16; kv_valid_len -1 for none; kv_splits >= 1
@@ -392,6 +879,55 @@ extern "C" int rt_flash_attention_fwd(const void* q, const void* k,
     err = dispatch<__nv_bfloat16>(a, b, st);
   } else {
     err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// bfloat16 only, D % 16 == 0 and D <= 128; kv_valid_len -1 for none.
+// Returns cudaErrorNotSupported when a tensor map cannot be encoded.
+extern "C" int rt_flash_attention_tc(const void* q, const void* k,
+                                     const void* v, void* o, int64_t b,
+                                     int64_t s, int64_t t, int64_t h,
+                                     int64_t kh, int64_t d, int64_t causal,
+                                     int64_t q_offset, int64_t kv_valid_len,
+                                     void* stream) {
+  constexpr int64_t kMax = 0x7fffffff;
+  if (d <= 0 || d > 128 || d % 16 || kh <= 0 || h % kh || q_offset < 0 ||
+      kv_valid_len == 0 || kv_valid_len < -1 || b > 65535 || h > kMax ||
+      t > kMax || s + q_offset > kMax ||
+      (s + kTcRows - 1) / kTcRows > 65535) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (b == 0 || s == 0 || t == 0) return static_cast<int>(cudaSuccess);
+  CUtensorMap tq, tk, tv;
+  if (!encode_map(&tq, q, b, s, h, d, kTcRows) ||
+      !encode_map(&tk, k, b, t, kh, d, kTcKeys) ||
+      !encode_map(&tv, v, b, t, kh, d, kTcKeys)) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
+  TcArgs a;
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.s = static_cast<int>(s);
+  a.h = static_cast<int>(h);
+  a.kh = static_cast<int>(kh);
+  a.d = static_cast<int>(d);
+  a.q_offset = static_cast<int>(q_offset);
+  a.kv_lim = static_cast<int>(kv_valid_len < 0 || kv_valid_len > t
+                                  ? t : kv_valid_len);
+  a.causal = causal != 0;
+  a.row_tiles = static_cast<int>((s + kTcRows - 1) / kTcRows);
+  a.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (d / 16) {
+    case 1: err = launch_tc<1>(tq, tk, tv, a, b, st); break;
+    case 2: err = launch_tc<2>(tq, tk, tv, a, b, st); break;
+    case 3: err = launch_tc<3>(tq, tk, tv, a, b, st); break;
+    case 4: err = launch_tc<4>(tq, tk, tv, a, b, st); break;
+    case 5: err = launch_tc<5>(tq, tk, tv, a, b, st); break;
+    case 6: err = launch_tc<6>(tq, tk, tv, a, b, st); break;
+    case 7: err = launch_tc<7>(tq, tk, tv, a, b, st); break;
+    default: err = launch_tc<8>(tq, tk, tv, a, b, st); break;
   }
   return static_cast<int>(err);
 }

@@ -15,7 +15,8 @@ The library is loaded with ``ctypes``. Every C entry point takes device
 pointers, int64 lengths and the CUDA stream, launches on that stream and
 returns ``cudaGetLastError()``; :func:`launch` raises when that is not 0
 and counts the launch in :data:`launches`, the per-kernel launch counter a
-run reads to show which kernels its path went through.
+run reads to show which kernels its path went through (a kernel with more
+than one design also under ``"<kernel>.<variant>"``).
 """
 from __future__ import annotations
 
@@ -47,6 +48,8 @@ SIGNATURES = {
     # q, k, v, o, B, S, T, H, K, D, causal, q_offset, kv_valid_len, dtype,
     # kv_splits, scratch, stream
     "rt_flash_attention_fwd": (_P, _P, _P, _P) + (_I64,) * 11 + (_P, _P),
+    # q, k, v, o, B, S, T, H, K, D, causal, q_offset, kv_valid_len, stream
+    "rt_flash_attention_tc": (_P, _P, _P, _P) + (_I64,) * 9 + (_P,),
     # r, k, v, w, u, s0, y, s_out, B, S, H, hd, tile, stream
     "rt_wkv_fwd": (_P,) * 8 + (_I64,) * 5 + (_P,),
     # x, b, c, dt, a, d, s0, y, s_out, B, S, H, hd, N, strides of x, b, c
@@ -142,9 +145,11 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
+def launch(kernel: str, entry: str, device: torch.device, *args,
+           variant: Optional[str] = None) -> None:
     """Call C entry point ``entry`` on the current stream of ``device``,
-    raise if the launch failed, and count it under ``kernel``."""
+    raise if the launch failed, and count it under ``kernel`` (and, given
+    a ``variant``, under ``kernel.variant``)."""
     fn = getattr(library(), entry)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -153,3 +158,5 @@ def launch(kernel: str, entry: str, device: torch.device, *args) -> None:
         raise RuntimeError(f"CUDA kernel {kernel} ({entry}) failed to "
                            f"launch: cudaError {code}")
     launches[kernel] += 1
+    if variant is not None:
+        launches[f"{kernel}.{variant}"] += 1

@@ -1,20 +1,29 @@
 """Grouped-query flash attention (forward).
 
 Counterpart of ``repro/kernels/flash_attention/ops.py``. On a CUDA tensor
-:func:`flash_attention` launches the Hopper kernel of
-``repro_torch/csrc/flash_attention.cu``; on a CPU tensor it runs
-:func:`flash_attention_plain`, which repeats the kernel's arithmetic with
-torch ops. Both compute what the reference's ``_flash_kernel`` computes:
+:func:`flash_attention` launches one of the two Hopper kernels of
+``repro_torch/csrc/flash_attention.cu``, chosen by :func:`variant` from the
+call's dtype and shape alone; on a CPU tensor it runs
+:func:`flash_attention_plain`, the function's definition in torch ops. All
+compute what the reference's ``_flash_kernel`` computes:
 
-* q (B, S, H, D) and k/v (B, T, K, D), H % K == 0, bfloat16 or float32,
-  read and upcast to float32;
+* q (B, S, H, D) and k/v (B, T, K, D), H % K == 0, bfloat16 or float32;
 * scores ``q·kᵀ·(1/√D)`` in float32, set to -1e30 where
   ``q_offset + i < kpos`` (causal) or ``kpos >= kv_valid_len``;
-* softmax in float32 and P·V in float32, P never rounded;
+* an online softmax in float32, and P·V summed in float32;
 * output ``acc / max(l, 1e-30)`` in q's dtype.
 
-``q_offset`` and ``kv_valid_len`` are runtime arguments of the kernel, so a
-decode step against a cache of T slots neither recompiles nor reads the
+What each variant does with P:
+
+* ``"scalar"`` (every float32 call, decode steps, short calls): every
+  element upcast to float32, P never rounded;
+* ``"tc"`` (bfloat16 prefill, on the tensor cores): Q, K and V exact (they
+  are bfloat16 already), P carried as ``P_hi + P_lo``, two bfloat16 terms
+  (``P_hi = bf16(P)``, ``P_lo = bf16(P - P_hi)``), relative error at most
+  about 2^-16 per element; every sum in float32.
+
+``q_offset`` and ``kv_valid_len`` are runtime arguments of the kernels, so
+a decode step against a cache of T slots neither recompiles nor reads the
 slots past ``kv_valid_len``. Every row has at least one valid key (key 0):
 ``q_offset >= 0`` and ``kv_valid_len >= 1`` are required.
 
@@ -31,8 +40,10 @@ from repro_torch.kernels import _build, dispatch
 
 NEG_INF = -1e30
 MAX_HEAD_DIM = 256
-ROWS_PER_BLOCK = 32      # (query, head) rows of one block of the kernel
-KEY_TILE = 32            # keys the kernel stages per tile
+ROWS_PER_BLOCK = 32      # (query, head) rows of one block of the scalar
+KEY_TILE = 32            # kernel, and the keys it stages per tile
+TC_MAX_HEAD_DIM = 128    # the tc kernel: D % 16 == 0 up to this,
+TC_MIN_ROWS = 64         # and at least one warpgroup of (query, head) rows
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -98,10 +109,22 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
 
 
+def variant(dtype: torch.dtype, s: int, g: int, d: int) -> str:
+    """Which kernel a CUDA call runs, from its dtype, query length ``s``,
+    group size ``g = H / K`` and head width ``d``: ``"tc"`` (tensor cores)
+    for bfloat16 with ``d % 16 == 0``, ``d <= 128`` and ``s * g >= 64`` (at
+    least one warpgroup of rows), else ``"scalar"`` (every float32 call, a
+    decode step, short calls)."""
+    if (dtype == torch.bfloat16 and d % 16 == 0 and d <= TC_MAX_HEAD_DIM
+            and s * g >= TC_MIN_ROWS):
+        return "tc"
+    return "scalar"
+
+
 def kv_splits(b: int, s: int, h: int, kh: int, kv_len: int,
               n_sms: int) -> int:
-    """How many blocks the kernel runs along the keys of one (row block,
-    kv head, sequence): 1 when that grid fills a wave of the card's
+    """How many blocks the scalar kernel runs along the keys of one (row
+    block, kv head, sequence): 1 when that grid fills a wave of the card's
     ``n_sms`` SMs, else enough to give about two blocks per SM, with at
     least 4 key tiles per block (a decode step: B * K blocks otherwise)."""
     blocks = -(-s * (h // kh) // ROWS_PER_BLOCK) * kh * b
@@ -132,19 +155,27 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, s, h, d = q.shape
     tk, kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
-    if q.numel() and tk:
-        kv_len = tk if kv_valid_len is None else min(kv_valid_len, tk)
-        n_sms = torch.cuda.get_device_properties(
-            q.device).multi_processor_count
-        splits = kv_splits(b, s, h, kh, kv_len, n_sms)
-        scratch = None
-        if splits > 1:      # per split: acc (D), row max and row sum per row
-            scratch = torch.empty(b * kh * splits * s * (h // kh) * (d + 2),
-                                  dtype=torch.float32, device=q.device)
-        _build.launch("flash_attention_fwd", "rt_flash_attention_fwd",
+    if not (q.numel() and tk):
+        return out
+    valid = -1 if kv_valid_len is None else kv_valid_len
+    var = variant(q.dtype, s, h // kh, d)
+    if var == "tc":
+        _build.launch("flash_attention_fwd", "rt_flash_attention_tc",
                       q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), b, s, tk, h, kh, d, int(causal),
-                      q_offset, -1 if kv_valid_len is None else kv_valid_len,
-                      _DTYPE_CODES[q.dtype], splits,
-                      None if scratch is None else scratch.data_ptr())
+                      q_offset, valid, variant=var)
+        return out
+    kv_len = tk if kv_valid_len is None else min(kv_valid_len, tk)
+    n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    splits = kv_splits(b, s, h, kh, kv_len, n_sms)
+    scratch = None
+    if splits > 1:          # per split: acc (D), row max and row sum per row
+        scratch = torch.empty(b * kh * splits * s * (h // kh) * (d + 2),
+                              dtype=torch.float32, device=q.device)
+    _build.launch("flash_attention_fwd", "rt_flash_attention_fwd", q.device,
+                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                  b, s, tk, h, kh, d, int(causal), q_offset, valid,
+                  _DTYPE_CODES[q.dtype], splits,
+                  None if scratch is None else scratch.data_ptr(),
+                  variant=var)
     return out

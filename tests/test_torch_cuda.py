@@ -136,6 +136,21 @@ FLASH_CASES = [
     (4, 1, 2080, 16, 8, 128, True, 2079, 2080, torch.bfloat16),
     (2, 3, 1000, 4, 2, 64, True, 990, 993, torch.bfloat16),
     (1, 2, 700, 2, 2, 80, False, 0, 650, torch.float32),
+    # the tensor-core kernel: each D it takes (16 to 128; 80 and 112 end
+    # inside a 64-column box), g = 1, 2, 3, 5, S * g at and just over 64,
+    # S and T off the 64-key tile, q_offset > 0 with S < T, kv_valid_len
+    # < T, non-causal, a grid of fewer blocks than SMs, several row tiles
+    (1, 64, 64, 1, 1, 64, True, 0, None, torch.bfloat16),
+    (1, 33, 70, 4, 2, 64, True, 37, None, torch.bfloat16),
+    (2, 65, 130, 10, 2, 80, True, 65, None, torch.bfloat16),
+    (1, 200, 333, 6, 2, 128, True, 100, 290, torch.bfloat16),
+    (2, 100, 100, 8, 8, 112, True, 0, None, torch.bfloat16),
+    (1, 300, 300, 4, 2, 32, False, 0, 257, torch.bfloat16),
+    (1, 40, 40, 4, 2, 16, True, 0, None, torch.bfloat16),
+    (2, 129, 129, 2, 1, 96, True, 0, None, torch.bfloat16),
+    (1, 520, 520, 3, 3, 48, True, 0, None, torch.bfloat16),
+    (1, 256, 256, 2, 1, 128, True, 0, None, torch.bfloat16),
+    (2, 190, 190, 5, 1, 112, False, 0, 150, torch.bfloat16),
 ]
 
 
@@ -151,6 +166,8 @@ def test_flash_kernel_matches_plain(dev, case):
     torch.cuda.synchronize()
     assert got.dtype == dt and got.shape == q.shape
     assert _build.launches["flash_attention_fwd"] == 1
+    var = FA.variant(dt, s, h // kh, d)
+    assert _build.launches[f"flash_attention_fwd.{var}"] == 1
     got, want = got.float(), want.float()
     # both sum in float32 in different orders; a bf16 output may then round
     # to the neighbouring value: at most one bf16 step, 2^-7 relative
@@ -158,6 +175,19 @@ def test_flash_kernel_matches_plain(dev, case):
            else torch.full_like(want, 1e-5))
     assert bool(((got - want).abs() <= tol).all()), \
         float((got - want).abs().max())
+
+
+def test_flash_float32_and_decode_calls_take_the_scalar_kernel(dev):
+    g = torch.Generator(device=dev).manual_seed(9)
+    q32 = torch.randn((2, 128, 8, 128), generator=g, device=dev)
+    k32 = torch.randn((2, 128, 4, 128), generator=g, device=dev)
+    FA.flash_attention(q32, k32, k32)                       # float32 prefill
+    q1 = q32[:, :1].contiguous().to(torch.bfloat16)
+    k16 = k32.to(torch.bfloat16)
+    FA.flash_attention(q1, k16, k16, q_offset=127)          # decode step
+    torch.cuda.synchronize()
+    assert _build.launches["flash_attention_fwd.scalar"] == 2
+    assert _build.launches["flash_attention_fwd.tc"] == 0
 
 
 def test_flash_kernel_refuses_bad_head_dim(dev):

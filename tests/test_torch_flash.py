@@ -6,6 +6,12 @@ interpret mode and against its ``ref.attention``, in float32 on the same
 numpy inputs. Tolerance 1e-5 absolute: all three sum the same float32
 products in different orders (the Pallas kernel tile by tile with an
 online softmax, the others over the whole row), on values of order 1.
+
+Then the CUDA side's decisions that the CPU can check: which kernel a call
+runs (``ops.variant``), and why the tensor-core kernel carries P as two
+bf16 terms: its arithmetic, emulated in torch, stays within the card
+test's tolerance against the plain version with two terms and leaves it
+with one.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -130,3 +136,107 @@ def test_wrapper_refuses_mixed_dtypes_and_strided_inputs():
 def test_kv_splits_fill_a_wave_of_the_card(shape, splits):
     b, s, h, kh, kv_len = shape
     assert FA.kv_splits(b, s, h, kh, kv_len, n_sms=132) == splits
+
+
+# --------------------------------------------------------------------------- #
+# the CUDA routing rule and the tensor-core kernel's arithmetic
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("dtype, s, g, d, want", [
+    (torch.bfloat16, 2048, 2, 128, "tc"),        # qwen3-0.6b prefill
+    (torch.bfloat16, 2048, 1, 112, "tc"),        # zamba2-7b prefill
+    (torch.bfloat16, 64, 1, 80, "tc"),           # hubert-xlarge's width
+    (torch.bfloat16, 32, 2, 64, "tc"),           # S * g = 64: one warpgroup
+    (torch.bfloat16, 63, 1, 64, "scalar"),       # S * g = 63
+    (torch.bfloat16, 21, 3, 64, "scalar"),
+    (torch.bfloat16, 1, 2, 128, "scalar"),       # a decode step
+    (torch.bfloat16, 1, 64, 128, "tc"),          # one row, 64 heads a group
+    (torch.bfloat16, 512, 1, 136, "scalar"),     # wider than 128
+    (torch.bfloat16, 512, 1, 256, "scalar"),
+    (torch.bfloat16, 512, 1, 72, "scalar"),      # not a multiple of 16
+    (torch.float32, 2048, 2, 128, "scalar"),     # every float32 call
+    (torch.float32, 512, 1, 64, "scalar"),
+    (torch.float32, 1, 2, 112, "scalar"),
+])
+def test_variant_is_a_rule_of_dtype_and_shape(dtype, s, g, d, want):
+    assert FA.variant(dtype, s, g, d) == want
+
+
+def _tc_emulation(q, k, v, *, causal, q_offset, kv_valid_len, terms):
+    """The tc kernel's arithmetic in torch: scores of bf16 q and k summed in
+    float32, the online softmax over 64-key tiles in float32, and P·V as
+    ``terms`` bf16 terms of P (bf16(P), then bf16(P - bf16(P))), each
+    multiplied with V and summed in float32."""
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    qf = q.float().permute(0, 2, 1, 3)                       # (B, H, S, D)
+    kf = k.float().permute(0, 2, 1, 3).repeat_interleave(h // kh, 1)
+    vf = v.float().permute(0, 2, 1, 3).repeat_interleave(h // kh, 1)
+    kv_lim = t if kv_valid_len is None else min(kv_valid_len, t)
+    qpos = torch.arange(s)[:, None] + q_offset
+    m = torch.full((b, h, s, 1), FA.NEG_INF)
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, d))
+    for t0 in range(0, kv_lim, 64):
+        kpos = torch.arange(t0, min(t0 + 64, t))[None, :]
+        sc = qf @ kf[:, :, t0:t0 + 64].transpose(-1, -2) * (1.0 / d ** 0.5)
+        ok = kpos < kv_lim
+        if causal:
+            ok = ok & (kpos <= qpos)
+        sc = torch.where(ok, sc, torch.full((), FA.NEG_INF))
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        p = torch.exp(sc - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha
+        rest = p
+        for _ in range(terms):
+            term = rest.to(torch.bfloat16).float()
+            acc = acc + term @ vf[:, :, t0:t0 + 64]
+            rest = rest - term
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)
+    return out.permute(0, 2, 1, 3).to(torch.bfloat16)
+
+
+# the bf16 shapes of the card tests that the tc kernel takes
+# (B, S, T, H, K, D, causal, q_offset, kv_valid_len)
+TC_CASES = [
+    (2, 77, 77, 4, 2, 128, True, 0, None),
+    (1, 130, 130, 4, 4, 64, True, 0, None),
+    (2, 33, 45, 6, 2, 112, False, 0, None),
+    (1, 33, 70, 4, 2, 64, True, 37, None),
+    (2, 65, 130, 10, 2, 80, True, 65, None),
+    (1, 200, 333, 6, 2, 128, True, 100, 290),
+    (2, 100, 100, 8, 8, 112, True, 0, None),
+    (1, 300, 300, 4, 2, 32, False, 0, 257),
+]
+
+
+def _over_card_tolerance(case, terms):
+    """Elements of the emulation outside the card test's tolerance against
+    ``flash_attention_plain``: one bf16 step, ``2^-7·|want| + 1e-5``."""
+    b, s, t, h, kh, d, causal, off, valid = case
+    rng = np.random.default_rng(sum(case[:6]))
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+               .to(torch.bfloat16)
+               for shape in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d)))
+    assert FA.variant(q.dtype, s, h // kh, d) == "tc"
+    kw = dict(causal=causal, q_offset=off, kv_valid_len=valid)
+    got = _tc_emulation(q, k, v, terms=terms, **kw).float()
+    want = FA.flash_attention_plain(q, k, v, **kw).float()
+    return int(((got - want).abs() > want.abs() * 2.0 ** -7 + 1e-5).sum())
+
+
+@pytest.mark.parametrize("case", TC_CASES, ids=lambda c: "-".join(
+    map(str, c)))
+def test_two_bf16_terms_of_p_hold_the_card_tolerance(case):
+    assert _over_card_tolerance(case, terms=2) == 0
+
+
+@pytest.mark.parametrize("case", TC_CASES, ids=lambda c: "-".join(
+    map(str, c)))
+def test_one_bf16_term_of_p_breaks_the_card_tolerance(case):
+    """The witness for the second term: P rounded once to bf16 moves some
+    outputs past one bf16 step of the function."""
+    assert _over_card_tolerance(case, terms=1) > 0
