@@ -70,20 +70,24 @@ Phases (any failure raises and ends the run with a nonzero exit):
    tokens with one ``lm.prefill_step`` and 32 greedy ``lm.decode_step``s.
    Launch counts are reset just before and read just after; the SSD kernel
    must launch once per layer and the flash kernel once per application
-   of the shared block, in the prefill (tc) and in every decode step
-   (scalar); the float32 checks run the scalar variant only. Then:
+   of the shared block, in the prefill (both "tc") and in every decode step
+   (SSD "rec", flash "scalar"); the float32 checks run the scalar flash
+   variant only. Then:
    wall times, tokens/s, memory, the idle share and top device operations
    over a decode step and a prefill (``torch.profiler``), and checks (e)
    prefill(S) plus one decode step against prefill(S + 1) in bf16, (b)
    flash against plain attention and (c) teacher-forced decode against
    the forward, both in float32 at full width and depth, (d) the reduced
    config in float32 on the card against the CPU;
-11. the SSD kernel against its plain version at the prefill and decode
-   shapes of phase 10 and at edge cases, timed as in phase 4 beside its
-   bound (bytes over 3.35 TB/s, operations over 67 TFLOP/s float32); the
-   decode row takes eight input sets in turn, so that each call finds its
-   state outside the card's L2, as a decode step does; then the flash
-   kernel at zamba2-7b's prefill shape, as in phase 7.
+11. the SSD kernel against its plain version at edge cases, each through
+   the variant it must take, and a long tiny-dt call through "tc" against
+   a float64 recurrence; then timed as in phase 4: "tc" at the prefill
+   shape of phase 10 beside its bound (bytes over 3.35 TB/s, its three
+   TF32 products over 495 TFLOP/s) and the "rec" kernel at the same shape
+   beside its scalar floor, "rec" at the decode shape (operations over 67
+   TFLOP/s float32) over eight input sets in turn, so that each call finds
+   its state outside the card's L2, as a decode step does; then the flash
+   kernel at zamba2-7b's prefill and decode shapes, as in phase 7.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -559,15 +563,22 @@ LM_TEACHER = 8          # teacher-forced positions of check (c)
 LM_BF16_REL = 2.0 ** -4
 FLASH = "flash_attention_fwd"
 FLASH_VARIANTS = ("tc", "scalar")
+SSD = "mamba2_ssd"
+# each kernel with more than one design: its variants (its ops.variant)
+VARIANTS = {FLASH: FLASH_VARIANTS, SSD: ("tc", "rec")}
+
+
+def variants(kernel, since=None) -> dict:
+    """Launches of ``kernel`` by variant so far, or since the counts
+    ``since``."""
+    from repro_torch.kernels import _build
+
+    now = {v: _build.launches[f"{kernel}.{v}"] for v in VARIANTS[kernel]}
+    return now if since is None else {v: now[v] - since[v] for v in now}
 
 
 def flash_variants(since=None) -> dict:
-    """Flash launches by variant (kernels/flash_attention/ops.variant) so
-    far, or since the counts ``since``."""
-    from repro_torch.kernels import _build
-
-    now = {v: _build.launches[f"{FLASH}.{v}"] for v in FLASH_VARIANTS}
-    return now if since is None else {v: now[v] - since[v] for v in now}
+    return variants(FLASH, since)
 
 
 def _distinct(counts) -> list:
@@ -880,7 +891,6 @@ def flash_prefill_row(rows, launches, rand, what, b, s, h, kh, d):
 
 
 def flash_kernel(rows, launches):
-    import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as FA
 
     rand = _flash_rand(torch.Generator(device="cuda").manual_seed(2))
@@ -903,8 +913,18 @@ def flash_kernel(rows, launches):
 
     b, s, h, kh, d = LM_BATCH, LM_PROMPT, 16, 8, 128
     flash_prefill_row(rows, launches, rand, "qwen3-0.6b", b, s, h, kh, d)
+    flash_decode_row(rows, launches, rand, "qwen3-0.6b", b, h, kh, d,
+                     LM_CACHE)
 
-    valid = LM_CACHE
+
+def flash_decode_row(rows, launches, rand, what, b, h, kh, d, valid):
+    """The flash kernel at a bf16 decode step against ``valid`` cache slots,
+    against its plain version, timed beside ``scaled_dot_product_attention``
+    warm and L2-cold; one row of ``rows`` with the main path's launches of
+    the variant it runs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as FA
+
     qd, kd, vd = rand((b, 1, h, d)), rand((b, valid, kh, d)), \
         rand((b, valid, kh, d))
     kw = dict(causal=True, q_offset=valid - 1, kv_valid_len=valid)
@@ -925,21 +945,24 @@ def flash_kernel(rows, launches):
                lambda: lib_of(qd, kd, vd),
                2 * (2 * qd.numel() + 2 * kd.numel()),
                4 * b * h * d * valid,
-               f"decode B={b}, S=1, T={valid}, q_offset={valid - 1}, "
+               f"{what} decode B={b}, S=1, H={h}, K={kh}, D={d}, T={valid}, "
+               f"q_offset={valid - 1}, "
                f"kv_valid_len={valid}, bf16, kernel {var}; library = "
                f"scaled_dot_product_attention(enable_gqa), max diff to it "
                f"{lib_err:.4f}",
                ops_per_s=TENSOR_OPS_PER_S, ops_rate="989 TFLOP/s bf16",
                variant=var)
     # the same decode call L2-cold, as a decode step finds its layer's
-    # cache (27 other layers' caches pass between two reads): five input
-    # sets in turn, 170 MB against the card's 50 MB L2
+    # cache (the other layers' caches pass between two reads): five input
+    # sets in turn, 170 MB (qwen3-0.6b) or 300 MB (zamba2-7b) against the
+    # card's 50 MB L2
     sets = [(qd, kd, vd)] + [(rand((b, 1, h, d)), rand((b, valid, kh, d)),
                               rand((b, valid, kh, d))) for _ in range(4)]
     turn = itertools.cycle(sets)
     cold = device_ms(lambda: FA.flash_attention(*next(turn), **kw))
     cold_lib = device_ms(lambda: lib_of(*next(turn)))
-    log(f"[kernels] {FLASH} decode B={b}, S=1, T={valid}, kernel {var}, "
+    log(f"[kernels] {FLASH} {what} decode B={b}, S=1, H={h}, K={kh}, "
+        f"D={d}, T={valid}, kernel {var}, "
         f"{len(sets)} input sets in turn (L2-cold): device time per call: "
         f"kernel {cold:.4f} ms, library {cold_lib:.4f} ms "
         f"(scaled_dot_product_attention(enable_gqa)); {card()}")
@@ -1265,7 +1288,6 @@ ZAMBA_TEACHER = 8       # teacher-forced positions of check (c)
 # so no bf16 limit could hold there; this phase prints the bf16 gap as a
 # reading
 ZAMBA_F32_REL = 2.0 ** -12
-SSD = "mamba2_ssd"
 
 
 def _rel_check(what, got, want, limit) -> float:
@@ -1328,23 +1350,26 @@ def zamba_serving():
     prefill_s = time.perf_counter() - t
     n_prefill = (_build.launches[SSD], _build.launches[FLASH])
     prefill_var = flash_variants()
+    prefill_ssd = variants(SSD)
     _mem("prefill", "zamba")
     caches = _copy_caches(pre, transformer.init_decode_caches(
         cfg, ZAMBA_BATCH, ZAMBA_CACHE, device=dev), ZAMBA_PROMPT)
     del pre
     torch.cuda.synchronize()
     tok = logits.argmax(-1)
-    first_tok, per_step, step_var, out = tok, [], [], []
+    first_tok, per_step, step_var, step_ssd, out = tok, [], [], [], []
     t = time.perf_counter()
     for i in range(ZAMBA_NEW):
         before = (_build.launches[SSD], _build.launches[FLASH])
         before_var = flash_variants()
+        before_ssd = variants(SSD)
         last_tok = tok
         logits, caches = lm.decode_step(
             model, caches, {"token": tok, "pos": ZAMBA_PROMPT + i}, cfg)
         per_step.append((_build.launches[SSD] - before[0],
                          _build.launches[FLASH] - before[1]))
         step_var.append(flash_variants(before_var))
+        step_ssd.append(variants(SSD, before_ssd))
         if i == 0:
             first_logits = logits
         tok = logits.argmax(-1)
@@ -1369,13 +1394,17 @@ def zamba_serving():
         f"flash {launches.get(FLASH, 0)}")
     log(f"[zamba] flash variants: prefill {prefill_var}, decode steps "
         f"{_distinct(step_var)}")
+    log(f"[zamba] SSD variants: prefill {prefill_ssd}, decode steps "
+        f"{_distinct(step_ssd)}")
     # (a) one SSD launch per layer and one flash launch per application of
-    # the shared block, in the prefill (on the tensor cores) and in every
-    # decode step (on the scalar kernel)
+    # the shared block, in the prefill (both on the tensor cores) and in
+    # every decode step (the SSD recurrence and the scalar flash kernel)
     assert n_prefill == (cfg.n_layers, napps), n_prefill
     assert per_step == [(cfg.n_layers, napps)] * ZAMBA_NEW, per_step
     assert prefill_var == dict(tc=napps, scalar=0), prefill_var
     assert step_var == [dict(tc=0, scalar=napps)] * ZAMBA_NEW, step_var
+    assert prefill_ssd == dict(tc=cfg.n_layers, rec=0), prefill_ssd
+    assert step_ssd == [dict(tc=0, rec=cfg.n_layers)] * ZAMBA_NEW, step_ssd
 
     # the card's busy and idle share over one decode step (the last step
     # again: it rewrites slot 2079 with the same token's k/v and moves the
@@ -1495,29 +1524,39 @@ def zamba_serving():
 # phase 11: the SSD kernel against its plain version
 # --------------------------------------------------------------------------- #
 
-# (B, S, H, hd, N, dt, s0, strided): the decode shape (S = 1), S = 0 and
-# S = 2049, odd H with hd = N = 16, mixed hd and N, dt tiny (the state
-# barely moves) and huge (the decay underflows to 0), s0 zero, and a batch
-# stride that is not contiguous
+# (B, S, H, hd, N, dt, s0, strided, variant): the decode shape (S = 1), S =
+# 0, 63, 64 and 2049, odd H with hd = N = 16, mixed hd and N on both sides
+# of one chunk, dt tiny (the state barely moves), huge (the decay
+# underflows to 0) and 0, s0 zero, a batch stride that is not contiguous,
+# and the variant each must run (ops.variant: "tc" from 64 steps up)
 SSD_EDGES = [
-    (4, 1, 112, 64, 64, "model", "random", False),
-    (2, 0, 3, 64, 64, "model", "random", False),
-    (1, 2049, 8, 64, 64, "model", "random", False),
-    (2, 65, 5, 16, 16, "model", "random", False),
-    (2, 40, 3, 32, 128, "model", "random", False),
-    (2, 100, 4, 64, 64, "tiny", "random", False),
-    (2, 100, 4, 64, 64, "huge", "random", False),
-    (1, 300, 2, 64, 64, "model", "zero", False),
-    (3, 40, 7, 64, 64, "model", "random", True),
+    (4, 1, 112, 64, 64, "model", "random", False, "rec"),
+    (2, 0, 3, 64, 64, "model", "random", False, "rec"),
+    (2, 63, 5, 64, 64, "model", "random", False, "rec"),
+    (2, 64, 5, 64, 64, "model", "random", False, "tc"),
+    (1, 2049, 8, 64, 64, "model", "random", False, "tc"),
+    (2, 65, 5, 16, 16, "model", "random", False, "tc"),
+    (2, 40, 3, 32, 128, "model", "random", False, "rec"),
+    (2, 100, 3, 32, 128, "model", "random", False, "tc"),
+    (1, 127, 3, 128, 16, "model", "random", False, "tc"),
+    (2, 100, 4, 64, 64, "tiny", "random", False, "tc"),
+    (2, 100, 4, 64, 64, "huge", "random", False, "tc"),
+    (2, 100, 4, 64, 64, "zero", "random", False, "tc"),
+    (1, 300, 2, 64, 64, "model", "zero", False, "tc"),
+    (3, 40, 7, 64, 64, "model", "random", True, "rec"),
+    (3, 96, 7, 64, 64, "model", "random", True, "tc"),
 ]
+SSD_SRC = "src/repro_torch/csrc/mamba2_ssd.cu"
+SSD_REPLACES = "src/repro/kernels/mamba2_ssd/kernel.py:72"
+TF32_OPS_PER_S = 495e12          # H100 SXM dense TF32 tensor-core rate
 
 
 def _ssd_inputs(case, gen):
     """x, b, c ~ N(0, 1); dt log-uniform in [1e-3, 1e-1] as ``mamba2_init``
-    sets it, about 1e-6 (tiny) or 5 to 20 (huge); a = -linspace(1, 16, H);
-    d ~ N(0, 1); s0 N(0, 1) or zero; with ``strided``, x, b, c and dt are
-    every other sequence of a batch twice as large."""
-    b, s, h, hd, n, dt, s0, strided = case
+    sets it, about 1e-6 (tiny), 5 to 20 (huge) or 0; a = -linspace(1, 16,
+    H); d ~ N(0, 1); s0 N(0, 1) or zero; with ``strided``, x, b, c and dt
+    are every other sequence of a batch twice as large."""
+    b, s, h, hd, n, dt, s0, strided = case[:8]
     dev = torch.device("cuda")
     bb = 2 * b if strided else b
 
@@ -1530,6 +1569,8 @@ def _ssd_inputs(case, gen):
         dtv = torch.exp(math.log(1e-3) + u * math.log(100.0))
     elif dt == "tiny":
         dtv = 1e-6 * (0.5 + u)
+    elif dt == "zero":
+        dtv = torch.zeros_like(u)
     else:
         dtv = 5.0 + 15.0 * u
     if strided:
@@ -1541,10 +1582,11 @@ def _ssd_inputs(case, gen):
 
 
 def _ssd_err(got, want):
-    """Kernel against plain version: within 1e-5 of the largest magnitude
-    of y (of the state, for the state), the same float32 recurrence with
-    the sum over N in another order. Returns the max abs difference and
-    the larger relative one."""
+    """Kernel against a reference: within 1e-5 of the largest magnitude of
+    y (of the state, for the state); the plain version is the float32
+    recurrence, the sum over N (rec) or the chunk's products (tc) in
+    another order. Returns the max abs difference and the larger relative
+    one."""
     errs, rels = [], []
     for g, w in zip(got, want):
         assert g.shape == w.shape and bool(torch.isfinite(g).all())
@@ -1558,12 +1600,39 @@ def _ssd_err(got, want):
 
 def _ssd_cost(b, s, h, hd, n):
     """Bytes (x, b, c, dt, a, d and s0 read, y and the state written, once
-    each) and operations, a multiply-add counted as two: per (b, t, h) the
-    state update e^{dt a} S + b (dt x) (3 N hd, and hd for dt x) and
-    y = c·S + d x (2 N hd + 2 hd), so 5 N hd + 3 hd."""
+    each) and the recurrence's operations, a multiply-add counted as two:
+    per (b, t, h) the state update e^{dt a} S + b (dt x) (3 N hd, and hd
+    for dt x) and y = c·S + d x (2 N hd + 2 hd), so 5 N hd + 3 hd."""
     return (4 * (2 * b * s * h * hd + 2 * b * s * n + b * s * h + 2 * h
                  + 2 * b * h * n * hd),
             b * s * h * (5 * n * hd + 3 * hd))
+
+
+def _ssd_tc_ops(b, s, h, hd, n, chunk=64):
+    """Tensor-core operations of the chunked form, three TF32 products per
+    product: per (b, h) and chunk of L steps, M X over the pairs j <= t
+    (hd L (L + 1)), C S and Bᵀ (w ∘ X) (2 L N hd each); G = C Bᵀ on and
+    under the diagonal (N L (L + 1)) once per (b, chunk), the same for
+    every head."""
+    total = 0
+    for t0 in range(0, s, chunk):
+        ln = min(chunk, s - t0)
+        total += b * (h * (hd * ln * (ln + 1) + 4 * ln * n * hd)
+                      + n * ln * (ln + 1))
+    return 3 * total
+
+
+def _ssd_float64(args):
+    """The recurrence in float64 on the card."""
+    x, bm, cm, dtv, a, d, st = (t.double() for t in args)
+    y = torch.empty_like(x)
+    for t in range(x.shape[1]):
+        st = (torch.exp(dtv[:, t] * a)[:, :, None, None] * st
+              + bm[:, t, None, :, None]
+              * (dtv[:, t, :, None] * x[:, t])[:, :, None, :])
+        y[:, t] = (torch.einsum("bn,bhnp->bhp", cm[:, t], st)
+                   + d[:, None] * x[:, t])
+    return y, st
 
 
 def ssd_kernel(rows, launches):
@@ -1572,20 +1641,41 @@ def ssd_kernel(rows, launches):
     gen = torch.Generator(device="cuda").manual_seed(4)
     for case in SSD_EDGES:
         args = _ssd_inputs(case, gen)
+        var = case[-1]
+        assert M.variant(case[1], case[3], case[4]) == var, case
+        before = variants(SSD)
         got = M.ssd(*args)
         torch.cuda.synchronize()
+        ran = variants(SSD, before)
+        want_ran = {v: int(v == var) for v in VARIANTS[SSD]}
+        assert ran == want_ran, (case, ran)
         if case[1] == 0:
             assert got[0].shape[1] == 0 and torch.equal(got[1], args[-1])
             log(f"[kernels] {SSD} edge {case}: no steps, the state is s0")
             continue
         _, rel = _ssd_err(got, M.ssd_plain(*args))
-        log(f"[kernels] {SSD} edge B, S, H, hd, N, dt, s0, strided = {case}:"
-            f" max rel err {rel:.2e}")
+        if case[5] == "zero":          # e^0 = 1 and no input: s0 exactly
+            assert torch.equal(got[1], args[-1]), case
+        log(f"[kernels] {SSD} edge B, S, H, hd, N, dt, s0, strided, variant "
+            f"= {case}: max rel err {rel:.2e}")
     log(f"[kernels] {SSD} edge cases: {len(SSD_EDGES)} shapes match the "
-        "plain version")
+        "plain version, each through its variant")
+    # a long tiny-dt call: the float32 recurrence itself drifts some 3e-5
+    # from a float64 one there (2048 roundings of e^{dt a} near 1), so the
+    # tc kernel is held to float64
+    case = (1, ZAMBA_PROMPT, 4, 64, 64, "tiny", "random", False)
+    args = _ssd_inputs(case, gen)
+    before = variants(SSD)
+    got = M.ssd(*args)
+    assert variants(SSD, before) == dict(tc=1, rec=0)
+    want64 = _ssd_float64(args)
+    _, rel = _ssd_err(got, want64)
+    rel_plain = max(float((p.double() - w).abs().max() / w.abs().max())
+                    for p, w in zip(M.ssd_plain(*args), want64))
+    log(f"[kernels] {SSD} tc B, S, H, hd, N = {case[:5]}, dt tiny, s0 random "
+        f"against the recurrence in float64: max rel err {rel:.2e} (limit "
+        f"1e-5; the float32 plain version {rel_plain:.2e})")
 
-    src = "src/repro_torch/csrc/mamba2_ssd.cu"
-    replaces = "src/repro/kernels/mamba2_ssd/kernel.py:72"
     h, hd, n = 112, 64, 64
     # a decode step finds each layer's 7.3 MB state cold (81 layers of it
     # pass between two reads), so the decode row takes 8 input sets in
@@ -1596,16 +1686,33 @@ def ssd_kernel(rows, launches):
         case = (ZAMBA_BATCH, s, h, hd, n, "model",
                 "zero" if s > 1 else "random", False)
         inputs = [_ssd_inputs(case, gen) for _ in range(sets)]
+        var = M.variant(s, hd, n)
         err, rel = _ssd_err(M.ssd(*inputs[0]), M.ssd_plain(*inputs[0]))
         turn = itertools.cycle(inputs)
         n_bytes, n_ops = _ssd_cost(*case[:5])
-        kernel_row(rows, launches, SSD, src, replaces, err,
+        rate = dict(ops_per_s=SCALAR_OPS_PER_S, ops_rate="67 TOP/s")
+        if var == "tc":
+            # the recurrence's operations over the scalar rate: the floor
+            # the rec kernel's form cannot pass; and the rec kernel itself
+            # at this shape, for comparison (outside the main path)
+            s_out = torch.empty_like(inputs[0][-1])
+            rec_ms = device_ms(lambda: M._run("rec", *inputs[0], s_out))
+            rec_y = M._run("rec", *inputs[0], s_out)
+            _ssd_err((rec_y, s_out), M.ssd_plain(*inputs[0]))
+            log(f"[kernels] {SSD} rec at the {what} shape: device time per "
+                f"call {rec_ms:.4f} ms, its scalar floor "
+                f"{n_ops / SCALAR_OPS_PER_S * 1e3:.6f} ms ({n_ops} ops / "
+                f"67 TOP/s); {card()}")
+            n_ops = _ssd_tc_ops(*case[:5])
+            rate = dict(ops_per_s=TF32_OPS_PER_S,
+                        ops_rate="495 TFLOP/s TF32")
+        kernel_row(rows, launches, SSD, SSD_SRC, SSD_REPLACES, err,
                    lambda: M.ssd(*next(turn)),
                    lambda: M.ssd_plain(*next(turn)), None, n_bytes, n_ops,
                    f"{what} B={ZAMBA_BATCH}, S={s}, H={h}, hd={hd}, N={n}, "
-                   f"float32, {sets} input set(s) in turn, max rel err "
-                   f"{rel:.2e}; no single library call computes it",
-                   plain_reps=reps)
+                   f"float32, kernel {var}, {sets} input set(s) in turn, "
+                   f"max rel err {rel:.2e}; no single library call "
+                   "computes it", plain_reps=reps, variant=var, **rate)
 
 
 def main() -> int:
@@ -1667,9 +1774,12 @@ def main() -> int:
     zamba_launches = zamba_serving()
     ssd_kernel(rows, zamba_launches)
     zcfg = configs.get("zamba2-7b")
-    flash_prefill_row(rows, zamba_launches, _flash_rand(torch.Generator(
-        device="cuda").manual_seed(5)), "zamba2-7b", ZAMBA_BATCH,
-        ZAMBA_PROMPT, zcfg.n_heads, zcfg.n_kv_heads, zcfg.resolved_head_dim)
+    rand = _flash_rand(torch.Generator(device="cuda").manual_seed(5))
+    zshape = (zcfg.n_heads, zcfg.n_kv_heads, zcfg.resolved_head_dim)
+    flash_prefill_row(rows, zamba_launches, rand, "zamba2-7b", ZAMBA_BATCH,
+                      ZAMBA_PROMPT, *zshape)
+    flash_decode_row(rows, zamba_launches, rand, "zamba2-7b", ZAMBA_BATCH,
+                     *zshape, ZAMBA_CACHE)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card())
     print(json.dumps({"kernels": rows}))

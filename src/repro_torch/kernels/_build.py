@@ -53,8 +53,10 @@ SIGNATURES = {
     # r, k, v, w, u, s0, y, s_out, B, S, H, hd, tile, stream
     "rt_wkv_fwd": (_P,) * 8 + (_I64,) * 5 + (_P,),
     # x, b, c, dt, a, d, s0, y, s_out, B, S, H, hd, N, strides of x, b, c
-    # and dt over batch and time, stream
+    # and dt over batch and time, stream (rt_ssd_tc: G's scratch before
+    # the stream)
     "rt_ssd_fwd": (_P,) * 9 + (_I64,) * 13 + (_P,),
+    "rt_ssd_tc": (_P,) * 9 + (_I64,) * 13 + (_P, _P),
 }
 
 # kernel name -> launches since the last reset_launches()

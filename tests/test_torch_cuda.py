@@ -342,7 +342,7 @@ SSD_CASES = [
 
 def _ssd_inputs(case, dev):
     """x, b, c ~ N(0, 1); dt log-uniform in [1e-3, 1e-1] (``mamba2_init``),
-    about 1e-6 (tiny) or 5 to 20 (huge); a = -linspace(1, 16, H); d ~
+    about 1e-6 (tiny), 5 to 20 (huge) or 0; a = -linspace(1, 16, H); d ~
     N(0, 1); s0 N(0, 1) or zero; with ``strided`` x, b, c and dt are every
     other sequence of a batch twice as large."""
     b, s, h, hd, n, dt, s0, strided = case
@@ -358,6 +358,8 @@ def _ssd_inputs(case, dev):
         dtv = torch.exp(math.log(1e-3) + u * math.log(100.0))
     elif dt == "tiny":
         dtv = 1e-6 * (0.5 + u)
+    elif dt == "zero":
+        dtv = torch.zeros_like(u)
     else:
         dtv = 5.0 + 15.0 * u
     if strided:
@@ -404,6 +406,102 @@ def test_ssd_kernel_writes_the_state_in_place(dev):
     assert st is cache
     assert float((cache - pst).abs().max()) <= 1e-5 * float(pst.abs().max())
     assert float((y - py).abs().max()) <= 1e-5 * float(py.abs().max())
+
+
+# (B, S, H, hd, N, dt, s0, strided) through the tc kernel (S >= 64): one
+# chunk, one chunk and a step, one step short of two, ragged S = 300 and
+# 2049, the model's strided layout, dt tiny, huge and 0, and every (hd, N)
+SSD_TC_CASES = [
+    (2, 64, 3, 64, 64, "model", "random", False),
+    (2, 65, 3, 64, 64, "model", "random", False),
+    (1, 127, 4, 64, 64, "model", "random", False),
+    (1, 300, 2, 64, 64, "model", "zero", False),
+    (1, 2049, 4, 64, 64, "model", "random", False),
+    (3, 96, 7, 64, 64, "model", "random", True),
+    (2, 100, 4, 64, 64, "tiny", "random", False),
+    (2, 100, 4, 64, 64, "huge", "random", False),
+    (2, 100, 4, 64, 64, "zero", "random", False),
+] + [(1, 100, 3, hd, n, "model", "random", False)
+     for hd in SSD.SIZES for n in SSD.SIZES]
+
+
+def _ssd_close(got, want):
+    """Within 1e-5 of the largest magnitude of y (of the state, for the
+    state): the float32 recurrence, here as the chunked form with three
+    TF32 products per product."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        err = float((g - w).abs().max())
+        assert err <= 1e-5 * float(w.abs().max()), err
+
+
+def _ran(var):
+    torch.cuda.synchronize()
+    assert _build.launches["mamba2_ssd"] == 1
+    assert _build.launches[f"mamba2_ssd.{var}"] == 1
+
+
+@pytest.mark.parametrize("case", SSD_TC_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_ssd_tc_kernel_matches_plain(dev, case):
+    args = _ssd_inputs(case, dev)
+    assert SSD.variant(case[1], case[3], case[4]) == "tc"
+    got = SSD.ssd(*args)
+    _ran("tc")
+    _ssd_close(got, SSD.ssd_plain(*args))
+    if case[5] == "zero":          # e^0 = 1 and no input: s0 exactly
+        assert torch.equal(got[1], args[-1])
+
+
+@pytest.mark.parametrize("s", [1, 63])
+def test_ssd_short_calls_run_the_recurrence(dev, s):
+    args = _ssd_inputs((2, s, 5, 64, 64, "model", "random", False), dev)
+    got = SSD.ssd(*args)
+    _ran("rec")
+    _ssd_close(got, SSD.ssd_plain(*args))
+
+
+def test_ssd_tc_kernel_writes_the_state_in_place(dev):
+    args = _ssd_inputs((2, 130, 5, 64, 64, "model", "random", False), dev)
+    want = SSD.ssd_plain(*args)
+    cache = args[-1].clone()
+    y, st = SSD.ssd(*args[:-1], cache, state_out=cache)
+    _ran("tc")
+    assert st is cache
+    _ssd_close((y, cache), want)
+
+
+def test_ssd_tc_kernel_takes_rows_off_16_byte_alignment(dev):
+    """x, b and c as views one float into wider rows: their rows are not
+    16-byte aligned, so the tc kernel stages them 4 bytes at a time."""
+    x, bm, cm, dtv, a, d, st = _ssd_inputs(
+        (2, 130, 3, 64, 64, "model", "random", False), dev)
+    pad = torch.zeros((2, 130, 1), device=dev)
+    xv = torch.cat([pad, x.flatten(2)], -1)[..., 1:].unflatten(-1, (3, 64))
+    bv = torch.cat([pad, bm], -1)[..., 1:]
+    cv = torch.cat([pad, cm], -1)[..., 1:]
+    assert xv.data_ptr() % 16 and bv.data_ptr() % 16 and cv.data_ptr() % 16
+    got = SSD.ssd(xv, bv, cv, dtv, a, d, st)
+    _ran("tc")
+    _ssd_close(got, SSD.ssd_plain(x, bm, cm, dtv, a, d, st))
+
+
+def test_ssd_tc_kernel_long_tiny_dt_against_float64(dev):
+    """S = 2048, dt about 1e-6, s0 random: the float32 recurrence drifts
+    some 3e-5 from a float64 one (2048 roundings of e^{dt a} near 1;
+    tests/test_torch_ssd.py), so the tc kernel is held to float64 here."""
+    args = _ssd_inputs((1, 2048, 4, 64, 64, "tiny", "random", False), dev)
+    got = SSD.ssd(*args)
+    _ran("tc")
+    x, bm, cm, dtv, a, d, st = (t.double() for t in args)
+    y = torch.empty_like(x)
+    for t in range(x.shape[1]):
+        st = (torch.exp(dtv[:, t] * a)[:, :, None, None] * st
+              + bm[:, t, None, :, None]
+              * (dtv[:, t, :, None] * x[:, t])[:, :, None, :])
+        y[:, t] = (torch.einsum("bn,bhnp->bhp", cm[:, t], st)
+                   + d[:, None] * x[:, t])
+    _ssd_close(got, (y, st))
 
 
 @pytest.mark.parametrize("attn_every", [2, 0])

@@ -9,6 +9,14 @@ state): the same float32 recurrence, its products rounded in other places
 (the plain version forms dt·x before the outer product with b; the Pallas
 kernel closes each chunk into matrix products over exponentials of
 cumulative decays).
+
+The card's tc kernel computes the same chunked form with every product as
+three TF32 tensor-core products; :func:`_chunked_tf32` emulates that
+arithmetic (operands rounded to TF32, exact products, float32 sums) so the
+tests below can show, without a card, that three terms hold the 1e-5
+contract the card tests keep and one term does not, and that over a long
+tiny-dt sequence the chunked form stays nearer a float64 recurrence than
+the float32 recurrence itself.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -194,3 +202,128 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad, match):
     with pytest.raises((ValueError, TypeError), match=match):
         SSD.ssd(x, bm, torch.zeros((2, 4, n)), torch.zeros((2, 4, 3)), a,
                 torch.zeros(3), s0)
+
+
+def _tf32(v: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
+    zero), as cvt.rna.tf32.f32: add 0x1000 to the bits, clear the low 13."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """a @ b on the tensor cores' TF32: one term hi·hi, or three, hi·hi +
+    hi·lo + lo·hi with hi = tf32(v), lo = tf32(v - hi). A product of two
+    TF32 values is exact in float32; the sums are float32."""
+    ahi, bhi = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ahi @ bhi
+    alo, blo = _tf32(a - ahi), _tf32(b - bhi)
+    return alo @ bhi + ahi @ blo + ahi @ bhi
+
+
+def _chunked_tf32(args, terms=3, chunk=SSD.TC_CHUNK):
+    """The tc kernel's arithmetic in torch: per chunk of 64 steps (the last
+    one ragged), cum = cumsum(dt a) restarted at the chunk; G = C Bᵀ;
+    M = G ∘ tril(e^{cum_t - cum_j}) ∘ dt_j; y = M X + e^{cum_t} (C S) +
+    d X; S' = e^{cum_last} S + Bᵀ (w ∘ X), w_j = e^{cum_last - cum_j} dt_j;
+    every matrix product through :func:`_mm`. Returns numpy y, state."""
+    x, bm, cm, dtv, a, d, st = map(torch.from_numpy, args)
+    y = torch.empty_like(x)
+    for t0 in range(0, x.shape[1], chunk):
+        sl = slice(t0, t0 + chunk)
+        xc, bc, cc, dc = x[:, sl], bm[:, sl], cm[:, sl], dtv[:, sl]
+        n = xc.shape[1]
+        cum = torch.cumsum(dc * a, 1)                        # (B, n, H)
+        g = _mm(cc, bc.transpose(1, 2), terms)               # (B, t, j)
+        low = torch.tril(torch.ones(n, n, dtype=torch.bool))[None, :, :, None]
+        diff = torch.where(low, cum[:, :, None] - cum[:, None], 0.0)
+        m = torch.where(low, g[..., None] * torch.exp(diff)
+                        * dc[:, None], 0.0)                  # (B, t, j, H)
+        xh = xc.permute(0, 2, 1, 3)                          # (B, H, j, p)
+        yc = (_mm(cc[:, None], st, terms)
+              * torch.exp(cum).permute(0, 2, 1)[..., None]
+              + _mm(m.permute(0, 3, 1, 2), xh, terms)
+              + d[None, :, None, None] * xh)
+        y[:, sl] = yc.permute(0, 2, 1, 3)
+        last = cum[:, -1]                                    # (B, H)
+        w = torch.exp(last[:, None] - cum) * dc              # (B, n, H)
+        st = (torch.exp(last)[..., None, None] * st
+              + _mm(bc.transpose(1, 2)[:, None],
+                    (w[..., None] * xc).permute(0, 2, 1, 3), terms))
+    return y.numpy(), st.numpy()
+
+
+def _recurrence64(args):
+    """The recurrence in float64, the witness of the long case."""
+    x, bm, cm, dtv, a, d, st = (torch.from_numpy(v).double() for v in args)
+    y = torch.empty_like(x)
+    for t in range(x.shape[1]):
+        st = (torch.exp(dtv[:, t] * a)[:, :, None, None] * st
+              + bm[:, t, None, :, None]
+              * (dtv[:, t, :, None] * x[:, t])[:, :, None, :])
+        y[:, t] = (torch.einsum("bn,bhnp->bhp", cm[:, t], st)
+                   + d[:, None] * x[:, t])
+    return y.numpy(), st.numpy()
+
+
+def _rel64(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+@pytest.mark.parametrize("s0", ["zero", "random"])
+@pytest.mark.parametrize("dt", ["model", "tiny", "huge"])
+@pytest.mark.parametrize("s", [64, 300])
+def test_three_tf32_terms_hold_the_contract(s, dt, s0):
+    """The tc kernel's arithmetic within 1e-5 of the plain version, one
+    chunk and a ragged 300 (no longer: past about 512 steps at tiny dt the
+    plain version's own drift is what the comparison reads)."""
+    args = _inputs(s, seed=s, dt=dt, s0=s0)
+    y, st = _plain(args)
+    ey, est = _chunked_tf32(args, terms=3)
+    errs = (_rel(ey, y), _rel(est, st))
+    print(f"three terms: y {errs[0]:.1e}, state {errs[1]:.1e}")
+    assert max(errs) <= TOL, errs
+
+
+@pytest.mark.parametrize("s0", ["zero", "random"])
+@pytest.mark.parametrize("dt", ["model", "tiny", "huge"])
+@pytest.mark.parametrize("s", [64, 300])
+def test_one_tf32_term_leaves_the_contract(s, dt, s0):
+    """Why the kernel has no one-term mode: operands rounded once to TF32
+    leave y or the state past 1e-5 in every case."""
+    args = _inputs(s, seed=s, dt=dt, s0=s0)
+    y, st = _plain(args)
+    ey, est = _chunked_tf32(args, terms=1)
+    errs = (_rel(ey, y), _rel(est, st))
+    print(f"one term: y {errs[0]:.1e}, state {errs[1]:.1e}")
+    assert max(errs) > TOL, errs
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_three_tf32_terms_stay_near_float64_where_the_recurrence_drifts(
+        seed):
+    """S = 2048, dt about 1e-6, s0 random: the float32 recurrence rounds
+    e^{dt a}, a hair under 1, 2048 times and drifts past 1e-5 of a float64
+    recurrence; the chunked form multiplies by e^{cum} once per chunk and
+    stays within 2e-6 of it. So the card holds the tc kernel to float64
+    in this case, not to the plain version."""
+    args = _inputs(2048, b=1, h=2, seed=seed, dt="tiny", s0="random")
+    fy, fst = _recurrence64(args)
+    y, st = _plain(args)
+    ey, est = _chunked_tf32(args, terms=3)
+    chunked = (_rel64(ey, fy), _rel64(est, fst))
+    plain = (_rel64(y, fy), _rel64(st, fst))
+    print(f"vs float64: chunked {chunked}, plain {plain}")
+    assert max(chunked) <= 2e-6, chunked
+    assert max(plain) > 1e-5, plain
+
+
+def test_variant_routes_by_length_alone():
+    """tc from one chunk (64 steps) up, at every hd and N; rec below."""
+    for hd in SSD.SIZES:
+        for n in SSD.SIZES:
+            assert [SSD.variant(s, hd, n) for s in (0, 1, 63)] == ["rec"] * 3
+            assert [SSD.variant(s, hd, n)
+                    for s in (64, 65, 2048)] == ["tc"] * 3
