@@ -51,8 +51,9 @@ Phases (any failure raises and ends the run with a nonzero exit):
    weights from a seeded generator, bf16 compute, the time mix in float32)
    serves 4 prompts of 2048 tokens with one ``lm.prefill_step`` and 32
    greedy ``lm.decode_step``s. Launch counts are reset just before and read
-   just after; the WKV kernel must launch once per layer in the prefill and
-   in every decode step. Then: wall times, tokens/s, peak and resident
+   just after; the WKV kernel must launch once per layer in the prefill,
+   all on its tensor-core variant ("tc"), and in every decode step, all on
+   its recurrence ("rec"). Then: wall times, tokens/s, peak and resident
    memory, the idle share over a decode step and a prefill and the WKV
    kernel's share of the prefill's device time (``torch.profiler``), and
    checks (e) prefill(S) plus one decode step against prefill(S + 1) in
@@ -60,9 +61,13 @@ Phases (any failure raises and ends the run with a nonzero exit):
    the uncached forward, at full width in float32 (the bf16 numbers and the
    bf16-vs-float32 forward are printed beside it), (d) the reduced config in
    float32 on the card against the CPU;
-9. the WKV kernel against its plain version at the prefill and decode
-   shapes of phase 8 and at edge cases, timed as in phase 4 beside its
-   bound (bytes over 3.35 TB/s, operations over 67 TFLOP/s float32);
+9. the WKV kernel against its plain version at edge cases, each through
+   the variant it must take, and a 2048-step call with w within 1e-6 of 1
+   through "tc" against a float64 recurrence; then timed as in phase 4:
+   "tc" at the prefill shape of phase 8 beside its bound (bytes over 3.35
+   TB/s, its three TF32 products over 495 TFLOP/s) and the "rec" kernel at
+   the same shape beside the same bytes bound (its operations over 67
+   TFLOP/s float32), and "rec" at the decode shape;
 10. zamba2-7b serving, the port's fourth path: 81 Mamba2 layers at full
    width with the shared attention + MLP block before every sixth
    (random weights from a seeded generator with ``mamba2_init``'s
@@ -115,6 +120,7 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12         # H100 SXM float32 rate outside tensor cores
 TENSOR_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
+TF32_OPS_PER_S = 495e12          # H100 SXM dense TF32 tensor-core rate
 MIGRATION_BUDGET = 4 << 20       # bytes per window: LUBM(10)/8 drains in 4
 # windows served before the adaptation round: the guard amortizes the
 # migration over the observed TM window, and one window of LUBM(10)/8 is
@@ -564,8 +570,9 @@ LM_BF16_REL = 2.0 ** -4
 FLASH = "flash_attention_fwd"
 FLASH_VARIANTS = ("tc", "scalar")
 SSD = "mamba2_ssd"
+WKV = "rwkv6_wkv"
 # each kernel with more than one design: its variants (its ops.variant)
-VARIANTS = {FLASH: FLASH_VARIANTS, SSD: ("tc", "rec")}
+VARIANTS = {FLASH: FLASH_VARIANTS, SSD: ("tc", "rec"), WKV: ("tc", "rec")}
 
 
 def variants(kernel, since=None) -> dict:
@@ -816,7 +823,7 @@ def lm_serving():
 # 256, S * g at 63, 64 and just over, float32 inputs, grids of fewer
 # blocks than SMs (the scalar kernel then splits the keys), and the
 # variant each must run
-BF16, F32 = torch.bfloat16, torch.float32
+BF16, F32, F16 = torch.bfloat16, torch.float32, torch.float16
 FLASH_EDGES = [
     (2, 77, 77, 16, 8, 128, True, 0, None, BF16, "tc"),
     (1, 130, 130, 4, 4, 64, True, 0, None, BF16, "tc"),
@@ -837,6 +844,7 @@ FLASH_EDGES = [
     (3, 64, 64, 16, 8, 128, False, 0, 50, F32, "scalar"),
     (2, 3, 1000, 4, 2, 64, True, 990, 993, BF16, "scalar"),
     (1, 2, 700, 2, 2, 80, False, 0, 650, F32, "scalar"),
+    (2, 77, 77, 4, 2, 128, True, 0, None, F16, "scalar"),
 ]
 FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:83"
@@ -845,10 +853,12 @@ FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:83"
 def _flash_err(got, want) -> float:
     """Kernel against plain version, both in the inputs' dtype: 1e-5
     absolute (the same float32 sums in another order), plus for bf16 one
-    bf16 step, 2^-7 relative, where the two float32 results fall on either
-    side of a rounding boundary. Returns the max abs difference."""
+    bf16 step, 2^-7 relative, and for float16 one float16 step, 2^-10
+    relative, where the two float32 results fall on either side of a
+    rounding boundary. Returns the max abs difference."""
     assert got.dtype == want.dtype and got.shape == want.shape
-    step = 2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0
+    step = {torch.bfloat16: 2.0 ** -7,
+            torch.float16: 2.0 ** -10}.get(got.dtype, 0.0)
     got, want = got.float(), want.float()
     diff = (got - want).abs()
     assert bool((diff <= 1e-5 + step * want.abs()).all()), float(diff.max())
@@ -907,9 +917,10 @@ def flash_kernel(rows, launches):
         _flash_err(got, FA.flash_attention_plain(q, k, v, **kw))
     torch.cuda.synchronize()
     n_tc = sum(e[-1] == "tc" for e in FLASH_EDGES)
+    n_f16 = sum(e[-2] == F16 for e in FLASH_EDGES)
     log(f"[kernels] flash edge cases: {len(FLASH_EDGES)} shapes match the "
         f"plain version, each through its variant ({n_tc} tc, "
-        f"{len(FLASH_EDGES) - n_tc} scalar)")
+        f"{len(FLASH_EDGES) - n_tc} scalar, {n_f16} of them float16)")
 
     b, s, h, kh, d = LM_BATCH, LM_PROMPT, 16, 8, 128
     flash_prefill_row(rows, launches, rand, "qwen3-0.6b", b, s, h, kh, d)
@@ -991,7 +1002,6 @@ RWKV_TEACHER = 64       # positions of check (c), decoded from the zero state
 # layers bf16 rounding alone takes the reference's own teacher-forced
 # decode past 2^-4 of its forward (tests/test_torch_rwkv_bf16.py)
 RWKV_F32_REL = 2.0 ** -6
-WKV = "rwkv6_wkv"
 
 
 def _teacher_forced(model, cfg, prompts, transformer, lm):
@@ -1061,15 +1071,17 @@ def rwkv_serving():
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t
     n_prefill = _build.launches[WKV]
+    prefill_vars = variants(WKV)
     _mem("prefill", "rwkv")
     tok = logits.argmax(-1)
-    first_tok, per_step, out = tok, [], []
+    first_tok, per_step, step_vars, out = tok, [], [], []
     t = time.perf_counter()
     for i in range(RWKV_NEW):
-        before = _build.launches[WKV]
+        before, before_vars = _build.launches[WKV], variants(WKV)
         logits, caches = lm.decode_step(
             model, caches, {"token": tok, "pos": RWKV_PROMPT + i}, cfg)
         per_step.append(_build.launches[WKV] - before)
+        step_vars.append(variants(WKV, before_vars))
         if i == 0:
             first_logits = logits
         tok = logits.argmax(-1)
@@ -1090,10 +1102,16 @@ def rwkv_serving():
         f"{decode_s * 1e3:.1f} ms, {decode_s / RWKV_NEW * 1e3:.3f} ms per "
         f"step, {RWKV_BATCH * RWKV_NEW / decode_s:.1f} tokens/s; {card()}")
     log(f"[rwkv] WKV launches: prefill {n_prefill}, per decode step "
-        f"{sorted(set(per_step))}, total {launches.get(WKV, 0)}")
-    # (a) one WKV launch per layer in the prefill and in every decode step
+        f"{sorted(set(per_step))}, total {launches.get(WKV, 0)}; by "
+        f"variant: prefill {prefill_vars}, decode steps "
+        f"{_distinct(step_vars)}")
+    # (a) one WKV launch per layer in the prefill, all "tc", and in every
+    # decode step, all "rec"
     assert n_prefill == cfg.n_layers, n_prefill
     assert per_step == [cfg.n_layers] * RWKV_NEW, per_step
+    assert prefill_vars == dict(tc=cfg.n_layers, rec=0), prefill_vars
+    assert step_vars == [dict(tc=0, rec=cfg.n_layers)] * RWKV_NEW, \
+        _distinct(step_vars)
 
     # the card's busy and idle share over one decode step (one more step of
     # the last token) and one prefill, and the WKV kernel's share of it
@@ -1168,34 +1186,47 @@ def rwkv_serving():
 # phase 9: the WKV kernel against its plain version
 # --------------------------------------------------------------------------- #
 
-# (B, S, H, hd, decay, s0 scale): S = 1, 63, 65, 100 (ragged against the
-# kernel's 24-step chunk at hd 64), hd 16 and 128, strong decay (w about
-# 0.03) and w = 0 exactly, nonzero s0, grids under one wave of the card
-# (B * H under 132: the state columns split across blocks) and a full wave
-# of whole heads at hd 128 (blocks of 1024 threads)
+# (B, S, H, hd, decay, s0 scale, variant): S = 1 and 63 (the recurrence),
+# 64, 65, 100, 300 and 2049 (one chunk of the tc kernel, one and a step,
+# ragged ones, 32 chunks and one of a step), hd 16, 32 and 128 on both
+# sides of 64 steps, strong decay (w about 0.03) and w = 0 every third
+# step, nonzero s0, grids under one wave of the card (B * H under 132) and
+# a full wave of whole heads at hd 128, and the variant each must run
+# (ops.variant: "tc" from 64 steps up)
 WKV_EDGES = [
-    (4, 1, 40, 64, "model", 0.5),
-    (2, 63, 8, 64, "model", 0.0),
-    (2, 65, 8, 64, "model", 0.5),
-    (1, 100, 3, 64, "model", 0.5),
-    (3, 50, 4, 16, "model", 0.5),
-    (2, 40, 4, 128, "model", 0.5),
-    (2, 64, 4, 64, "strong", 0.0),
-    (2, 64, 4, 64, "zero", 0.5),
-    (1, 300, 2, 64, "model", 0.5),
-    (33, 30, 4, 128, "model", 0.5),
+    (4, 1, 40, 64, "model", 0.5, "rec"),
+    (2, 63, 8, 64, "model", 0.0, "rec"),
+    (2, 65, 8, 64, "model", 0.5, "tc"),
+    (1, 100, 3, 64, "model", 0.5, "tc"),
+    (3, 50, 4, 16, "model", 0.5, "rec"),
+    (2, 100, 3, 16, "model", 0.5, "tc"),
+    (2, 130, 3, 32, "model", 0.5, "tc"),
+    (2, 40, 4, 128, "model", 0.5, "rec"),
+    (1, 200, 3, 128, "zero", 0.5, "tc"),
+    (2, 64, 4, 64, "strong", 0.0, "tc"),
+    (2, 64, 4, 64, "zero", 0.5, "tc"),
+    (1, 300, 2, 64, "model", 0.5, "tc"),
+    (1, 2049, 3, 64, "zero", 0.5, "tc"),
+    (33, 30, 4, 128, "model", 0.5, "rec"),
 ]
+WKV_SRC = "src/repro_torch/csrc/rwkv6_wkv.cu"
+WKV_REPLACES = "src/repro/kernels/rwkv6_wkv/kernel.py:79"
 
 
 def _wkv_inputs(case, gen):
     """r, k, v ~ N(0, 1), w = exp(-exp(0.5 N(0, 1) - 2)) as the random
     model's decays (w0 = -2), or about 0.03 (strong), or with every third
-    step 0; u = 0.1 N(0, 1) as ``rwkv6_init`` draws it."""
-    b, s, h, hd, decay, s0_scale = case
+    step 0, or within 1e-6 of 1 (near1); u = 0.1 N(0, 1) as
+    ``rwkv6_init`` draws it."""
+    b, s, h, hd, decay, s0_scale = case[:6]
     dev = torch.device("cuda")
     r, k, v, z = (torch.randn((b, s, h, hd), generator=gen, device=dev)
                   for _ in range(4))
-    w = torch.exp(-torch.exp(0.5 * z + (1.25 if decay == "strong" else -2.0)))
+    if decay == "near1":
+        w = 1.0 - 1e-6 * torch.rand((b, s, h, hd), generator=gen, device=dev)
+    else:
+        w = torch.exp(-torch.exp(0.5 * z + (1.25 if decay == "strong"
+                                            else -2.0)))
     if decay == "zero":
         w[:, ::3] = 0.0
     u = 0.1 * torch.randn((h, hd), generator=gen, device=dev)
@@ -1204,10 +1235,11 @@ def _wkv_inputs(case, gen):
 
 
 def _wkv_err(got, want):
-    """Kernel against plain version: within 1e-5 of the largest magnitude
-    of y (of the state, for the state): the same float32 recurrence, the
-    sum over i taken in another order. Returns the max abs difference and
-    the larger of the two relative ones."""
+    """Kernel against a reference: within 1e-5 of the largest magnitude
+    of y (of the state, for the state): the float32 recurrence, the sum
+    over i taken in another order (rec) or as the chunk's products (tc).
+    Returns the max abs difference and the larger of the two relative
+    ones."""
     errs, rels = [], []
     for g, w in zip(got, want):
         assert g.shape == w.shape and bool(torch.isfinite(g).all())
@@ -1227,40 +1259,114 @@ def _wkv_cost(b, s, h, hd):
             b * s * h * (5 * hd * hd + 5 * hd))
 
 
+def _wkv_tc_ops(b, s, h, hd, chunk=64, sub=16):
+    """Operations of the tc kernel, a multiply-add counted as two: its
+    matrix products as three TF32 products each, per (b, h) and chunk of L
+    steps: (r o P_ex) S and (k o Q)^T V (2 L hd^2 each), A V over the pairs
+    j <= t (hd L (L + 1)), A's blocks across sub-chunks (2 hd per pair);
+    and, apart, the scalar running products of A's diagonal 16 x 16 blocks
+    (2 hd per pair j < t of a sub-chunk, 3 hd per bonus)."""
+    tensor = scalar = 0
+    for t0 in range(0, s, chunk):
+        ln = min(chunk, s - t0)
+        subs = [min(sub, ln - o) for o in range(0, ln, sub)]
+        inside = sum(m * (m - 1) // 2 for m in subs)
+        across = ln * (ln - 1) // 2 - inside
+        tensor += b * h * (4 * ln * hd * hd + hd * ln * (ln + 1)
+                           + 2 * hd * across)
+        scalar += b * h * (2 * hd * inside + 3 * hd * ln)
+    return 3 * tensor, scalar
+
+
+def _wkv_float64(args):
+    """The recurrence in float64 on the card."""
+    r, k, v, w, u, st = (t.double() for t in args)
+    y = torch.empty_like(r)
+    for t in range(r.shape[1]):
+        vt = v[:, t, :, None, :]
+        y[:, t] = torch.einsum("bhi,bhij->bhj", r[:, t],
+                               (u * k[:, t])[:, :, :, None] * vt + st)
+        st = w[:, t, :, :, None] * st + k[:, t, :, :, None] * vt
+    return y, st
+
+
 def wkv_kernel(rows, launches):
     from repro_torch.kernels.rwkv6_wkv import ops as W
 
     gen = torch.Generator(device="cuda").manual_seed(3)
     for case in WKV_EDGES:
         args = _wkv_inputs(case, gen)
-        _, rel = _wkv_err(W.wkv(*args), W.wkv_plain(*args))
+        var = case[-1]
+        assert W.variant(case[1], case[3]) == var, case
+        before = variants(WKV)
+        got = W.wkv(*args)
+        torch.cuda.synchronize()
+        ran = variants(WKV, before)
+        assert ran == {v: int(v == var) for v in VARIANTS[WKV]}, (case, ran)
+        _, rel = _wkv_err(got, W.wkv_plain(*args))
         ms = device_ms(lambda: W.wkv(*args), reps=5)
         plain_ms = device_ms(lambda: W.wkv_plain(*args), reps=1)
         n_bytes, n_ops = _wkv_cost(*case[:4])
         bound_ms = max(n_bytes / HBM_BYTES_PER_S,
                        n_ops / SCALAR_OPS_PER_S) * 1e3
-        log(f"[kernels] {WKV} edge B, S, H, hd, decay, s0 = {case}: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound_ms:.6f} ms,"
-            f" max rel err {rel:.2e}")
-    torch.cuda.synchronize()
+        log(f"[kernels] {WKV} edge B, S, H, hd, decay, s0, variant = {case}:"
+            f" kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.6f} ms, max rel err {rel:.2e}")
     log(f"[kernels] {WKV} edge cases: {len(WKV_EDGES)} shapes match the "
-        "plain version")
+        "plain version, each through its variant")
+    # a long call with w near 1: the float32 recurrence itself drifts some
+    # 4e-6 to 7e-6 from a float64 one there (tests/test_torch_wkv.py), so
+    # the tc kernel is held to float64
+    case = (1, RWKV_PROMPT, 4, 64, "near1", 1.0)
+    args = _wkv_inputs(case, gen)
+    before = variants(WKV)
+    got = W.wkv(*args)
+    assert variants(WKV, before) == dict(tc=1, rec=0)
+    want64 = _wkv_float64(args)
+    _, rel = _wkv_err(got, want64)
+    rel_plain = max(float((p.double() - w).abs().max() / w.abs().max())
+                    for p, w in zip(W.wkv_plain(*args), want64))
+    log(f"[kernels] {WKV} tc B, S, H, hd = {case[:4]}, w within 1e-6 of 1, "
+        f"s0 random against the recurrence in float64: max rel err "
+        f"{rel:.2e} (limit 1e-5; the float32 plain version {rel_plain:.2e})")
 
-    src = "src/repro_torch/csrc/rwkv6_wkv.cu"
-    replaces = "src/repro/kernels/rwkv6_wkv/kernel.py:79"
     h, hd = 40, 64
     for s, reps, what in ((RWKV_PROMPT, 2, "prefill"), (1, 20, "decode")):
         shape = (RWKV_BATCH, s, h, hd)
         args = _wkv_inputs(shape + ("model", 0.0 if s > 1 else 0.5), gen)
+        var = W.variant(s, hd)
         err, rel = _wkv_err(W.wkv(*args), W.wkv_plain(*args))
         n_bytes, n_ops = _wkv_cost(*shape)
-        kernel_row(rows, launches, WKV, src, replaces, err,
+        rate = dict(ops_per_s=SCALAR_OPS_PER_S, ops_rate="67 TOP/s")
+        if var == "tc":
+            # the rec kernel at the same shape, against the same bytes
+            # bound and its operations over the scalar rate: a row of its
+            # own (its launches are the main path's decode steps')
+            rec_err, rec_rel = _wkv_err(W._run("rec", *args),
+                                        W.wkv_plain(*args))
+            kernel_row(rows, launches, WKV, WKV_SRC, WKV_REPLACES, rec_err,
+                       lambda: W._run("rec", *args),
+                       lambda: W.wkv_plain(*args), None, n_bytes, n_ops,
+                       f"{what} B={RWKV_BATCH}, S={s}, H={h}, hd={hd}, "
+                       f"float32, kernel rec (outside the main path at this "
+                       f"shape), max rel err {rec_rel:.2e}; no single "
+                       "library call computes it",
+                       plain_reps=reps, variant="rec")
+            n_ops, scalar_ops = _wkv_tc_ops(*shape)
+            rate = dict(ops_per_s=TF32_OPS_PER_S,
+                        ops_rate="495 TFLOP/s TF32")
+            log(f"[kernels] {WKV} tc at the {what} shape: {n_ops} TF32 "
+                f"tensor-core operations, {n_ops / TF32_OPS_PER_S * 1e3:.6f}"
+                f" ms at 495 TFLOP/s; {scalar_ops} scalar ones (A's "
+                f"diagonal blocks), {scalar_ops / SCALAR_OPS_PER_S * 1e3:.6f}"
+                f" ms at 67 TFLOP/s; {card()}")
+        kernel_row(rows, launches, WKV, WKV_SRC, WKV_REPLACES, err,
                    lambda: W.wkv(*args), lambda: W.wkv_plain(*args), None,
                    n_bytes, n_ops,
                    f"{what} B={RWKV_BATCH}, S={s}, H={h}, hd={hd}, float32,"
-                   f" max rel err {rel:.2e}; no single library call "
-                   "computes it",
-                   plain_reps=reps)
+                   f" kernel {var}, max rel err {rel:.2e}; no single "
+                   "library call computes it",
+                   plain_reps=reps, variant=var, **rate)
 
 
 # --------------------------------------------------------------------------- #
@@ -1548,7 +1654,6 @@ SSD_EDGES = [
 ]
 SSD_SRC = "src/repro_torch/csrc/mamba2_ssd.cu"
 SSD_REPLACES = "src/repro/kernels/mamba2_ssd/kernel.py:72"
-TF32_OPS_PER_S = 495e12          # H100 SXM dense TF32 tensor-core rate
 
 
 def _ssd_inputs(case, gen):

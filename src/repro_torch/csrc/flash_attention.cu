@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas TPU kernel flash_attention_fwd (_flash_kernel) of
 // repro/kernels/flash_attention/kernel.py.  Inputs: q (B, S, H, D) and
-// k, v (B, T, K, D), H % K == 0, all float32 or all bfloat16, contiguous;
+// k, v (B, T, K, D), H % K == 0, all float32, all bfloat16 or (the scalar
+// kernel only) all float16, contiguous;
 // output o (B, S, H, D) in q's dtype.  Scores are q.k * (1/sqrt(D)) in
 // float32, set to -1e30 where q_offset + i < kpos (causal) or
 // kpos >= kv_valid_len; the softmax runs online in float32 (row max m, row
@@ -20,9 +21,9 @@
 //   output past one bf16 step of the float32 function on random inputs,
 //   which the card tests and chip_smoke.py hold it to; the two-term
 //   product stays inside it (tests/test_torch_flash.py emulates both).
-// * flash_fwd_kernel ("scalar": every float32 call, decode steps and other
-//   short calls) upcasts every element to float32 and accumulates P.V in
-//   float32 with P never rounded.
+// * flash_fwd_kernel ("scalar": every float32 and float16 call, decode
+//   steps and other short calls) upcasts every element to float32 and
+//   accumulates P.V in float32 with P never rounded.
 //
 // What bounds it on this card: the matrix products.  Prefill attention at
 // (B, S, H, K, D) = (4, 2048, 16, 8, 128), causal, is about 6.9e10
@@ -91,6 +92,7 @@
 #include <cstdint>
 #include <cuda.h>           // CUtensorMap and its enums; no libcuda link
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -137,6 +139,16 @@ __device__ inline void load8(const __nv_bfloat16* src, float* dst) {
                       __bfloat162float(e[6]), __bfloat162float(e[7]));
 }
 
+__device__ inline void load8(const __half* src, float* dst) {
+  const uint4 u = *reinterpret_cast<const uint4*>(src);
+  const __half* e = reinterpret_cast<const __half*>(&u);
+  float4* d4 = reinterpret_cast<float4*>(dst);
+  d4[0] = make_float4(__half2float(e[0]), __half2float(e[1]),
+                      __half2float(e[2]), __half2float(e[3]));
+  d4[1] = make_float4(__half2float(e[4]), __half2float(e[5]),
+                      __half2float(e[6]), __half2float(e[7]));
+}
+
 __device__ inline void zero8(float* dst) {
   float4* d4 = reinterpret_cast<float4*>(dst);
   d4[0] = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -147,6 +159,7 @@ __device__ inline void store(float* p, float x) { *p = x; }
 __device__ inline void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
+__device__ inline void store(__half* p, float x) { *p = __float2half_rn(x); }
 
 __device__ inline float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
@@ -837,7 +850,8 @@ cudaError_t launch_tc(const CUtensorMap& tq, const CUtensorMap& tk,
 
 }  // namespace
 
-// dtype: 0 float32, 1 bfloat16; kv_valid_len -1 for none; kv_splits >= 1
+// dtype: 0 float32, 1 bfloat16, 2 float16; kv_valid_len -1 for none;
+// kv_splits >= 1
 // blocks along the keys, and for kv_splits > 1 a float32 scratch of
 // B * K * kv_splits * S * (H / K) * (D + 2) elements
 extern "C" int rt_flash_attention_fwd(const void* q, const void* k,
@@ -877,6 +891,8 @@ extern "C" int rt_flash_attention_fwd(const void* q, const void* k,
     err = dispatch<float>(a, b, st);
   } else if (dtype == 1) {
     err = dispatch<__nv_bfloat16>(a, b, st);
+  } else if (dtype == 2) {
+    err = dispatch<__half>(a, b, st);
   } else {
     err = cudaErrorInvalidValue;
   }

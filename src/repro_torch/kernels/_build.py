@@ -6,8 +6,9 @@ first use every ``.cu`` file is compiled to an object for ``sm_90a``, all
 at once in parallel, and the objects are linked into one shared library
 under ``build/repro_torch/`` at the root of the checkout (override with
 ``REPRO_TORCH_BUILD_DIR``). The library's name carries a hash of the
-sources and flags, so an unchanged checkout reuses its library and a
-changed source builds a new one. There is no ``--use_fast_math``: the
+sources, the ``.cuh`` headers they share and the flags, so an unchanged
+checkout reuses its library and a changed source or header builds a new
+one. There is no ``--use_fast_math``: the
 Jaccard division must stay IEEE-rounded, and flash attention's ``expf``
 and division accurate.
 
@@ -50,8 +51,10 @@ SIGNATURES = {
     "rt_flash_attention_fwd": (_P, _P, _P, _P) + (_I64,) * 11 + (_P, _P),
     # q, k, v, o, B, S, T, H, K, D, causal, q_offset, kv_valid_len, stream
     "rt_flash_attention_tc": (_P, _P, _P, _P) + (_I64,) * 9 + (_P,),
-    # r, k, v, w, u, s0, y, s_out, B, S, H, hd, tile, stream
+    # r, k, v, w, u, s0, y, s_out, B, S, H, hd, tile, stream (rt_wkv_tc:
+    # no tile)
     "rt_wkv_fwd": (_P,) * 8 + (_I64,) * 5 + (_P,),
+    "rt_wkv_tc": (_P,) * 8 + (_I64,) * 4 + (_P,),
     # x, b, c, dt, a, d, s0, y, s_out, B, S, H, hd, N, strides of x, b, c
     # and dt over batch and time, stream (rt_ssd_tc: G's scratch before
     # the stream)
@@ -86,13 +89,13 @@ def _nvcc() -> str:
                        "toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def _sources():
+def _sources() -> list:
     return sorted(CSRC.glob("*.cu"))
 
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return build_dir() / f"librepro_torch_{h.hexdigest()[:16]}.so"

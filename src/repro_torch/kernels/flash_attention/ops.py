@@ -7,7 +7,9 @@ call's dtype and shape alone; on a CPU tensor it runs
 :func:`flash_attention_plain`, the function's definition in torch ops. All
 compute what the reference's ``_flash_kernel`` computes:
 
-* q (B, S, H, D) and k/v (B, T, K, D), H % K == 0, bfloat16 or float32;
+* q (B, S, H, D) and k/v (B, T, K, D), H % K == 0, one floating dtype
+  (the kernels take float32, bfloat16 and float16, D a multiple of 8 up to
+  256; the plain version any);
 * scores ``q·kᵀ·(1/√D)`` in float32, set to -1e30 where
   ``q_offset + i < kpos`` (causal) or ``kpos >= kv_valid_len``;
 * an online softmax in float32, and P·V summed in float32;
@@ -15,8 +17,8 @@ compute what the reference's ``_flash_kernel`` computes:
 
 What each variant does with P:
 
-* ``"scalar"`` (every float32 call, decode steps, short calls): every
-  element upcast to float32, P never rounded;
+* ``"scalar"`` (every float32 and float16 call, decode steps, short
+  calls): every element upcast to float32, P never rounded;
 * ``"tc"`` (bfloat16 prefill, on the tensor cores): Q, K and V exact (they
   are bfloat16 already), P carried as ``P_hi + P_lo``, two bfloat16 terms
   (``P_hi = bf16(P)``, ``P_lo = bf16(P - P_hi)``), relative error at most
@@ -44,7 +46,7 @@ ROWS_PER_BLOCK = 32      # (query, head) rows of one block of the scalar
 KEY_TILE = 32            # kernel, and the keys it stages per tile
 TC_MAX_HEAD_DIM = 128    # the tc kernel: D % 16 == 0 up to this,
 TC_MIN_ROWS = 64         # and at least one warpgroup of (query, head) rows
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
@@ -53,8 +55,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
         if t.dim() != 4:
             raise ValueError(f"{name}: expected 4 dims, got shape "
                              f"{tuple(t.shape)}")
-        if t.dtype not in _DTYPE_CODES:
-            raise TypeError(f"{name}: expected float32 or bfloat16, got "
+        if not t.dtype.is_floating_point:
+            raise TypeError(f"{name}: expected a floating dtype, got "
                             f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
@@ -70,9 +72,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, q_offset: int,
     if k.shape[2] == 0 or h % k.shape[2]:
         raise ValueError(f"{h} query heads do not group over {k.shape[2]} "
                          "kv heads")
-    if d % 8 or not 0 < d <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {d}: expected a multiple of 8 up to "
-                         f"{MAX_HEAD_DIM}")
+    if d < 1:
+        raise ValueError(f"head_dim {d}: expected at least 1")
     if q_offset < 0:
         raise ValueError(f"q_offset {q_offset} < 0")
     if kv_valid_len is not None and kv_valid_len < 1:
@@ -113,8 +114,8 @@ def variant(dtype: torch.dtype, s: int, g: int, d: int) -> str:
     """Which kernel a CUDA call runs, from its dtype, query length ``s``,
     group size ``g = H / K`` and head width ``d``: ``"tc"`` (tensor cores)
     for bfloat16 with ``d % 16 == 0``, ``d <= 128`` and ``s * g >= 64`` (at
-    least one warpgroup of rows), else ``"scalar"`` (every float32 call, a
-    decode step, short calls)."""
+    least one warpgroup of rows), else ``"scalar"`` (every float32 and
+    float16 call, a decode step, short calls)."""
     if (dtype == torch.bfloat16 and d % 16 == 0 and d <= TC_MAX_HEAD_DIM
             and s * g >= TC_MIN_ROWS):
         return "tc"
@@ -148,6 +149,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_plain(q, k, v, causal=causal,
                                      q_offset=q_offset,
                                      kv_valid_len=kv_valid_len)
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{q.dtype}: the CUDA kernels take float32, "
+                        "bfloat16 and float16")
+    d = q.shape[3]
+    if d % 8 or d > MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d}: the CUDA kernels take a multiple "
+                         f"of 8 up to {MAX_HEAD_DIM}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel reads 16-byte rows; the "

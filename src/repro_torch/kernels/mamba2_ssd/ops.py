@@ -27,7 +27,8 @@ The variants:
 The reference's gates are gone: ``use_kernel`` (its per-head scan on short
 sequences), ``interpret`` and ``S % chunk == 0``. Both kernels take any S
 in their range, a ragged last chunk and dt = 0 included; S = 0 returns
-``s0``.
+``s0``. The kernels are compiled for the head and state sizes in
+:data:`SIZES`; a CUDA call at another size raises, a CPU call computes it.
 
 Layouts: ``x`` is (B, S, H, hd) and ``b``/``c`` (B, S, N), ``dt`` (B, S, H);
 each (b, t) row of them must be contiguous, but the batch and time strides
@@ -76,9 +77,6 @@ def _check(x, b, c, dt, a, d, s0, state_out) -> None:
         if t is not None and tuple(t.shape) != want[name]:
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected "
                              f"{want[name]}")
-    if hd not in SIZES or n not in SIZES:
-        raise ValueError(f"head_dim {hd}, state {n}: the kernel takes "
-                         f"{SIZES}")
     # strides only where there are elements: an empty tensor's strides are
     # whatever torch made them
     if x.numel() and (x.stride(3) != 1 or x.stride(2) != hd):
@@ -159,7 +157,10 @@ def ssd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dt: torch.Tensor,
         if state_out is not None:
             state = state_out.copy_(state)
         return y, state
+    hd, n = x.shape[3], b.shape[-1]
+    if hd not in SIZES or n not in SIZES:
+        raise ValueError(f"head_dim {hd}, state {n}: the CUDA kernels are "
+                         f"compiled for head_dim and state in {SIZES}")
     s_out = torch.empty_like(s0) if state_out is None else state_out
-    y = _run(variant(x.shape[1], x.shape[3], b.shape[-1]), x, b, c, dt, a, d,
-             s0, s_out)
+    y = _run(variant(x.shape[1], hd, n), x, b, c, dt, a, d, s0, s_out)
     return y, s_out

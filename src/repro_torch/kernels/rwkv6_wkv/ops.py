@@ -1,20 +1,33 @@
 """RWKV6 WKV recurrence with data-dependent decay (forward).
 
 Counterpart of ``repro/kernels/rwkv6_wkv/ops.py``. On a CUDA tensor
-:func:`wkv` launches the Hopper kernel of ``repro_torch/csrc/rwkv6_wkv.cu``;
-on a CPU tensor it runs :func:`wkv_plain`, which repeats the kernel's
-arithmetic step by step with torch ops. Both compute the reference's
-recurrence, per (b, h), with S the (hd, hd) float32 state starting at
-``s0``:
+:func:`wkv` launches one of the two Hopper kernels of
+``repro_torch/csrc/rwkv6_wkv.cu``, chosen by :func:`variant` from the
+call's length alone; on a CPU tensor it runs :func:`wkv_plain`, which
+repeats the recurrence step by step with torch ops, at any head size. All
+compute the reference's recurrence, per (b, h), with S the (hd, hd)
+float32 state starting at ``s0``:
 
 * ``y_t = r_t·(diag(u) k_t v_tᵀ + S_{t-1})``, with ``u·k_t`` formed first;
 * ``S_t = diag(w_t) S_{t-1} + k_t v_tᵀ``.
 
+The variants:
+
+* ``"tc"`` (S ≥ 64, the prefill): the chunked form, chunks of 64 steps in
+  sub-chunks of 16, every decay a product of w's (no exp or log), the
+  chunk's matrix products on the tensor cores as three TF32 products each
+  (hi·hi + hi·lo + lo·hi); within 1e-6 of the float32 recurrence (one
+  TF32 product would leave it by 3e-4 to 6e-4: ``tests/test_torch_wkv.py``);
+* ``"rec"`` (S < 64: decode steps, short calls, S = 0): the recurrence in
+  float32 multiply-adds.
+
 The reference's gates are gone: ``use_kernel`` (the scan where the TPU
 kernel did not pay), ``S % chunk == 0`` and ``interpret``. They guarded the
 TPU's chunked closed form, whose ``exp(−L)`` needs chunks of at most 64
-steps; the CUDA kernel runs the recurrence itself, so it takes any S ≥ 0,
-ragged S and single decode steps included, and ``w = 0`` exactly.
+steps and ``w ≥ 1e-30``; neither CUDA kernel takes a logarithm, so both
+take any S in their range, ragged S included, and ``w = 0`` exactly. The
+kernels are compiled for the head sizes in :data:`HEAD_DIMS`; a CUDA call
+at another size raises, a CPU call computes it.
 
 No backward: the training slice adds it as a ``torch.autograd.Function``.
 """
@@ -26,8 +39,9 @@ import torch
 
 from repro_torch.kernels import _build, dispatch
 
-HEAD_DIMS = (16, 32, 64, 128)   # the kernel's compiled head sizes
-MIN_TILE = 8                    # state columns of the smallest block
+HEAD_DIMS = (16, 32, 64, 128)   # the kernels' compiled head sizes
+MIN_TILE = 8                    # state columns of the rec kernel's blocks
+TC_CHUNK = 64                   # steps per chunk of the tc kernel
 
 
 def _check(r, k, v, w, u, s0) -> None:
@@ -52,8 +66,6 @@ def _check(r, k, v, w, u, s0) -> None:
     if s0.shape != (b, h, hd, hd):
         raise ValueError(f"s0: shape {tuple(s0.shape)}, expected "
                          f"{(b, h, hd, hd)}")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd}: the kernel takes {HEAD_DIMS}")
 
 
 def wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -72,13 +84,43 @@ def wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def col_tiles(b: int, h: int, hd: int, n_sms: int) -> int:
-    """How many blocks share one (b, h): 1 when B * H blocks fill a wave
-    of the card's ``n_sms`` SMs, else the fewest powers of two that do,
-    keeping at least ``MIN_TILE`` state columns per block."""
+    """How many blocks of the rec kernel share one (b, h): 1 when B * H
+    blocks fill a wave of the card's ``n_sms`` SMs, else the fewest powers
+    of two that do, keeping at least ``MIN_TILE`` state columns per
+    block."""
     tiles = 1
     while b * h * tiles < n_sms and hd // (2 * tiles) >= MIN_TILE:
         tiles *= 2
     return tiles
+
+
+def variant(s: int, hd: int) -> str:
+    """Which kernel a CUDA call of length ``s`` and head size ``hd`` runs:
+    ``"tc"`` (the chunked form on the tensor cores) from one chunk of 64
+    steps up, at every ``hd`` of :data:`HEAD_DIMS`, else ``"rec"`` (the
+    recurrence: decode steps, short calls and S = 0)."""
+    return "tc" if s >= TC_CHUNK else "rec"
+
+
+def _run(var: str, r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch kernel ``var`` on checked CUDA inputs, counted under
+    ``rwkv6_wkv`` and ``rwkv6_wkv.<var>``."""
+    b, s, h, hd = r.shape
+    y = torch.empty_like(r)
+    s_out = torch.empty_like(s0)
+    if not (b and h):
+        return y, s_out
+    ptrs = (r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+            u.data_ptr(), s0.data_ptr(), y.data_ptr(), s_out.data_ptr())
+    if var == "tc":
+        _build.launch("rwkv6_wkv", "rt_wkv_tc", r.device, *ptrs, b, s, h, hd,
+                      variant=var)
+    else:
+        n_sms = torch.cuda.get_device_properties(
+            r.device).multi_processor_count
+        _build.launch("rwkv6_wkv", "rt_wkv_fwd", r.device, *ptrs, b, s, h, hd,
+                      hd // col_tiles(b, h, hd, n_sms), variant=var)
+    return y, s_out
 
 
 def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
@@ -92,19 +134,12 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     dispatch.note_tier("wkv", t)
     if t == "torch":
         return wkv_plain(r, k, v, w, u, s0)
+    b, s, h, hd = r.shape
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd}: the CUDA kernels are compiled for "
+                         f"head_dim in {HEAD_DIMS}")
     for name, x in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel reads 16-byte groups; the "
                              "tensor's storage is not 16-byte aligned")
-    b, s, h, hd = r.shape
-    y = torch.empty_like(r)
-    s_out = torch.empty_like(s0)
-    if b and h:
-        n_sms = torch.cuda.get_device_properties(
-            r.device).multi_processor_count
-        tile = hd // col_tiles(b, h, hd, n_sms)
-        _build.launch("rwkv6_wkv", "rt_wkv_fwd", r.device, r.data_ptr(),
-                      k.data_ptr(), v.data_ptr(), w.data_ptr(), u.data_ptr(),
-                      s0.data_ptr(), y.data_ptr(), s_out.data_ptr(), b, s, h,
-                      hd, tile)
-    return y, s_out
+    return _run(variant(s, hd), r, k, v, w, u, s0)

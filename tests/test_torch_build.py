@@ -60,3 +60,17 @@ def test_every_entry_point_has_a_signature():
     for name in _build.SIGNATURES:
         assert f'extern "C" int {name}(' in text
     assert text.count('extern "C" int ') == len(_build.SIGNATURES)
+
+
+def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A header the kernels include (``*.cuh``) is hashed into the
+    library's name with the sources: editing it builds a new library."""
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n')
+    header = tmp_path / "h.cuh"
+    header.write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path / "out"))
+    first = _build.library_path()
+    header.write_text("// two\n")
+    assert _build.library_path() != first
+    assert [p.name for p in _build._sources()] == ["a.cu"]

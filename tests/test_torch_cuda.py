@@ -196,6 +196,45 @@ def test_flash_kernel_refuses_bad_head_dim(dev):
         FA.flash_attention(q, q, q)
 
 
+def test_flash_kernel_refuses_head_dim_above_its_limit(dev):
+    q = torch.zeros((1, 4, 2, 264), device=dev)
+    with pytest.raises(ValueError, match="up to 256"):
+        FA.flash_attention(q, q, q)
+
+
+# (B, S, T, H, K, D, q_offset, kv_valid_len): a prefill, a decode step
+# against a longer cache, and a grid under one wave (the keys split)
+FLASH_F16_CASES = [
+    (2, 77, 77, 4, 2, 128, 0, None),
+    (2, 1, 300, 8, 2, 64, 299, 300),
+    (1, 3, 700, 2, 2, 80, 697, 700),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_F16_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_float16_runs_the_scalar_kernel(dev, case):
+    """float16 runs the scalar kernel (the tc kernel is bf16 only), held
+    like bf16 to the plain version: 1e-5, plus one float16 step (2^-10
+    relative) where the two float32 results round to neighbours."""
+    b, s, t, h, kh, d, off, valid = case
+    g = torch.Generator(device=dev).manual_seed(sum(case[:6]))
+    q, k, v = (torch.randn(shape, generator=g, device=dev).half()
+               for shape in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d)))
+    assert FA.variant(torch.float16, s, h // kh, d) == "scalar"
+    kw = dict(q_offset=off, kv_valid_len=valid)
+    got = FA.flash_attention(q, k, v, **kw)
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float16 and got.shape == q.shape
+    assert _build.launches["flash_attention_fwd.scalar"] == 1
+    assert _build.launches["flash_attention_fwd.tc"] == 0
+    got, want = got.float(), want.float()
+    tol = want.abs() * 2.0 ** -10 + 1e-5
+    assert bool(((got - want).abs() <= tol).all()), \
+        float((got - want).abs().max())
+
+
 def test_lm_on_card_matches_cpu_and_launches_once_per_layer(dev):
     import dataclasses
 
@@ -231,10 +270,11 @@ def test_lm_on_card_matches_cpu_and_launches_once_per_layer(dev):
     assert torch.allclose(out["cuda"], out["cpu"], atol=1e-4, rtol=0)
 
 
-# (B, S, H, hd, w, s0 scale): ragged S around the kernel's 24-step chunk at
-# hd 64 (S = 1, 63, 65, 100), hd 16 and 128, strong decay (w about 0.03)
-# and w = 0 exactly, nonzero s0, grids under one wave (column tiles) and a
-# full wave of whole heads at hd 128 (blocks of 1024 threads)
+# (B, S, H, hd, w, s0 scale): ragged S around the rec kernel's 24-step
+# chunk at hd 64 (S = 1, 63, 65, 100), hd 16 and 128, strong decay (w
+# about 0.03) and w = 0 exactly, nonzero s0, grids under one wave (column
+# tiles) and a full wave of whole heads at hd 128 (blocks of 1024 threads);
+# each runs the variant its length picks (tc from 64 steps up)
 WKV_CASES = [
     (4, 1, 40, 64, "model", 0.5),
     (2, 63, 8, 64, "model", 0.0),
@@ -248,6 +288,23 @@ WKV_CASES = [
     (160, 5, 1, 32, "model", 0.5),
     (33, 30, 4, 128, "model", 0.5),
 ]
+# (B, S, H, hd, w, s0 scale) through the tc kernel (S >= 64): one chunk, a
+# chunk and a step, 2049 (32 chunks and one of a step), every hd, w = 0
+# every third step, strong decay, B * H = 6 blocks (under one wave) and the
+# prefill's 160 blocks of hd 64
+WKV_TC_CASES = [
+    (2, 64, 3, 64, "model", 0.5),
+    (2, 65, 3, 64, "model", 0.5),
+    (1, 2049, 4, 64, "model", 0.5),
+    (2, 100, 3, 16, "model", 0.5),
+    (2, 130, 3, 32, "model", 0.5),
+    (2, 100, 3, 128, "model", 0.5),
+    (1, 2049, 2, 128, "zero", 0.5),
+    (2, 300, 3, 64, "zero", 0.5),
+    (2, 300, 3, 64, "strong", 0.0),
+    (1, 65, 2, 16, "strong", 0.5),
+    (4, 256, 40, 64, "model", 0.5),
+]
 
 
 def _wkv_inputs(case, dev):
@@ -255,8 +312,11 @@ def _wkv_inputs(case, dev):
     g = torch.Generator(device=dev).manual_seed(sum(case[:4]))
     r, k, v, logit = (torch.randn((b, s, h, hd), generator=g, device=dev)
                       for _ in range(4))
-    w = torch.exp(-torch.exp(logit * 0.5 + (1.25 if decay == "strong"
-                                             else -2.0)))
+    if decay == "near1":
+        w = 1.0 - 1e-6 * torch.rand((b, s, h, hd), generator=g, device=dev)
+    else:
+        w = torch.exp(-torch.exp(logit * 0.5 + (1.25 if decay == "strong"
+                                                 else -2.0)))
     if decay == "zero":
         w[:, ::3] = 0.0
     u = 0.1 * torch.randn((h, hd), generator=g, device=dev)
@@ -264,20 +324,70 @@ def _wkv_inputs(case, dev):
     return r, k, v, w, u, s0
 
 
+def _wkv_close(got, want):
+    """Within 1e-5 of the largest magnitude of y (of the state, for the
+    state): the same float32 recurrence, the sum over i in another order
+    (rec) or as the chunk's products (tc)."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        err = float((g - w).abs().max())
+        assert err <= 1e-5 * float(w.abs().max()), err
+
+
+def _wkv_ran(var):
+    torch.cuda.synchronize()
+    assert _build.launches["rwkv6_wkv"] == 1
+    assert _build.launches[f"rwkv6_wkv.{var}"] == 1
+
+
 @pytest.mark.parametrize("case", WKV_CASES,
                          ids=lambda c: "-".join(map(str, c)))
 def test_wkv_kernel_matches_plain(dev, case):
     args = _wkv_inputs(case, dev)
-    y, st = W.wkv(*args)
-    py, pst = W.wkv_plain(*args)
+    got = W.wkv(*args)
+    _wkv_ran(W.variant(case[1], case[3]))
+    _wkv_close(got, W.wkv_plain(*args))
+
+
+@pytest.mark.parametrize("case", WKV_TC_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_wkv_tc_kernel_matches_plain(dev, case):
+    args = _wkv_inputs(case, dev)
+    assert W.variant(case[1], case[3]) == "tc"
+    got = W.wkv(*args)
+    _wkv_ran("tc")
+    _wkv_close(got, W.wkv_plain(*args))
+
+
+def test_wkv_tc_kernel_forgets_the_past_exactly_at_zero_decay(dev):
+    """w = 0 at step 70: y from step 71 on and the final state do not
+    depend on r, k, v before step 70 or on s0, bit for bit."""
+    r, k, v, w, u, s0 = _wkv_inputs((2, 200, 3, 64, "model", 0.5), dev)
+    w[:, 70] = 0.0
+    y, st = W.wkv(r, k, v, w, u, s0)
+    r2, k2, v2 = (x.clone() for x in (r, k, v))
+    for x in (r2, k2, v2):
+        x[:, :70] = torch.randn_like(x[:, :70])
+    y2, st2 = W.wkv(r2, k2, v2, w, u, torch.randn_like(s0))
     torch.cuda.synchronize()
-    assert _build.launches["rwkv6_wkv"] == 1
-    assert y.shape == py.shape and st.shape == pst.shape
-    # the same float32 recurrence, the sum over i in another order
-    for got, want in ((y, py), (st, pst)):
-        assert bool(torch.isfinite(got).all())
-        err = float((got - want).abs().max())
-        assert err <= 1e-5 * float(want.abs().max()), err
+    assert torch.equal(y[:, 71:], y2[:, 71:]) and torch.equal(st, st2)
+
+
+def test_wkv_tc_kernel_near_one_decay_against_float64(dev):
+    """S = 2048, w within 1e-6 of 1, s0 random: the float32 recurrence
+    drifts some 4e-6 to 7e-6 from a float64 one (tests/test_torch_wkv.py),
+    so the tc kernel is held to float64 here."""
+    args = _wkv_inputs((1, 2048, 4, 64, "near1", 1.0), dev)
+    got = W.wkv(*args)
+    _wkv_ran("tc")
+    r, k, v, w, u, st = (t.double() for t in args)
+    y = torch.empty_like(r)
+    for t in range(r.shape[1]):
+        vt = v[:, t, :, None, :]
+        y[:, t] = torch.einsum("bhi,bhij->bhj", r[:, t],
+                               (u * k[:, t])[:, :, :, None] * vt + st)
+        st = w[:, t, :, :, None] * st + k[:, t, :, :, None] * vt
+    _wkv_close(got, (y, st))
 
 
 def test_wkv_kernel_with_no_steps_returns_the_state(dev):
@@ -285,6 +395,26 @@ def test_wkv_kernel_with_no_steps_returns_the_state(dev):
     y, st = W.wkv(r, k, v, w, u, s0)
     torch.cuda.synchronize()
     assert y.shape == (2, 0, 3, 64) and torch.equal(st, s0)
+
+
+@pytest.mark.parametrize("s", [1, 100])
+def test_wkv_kernels_refuse_head_sizes_they_are_not_built_for(dev, s):
+    """hd 24 computes on the CPU (tests/test_torch_wkv.py); on the card
+    neither kernel is built for it, and nothing falls back."""
+    r, k, v, w, u, s0 = _wkv_inputs((1, s, 2, 24, "model", 0.5), dev)
+    with pytest.raises(ValueError, match=r"head_dim 24.*\(16, 32, 64, 128\)"):
+        W.wkv(r, k, v, w, u, s0)
+    assert not _build.launches
+
+
+@pytest.mark.parametrize("hd, n", [(24, 16), (16, 8)])
+def test_ssd_kernels_refuse_sizes_they_are_not_built_for(dev, hd, n):
+    """hd 24 or N 8 computes on the CPU (tests/test_torch_ssd.py); on the
+    card neither kernel is built for it, and nothing falls back."""
+    args = _ssd_inputs((1, 70, 2, hd, n, "model", "random", False), dev)
+    with pytest.raises(ValueError, match=r"\(16, 32, 64, 128\)"):
+        SSD.ssd(*args)
+    assert not _build.launches
 
 
 def test_rwkv_on_card_matches_cpu_and_launches_once_per_layer(dev):

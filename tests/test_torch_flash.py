@@ -100,11 +100,38 @@ def test_bf16_inputs_compute_in_float32_and_return_bf16():
     assert torch.equal(got, want.to(torch.bfloat16))
 
 
+# (D, dtype): head sizes the CUDA kernels are not built for (not a multiple
+# of 8, above 256) and float16, which the scalar kernel takes on the card
+CPU_ONLY = [(12, torch.float32), (264, torch.float32), (16, torch.float16)]
+# float16: both round the output to float16 (their float32 results may
+# fall on either side of a rounding boundary: one step, at most 2^-10 of
+# max |want|), and the reference rounds the softmax weights to float16
+# before P·V (2^-11 relative each): within 2^-9 of max |want|
+F16_REL = 2.0 ** -9
+
+
+@pytest.mark.parametrize("d, dtype", CPU_ONLY, ids=lambda c: str(c))
+def test_cpu_tier_computes_what_the_plain_version_computes(d, dtype):
+    """A CPU call at a size or dtype outside the CUDA kernels' runs the
+    plain version, as the reference's stacks run these (a CUDA call at
+    those sizes raises, and float16 runs the scalar kernel:
+    tests/test_torch_cuda.py); held against ``ref.attention``."""
+    case = (1, 20, 20, 4, 2, d, True, 0, None)
+    q, k, v = _inputs(case, seed=3)
+    got = FA.flash_attention(*(torch.from_numpy(a).to(dtype)
+                               for a in (q, k, v)))
+    jdt = jnp.float16 if dtype == torch.float16 else jnp.float32
+    want = np.asarray(rref.attention(*(jnp.asarray(a, jdt)
+                                       for a in (q, k, v))), np.float32)
+    assert got.dtype == dtype and got.shape == q.shape
+    err = float(np.abs(got.float().numpy() - want).max())
+    limit = (F16_REL * float(np.abs(want).max())
+             if dtype == torch.float16 else TOL)
+    assert err <= limit, (err, limit)
+
+
 @pytest.mark.parametrize("bad, match", [
-    (dict(d=12), "multiple of 8"),
-    (dict(d=264), "multiple of 8"),
     (dict(h=3, kh=2), "do not group"),
-    (dict(dtype=torch.float16), "float32 or bfloat16"),
     (dict(kv_valid_len=0), "kv_valid_len"),
     (dict(q_offset=-1), "q_offset"),
 ])

@@ -247,6 +247,55 @@ def test_plain_attention_prefill_matches_reference(arch):
     assert max(_err(caches[k], rcaches[k]) for k in "kv") <= TOL
 
 
+# float16 compute: each cast rounds to 2^-11 relative, and the two packages
+# round the same float16 values at other points (the reference's plain
+# attention takes the softmax weights to float16 and sums P·V in float16,
+# the port's flash keeps both in float32) through two layers, a few
+# float16 steps of the largest magnitude (2^-9.4 measured on the logits);
+# 2^-7 of it leaves a factor of about 5
+F16_REL = 2.0 ** -7
+
+
+def _rel16(got, want) -> float:
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+def test_float16_prefill_and_decode_match_reference():
+    """Reduced qwen3-0.6b with ``compute_dtype="float16"`` and flash
+    attention, which the port's CPU tier computes (the CUDA tier on the
+    scalar flash kernel): prefill logits and K/V caches, then a decode
+    step through flash and through plain attention, against the
+    reference's float16 prefill and its ``use_flash=False`` decode."""
+    rcfg, tcfg = _cfgs("qwen3-0.6b", use_flash=True, compute_dtype="float16")
+    flat, tree = _random_tree(rcfg)
+    model = interop.lm_params(flat, tcfg, device="cpu")
+    rng = np.random.default_rng(7)
+    rb, tb = _inputs(rcfg, rng)
+    rlogits, rcaches = rlm.prefill_step(tree, rb, rcfg, None)
+    logits, caches = tlm.prefill_step(model, tb, tcfg)
+    assert caches["k"].dtype == torch.float16
+    errs = {"prefill": _rel16(logits, rlogits)}
+    errs.update({f"cache {k}": _rel16(caches[k], rcaches[k]) for k in "kv"})
+    big = rtr.init_decode_caches(rcfg, B, S + EXTRA)
+    big = {k: big[k].at[:, :, :S].set(rcaches[k]) for k in "kv"}
+    tok = rng.integers(0, rcfg.vocab_size, (B,)).astype(np.int32)
+    rdec, _ = rlm.decode_step(
+        tree, big, {"token": jnp.asarray(tok), "pos": jnp.asarray(S, jnp.int32)},
+        dataclasses.replace(rcfg, use_flash=False), None)
+    for flash in (True, False):
+        cfg = dataclasses.replace(tcfg, use_flash=flash)
+        tbig = ttr.init_decode_caches(cfg, B, S + EXTRA, device="cpu")
+        for key in "kv":
+            tbig[key][:, :, :S] = caches[key]
+        dec, _ = tlm.decode_step(
+            model, tbig, {"token": torch.from_numpy(tok), "pos": S}, cfg)
+        errs[f"decode flash={flash}"] = _rel16(dec, rdec)
+    print({k: f"{v:.2e}" for k, v in errs.items()})
+    assert max(errs.values()) <= F16_REL, errs
+
+
 @pytest.mark.parametrize("use_flash", [True, False])
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2.5-32b"])
 def test_teacher_forced_decode_equals_forward(arch, use_flash):

@@ -181,9 +181,19 @@ def test_cpu_tensor_runs_the_plain_version_and_counts_it():
     assert "kernels.dispatch.mamba2_ssd.cuda" not in snap
 
 
+@pytest.mark.parametrize("hd, n", [(24, 16), (16, 8)], ids=lambda c: str(c))
+def test_cpu_tier_computes_sizes_the_kernels_are_not_built_for(hd, n):
+    """A head or state size outside ``SIZES``: the reference's SSD computes
+    it, so the port's CPU tier does too (a CUDA call raises:
+    tests/test_torch_cuda.py), held against the reference's scan at TOL."""
+    assert hd not in SSD.SIZES or n not in SSD.SIZES
+    args = _inputs(20, hd=hd, n=n, seed=hd + n, s0="random")
+    y, st = SSD.ssd(*map(torch.from_numpy, args))
+    ry, rst = _reference_scan(args)
+    assert _rel(y.numpy(), ry) <= TOL and _rel(st.numpy(), rst) <= TOL
+
+
 @pytest.mark.parametrize("bad, match", [
-    (dict(hd=24), "head_dim 24"),
-    (dict(n=8), "state 8"),
     (dict(dtype=torch.float64), "float32"),
     (dict(a_shape=(4,)), "a: shape"),
     (dict(s0_shape=(2, 3, 16, 8)), "s0: shape"),
