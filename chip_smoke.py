@@ -35,18 +35,21 @@ Phases (any failure raises and ends the run with a nonzero exit):
    greedy ``lm.decode_step``s against a 2080-slot cache. Launch counts are
    reset just before and read just after; the flash kernel must launch
    once per layer in the prefill, all on its tensor-core variant ("tc"),
-   and in every decode step, all on its scalar variant. Then: wall
-   times, tokens/s, peak memory, the card's idle share over a decode step
-   and a prefill (``torch.profiler``), and checks (b) the plain attention
-   path's logits, (c) teacher-forced decode against the uncached forward,
-   (d) the reduced config in float32 on the card against the CPU (the
-   scalar variant only);
+   and in every decode step, all on its decode variant ("dec"). Then:
+   wall times, tokens/s, peak memory, the card's idle share over a decode
+   step and a prefill (``torch.profiler``), and checks (b) the plain
+   attention path's logits, (c) teacher-forced decode against the uncached
+   forward, (d) the reduced config in float32 on the card against the CPU
+   (each call on the variant its shape gives);
 7. the flash kernel against its plain version at the prefill and decode
    shapes of phase 6 and at edge cases, each edge through the variant it
    must take, timed as in phase 4 beside ``scaled_dot_product_attention``
    and its bound (the larger of its bytes over 3.35 TB/s and its
    operations over 989 TFLOP/s bf16), and the decode call again over five
-   input sets in turn, L2-cold as a decode step finds its cache;
+   input sets in turn, L2-cold as a decode step finds its cache; the
+   scalar kernel, which decode steps ran before the dec kernel, timed at
+   the decode shape beside it, warm and L2-cold, through its own launcher,
+   and the dec kernel at other split counts than its rule gives;
 8. rwkv6-3b serving, the port's third path: full width and depth (random
    weights from a seeded generator, bf16 compute, the time mix in float32)
    serves 4 prompts of 2048 tokens with one ``lm.prefill_step`` and 32
@@ -76,8 +79,8 @@ Phases (any failure raises and ends the run with a nonzero exit):
    Launch counts are reset just before and read just after; the SSD kernel
    must launch once per layer and the flash kernel once per application
    of the shared block, in the prefill (both "tc") and in every decode step
-   (SSD "rec", flash "scalar"); the float32 checks run the scalar flash
-   variant only. Then:
+   (SSD "rec", flash "dec"); the float32 checks run each flash call on the
+   variant its shape gives ("scalar" for a float32 prefill). Then:
    wall times, tokens/s, memory, the idle share and top device operations
    over a decode step and a prefill (``torch.profiler``), and checks (e)
    prefill(S) plus one decode step against prefill(S + 1) in bf16, (b)
@@ -568,7 +571,7 @@ LM_TEACHER = 8          # teacher-forced positions of check (c)
 # magnitude |z| carries a few bf16 steps (2^-8 |z| each) of difference
 LM_BF16_REL = 2.0 ** -4
 FLASH = "flash_attention_fwd"
-FLASH_VARIANTS = ("tc", "scalar")
+FLASH_VARIANTS = ("tc", "scalar", "dec")
 SSD = "mamba2_ssd"
 WKV = "rwkv6_wkv"
 # each kernel with more than one design: its variants (its ops.variant)
@@ -668,6 +671,7 @@ def _fill_cache(cfg, caches, n, dev, transformer):
 def lm_serving():
     from repro_torch import configs
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.models import lm, transformer
 
     dev = torch.device("cuda")
@@ -739,11 +743,13 @@ def lm_serving():
     log(f"[lm] flash variants: prefill {prefill_var}, decode steps "
         f"{_distinct(step_var)}")
     # (a) one flash launch per layer per step: the prefill's on the tensor
-    # cores, each decode step's on the scalar kernel
+    # cores, each decode step's on the dec kernel
     assert n_prefill == cfg.n_layers, n_prefill
     assert per_step == [cfg.n_layers] * LM_NEW, per_step
-    assert prefill_var == dict(tc=cfg.n_layers, scalar=0), prefill_var
-    assert step_var == [dict(tc=0, scalar=cfg.n_layers)] * LM_NEW, step_var
+    assert prefill_var == dict(tc=cfg.n_layers, scalar=0, dec=0), \
+        prefill_var
+    assert step_var == [dict(tc=0, scalar=0, dec=cfg.n_layers)] * LM_NEW, \
+        step_var
 
     # the card's busy and idle share over one decode step (the last step
     # again: it rewrites slot 2079 with the same token's k/v) and a prefill
@@ -809,7 +815,13 @@ def lm_serving():
         f"steps, card vs CPU: max abs diff {err_d:.3e} (limit 1e-4); flash "
         f"variants {d_var}")
     assert err_d <= 1e-4
-    assert d_var == dict(tc=0, scalar=9 * small.n_layers), d_var
+    # the prefill's layers on the variant its 16 rows a kv head give, each
+    # decode step's on "dec"
+    want = collections.Counter({v_: 0 for v_ in FLASH_VARIANTS})
+    g, hd = small.n_heads // small.n_kv_heads, small.resolved_head_dim
+    want[FA.variant(torch.float32, 16, g, hd)] += small.n_layers
+    want[FA.variant(torch.float32, 1, g, hd)] += 8 * small.n_layers
+    assert d_var == dict(want), (d_var, want)
     return launches
 
 
@@ -820,8 +832,8 @@ def lm_serving():
 # (B, S, T, H, K, D, causal, q_offset, kv_valid_len, dtype, variant): S and
 # T off the 32- and 64-key tiles, g = 1, 2, 3, 5, non-causal,
 # kv_valid_len < T, q_offset > 0 with S < T, D = 32, 64, 80, 112, 128,
-# 256, S * g at 63, 64 and just over, float32 inputs, grids of fewer
-# blocks than SMs (the scalar kernel then splits the keys), and the
+# 256, S * g at 16, 17, 63, 64 and just over, float32 inputs, grids of
+# fewer blocks than SMs (the scalar kernel then splits the keys), and the
 # variant each must run
 BF16, F32, F16 = torch.bfloat16, torch.float32, torch.float16
 FLASH_EDGES = [
@@ -838,14 +850,41 @@ FLASH_EDGES = [
     (2, 2100, 2100, 4, 4, 112, True, 0, 2050, BF16, "tc"),
     (1, 64, 64, 1, 1, 64, True, 0, None, BF16, "tc"),
     (1, 63, 63, 1, 1, 64, True, 0, None, BF16, "scalar"),
-    (2, 1, 200, 4, 2, 128, True, 150, 151, BF16, "scalar"),
-    (1, 5, 97, 5, 5, 80, True, 60, 65, F32, "scalar"),
+    (2, 1, 200, 4, 2, 128, True, 150, 151, BF16, "dec"),
+    (1, 5, 97, 5, 5, 80, True, 60, 65, F32, "dec"),
     (1, 40, 40, 2, 1, 256, True, 0, 23, F32, "scalar"),
     (3, 64, 64, 16, 8, 128, False, 0, 50, F32, "scalar"),
-    (2, 3, 1000, 4, 2, 64, True, 990, 993, BF16, "scalar"),
-    (1, 2, 700, 2, 2, 80, False, 0, 650, F32, "scalar"),
+    (2, 3, 1000, 4, 2, 64, True, 990, 993, BF16, "dec"),
+    (1, 2, 700, 2, 2, 80, False, 0, 650, F32, "dec"),
     (2, 77, 77, 4, 2, 128, True, 0, None, F16, "scalar"),
+    (1, 17, 100, 1, 1, 64, True, 83, None, BF16, "scalar"),
+    (1, 1, 300, 17, 1, 64, True, 299, 300, F16, "scalar"),
 ]
+# (B, S, T, H, K, D, causal, q_offset, kv_valid_len) through "dec", each in
+# all three dtypes: kv_valid_len = 1 (every other key, warp and split of
+# the row sees no valid key), a split all masked for row 0 (query 63
+# against keys 64 to 78), kv_len one key past two tiles and a split,
+# qwen3-0.6b's decode shape, g = 1, 2, 3, 5, 8, 12, S * g from 1 to 16
+# with S up to 16 under causal masks with q_offset > 0, D = 8, 32, 64, 80,
+# 96, 112, 128 and 256, non-causal with kv_valid_len < T
+FLASH_DEC_EDGES = [
+    (2, 1, 300, 4, 2, 64, True, 299, 1),
+    (1, 16, 200, 1, 1, 64, True, 63, None),
+    (1, 1, 129, 2, 2, 128, True, 128, 129),
+    (4, 1, 2080, 16, 8, 128, True, 2079, 2080),
+    (2, 1, 2080, 8, 8, 112, True, 2079, 2080),
+    (1, 1, 400, 12, 1, 128, True, 399, 400),
+    (1, 2, 300, 16, 2, 64, True, 250, 252),
+    (2, 16, 90, 2, 2, 32, True, 70, 86),
+    (1, 8, 333, 4, 2, 256, True, 300, 308),
+    (3, 1, 2080, 4, 4, 8, True, 2079, 2080),
+    (2, 5, 150, 3, 1, 80, False, 0, 140),
+    (1, 1, 1000, 5, 1, 128, True, 999, 1000),
+    (1, 3, 65, 6, 2, 96, True, 62, None),
+    (1, 4, 2000, 4, 4, 256, True, 1500, 1504),
+]
+FLASH_EDGES += [e + (dt, "dec") for e in FLASH_DEC_EDGES
+                for dt in (F32, BF16, F16)]
 FLASH_SRC = "src/repro_torch/csrc/flash_attention.cu"
 FLASH_REPLACES = "src/repro/kernels/flash_attention/kernel.py:83"
 
@@ -916,11 +955,12 @@ def flash_kernel(rows, launches):
         assert got.dtype == dt and got.shape == q.shape
         _flash_err(got, FA.flash_attention_plain(q, k, v, **kw))
     torch.cuda.synchronize()
-    n_tc = sum(e[-1] == "tc" for e in FLASH_EDGES)
+    n_var = {v_: sum(e[-1] == v_ for e in FLASH_EDGES)
+             for v_ in FLASH_VARIANTS}
     n_f16 = sum(e[-2] == F16 for e in FLASH_EDGES)
     log(f"[kernels] flash edge cases: {len(FLASH_EDGES)} shapes match the "
-        f"plain version, each through its variant ({n_tc} tc, "
-        f"{len(FLASH_EDGES) - n_tc} scalar, {n_f16} of them float16)")
+        f"plain version, each through its variant ({n_var}, {n_f16} of "
+        "them float16)")
 
     b, s, h, kh, d = LM_BATCH, LM_PROMPT, 16, 8, 128
     flash_prefill_row(rows, launches, rand, "qwen3-0.6b", b, s, h, kh, d)
@@ -977,6 +1017,64 @@ def flash_decode_row(rows, launches, rand, what, b, h, kh, d, valid):
         f"{len(sets)} input sets in turn (L2-cold): device time per call: "
         f"kernel {cold:.4f} ms, library {cold_lib:.4f} ms "
         f"(scaled_dot_product_attention(enable_gqa)); {card()}")
+    # the scalar kernel, which ran the decode steps before "dec", at the
+    # same shape through its own launcher (the keys split as it split
+    # them), warm and L2-cold
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    scalar = functools.partial(
+        _flash_split, "scalar",
+        splits=FA.kv_splits(b, 1, h, kh, valid, n_sms), **kw)
+    err_s = _flash_err(scalar(qd, kd, vd),
+                       FA.flash_attention_plain(qd, kd, vd, **kw))
+    warm_s = device_ms(lambda: scalar(qd, kd, vd))
+    cold_s = device_ms(lambda: scalar(*next(turn)))
+    log(f"[kernels] {FLASH} {what} decode, the scalar kernel through "
+        f"rt_flash_attention_fwd at the same shape: device time per call "
+        f"{warm_s:.4f} ms warm, {cold_s:.4f} ms L2-cold (dec: "
+        f"{rows[-1]['ms']:.4f} warm, {cold:.4f} L2-cold), max_abs_err "
+        f"{err_s}; {card()}")
+    # the dec kernel at other split counts than ops.dec_splits gives, each
+    # held to the plain version (readings: the count stays a rule of shape)
+    formula = FA.dec_splits(b, kh, valid, n_sms)
+    sweep = []
+    for chunk in (64, 128, 256, 448, 704, 1088, -(-valid // 64) * 64):
+        splits = -(-valid // chunk)
+        dec = functools.partial(_flash_split, "dec", splits=splits,
+                                chunk=chunk, **kw)
+        _flash_err(dec(qd, kd, vd),
+                   FA.flash_attention_plain(qd, kd, vd, **kw))
+        sweep.append(f"{splits} x {chunk} keys ({b * kh * splits} blocks) "
+                     f"{device_ms(lambda: dec(qd, kd, vd)):.4f}")
+    log(f"[kernels] {FLASH} {what} decode, dec at other split counts "
+        f"(warm device ms per call, kernel and merge; ops.dec_splits gives "
+        f"{formula[0]} x {formula[1]}): {'; '.join(sweep)}; {card()}")
+
+
+def _flash_split(var, q, k, v, splits, chunk=None, *, causal, q_offset,
+                 kv_valid_len):
+    """The scalar (``rt_flash_attention_fwd``) or dec
+    (``rt_flash_attention_dec``, ``chunk`` keys a split) flash kernel with
+    ``splits`` blocks along each (sequence, kv head), whatever
+    ``flash_attention`` would route the call to or split it into."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as FA
+
+    b, s, h, d = q.shape
+    tk, kh = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    scratch = (torch.empty(b * kh * splits * s * (h // kh) * (d + 2),
+                           dtype=torch.float32, device=q.device)
+               if splits > 1 else None)
+    entry, split_args = (("rt_flash_attention_fwd", (splits,))
+                         if var == "scalar" else
+                         ("rt_flash_attention_dec", (splits, chunk)))
+    _build.launch(FLASH, entry, q.device, q.data_ptr(), k.data_ptr(),
+                  v.data_ptr(), out.data_ptr(), b, s, tk, h, kh, d,
+                  int(causal), q_offset, kv_valid_len,
+                  FA._DTYPE_CODES[q.dtype], *split_args,
+                  None if scratch is None else scratch.data_ptr(),
+                  variant=var)
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -1409,6 +1507,7 @@ def _rel_check(what, got, want, limit) -> float:
 def zamba_serving():
     from repro_torch import configs
     from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.models import lm, transformer
 
     dev = torch.device("cuda")
@@ -1504,11 +1603,12 @@ def zamba_serving():
         f"{_distinct(step_ssd)}")
     # (a) one SSD launch per layer and one flash launch per application of
     # the shared block, in the prefill (both on the tensor cores) and in
-    # every decode step (the SSD recurrence and the scalar flash kernel)
+    # every decode step (the SSD recurrence and the dec flash kernel)
     assert n_prefill == (cfg.n_layers, napps), n_prefill
     assert per_step == [(cfg.n_layers, napps)] * ZAMBA_NEW, per_step
-    assert prefill_var == dict(tc=napps, scalar=0), prefill_var
-    assert step_var == [dict(tc=0, scalar=napps)] * ZAMBA_NEW, step_var
+    assert prefill_var == dict(tc=napps, scalar=0, dec=0), prefill_var
+    assert step_var == [dict(tc=0, scalar=0, dec=napps)] * ZAMBA_NEW, \
+        step_var
     assert prefill_ssd == dict(tc=cfg.n_layers, rec=0), prefill_ssd
     assert step_ssd == [dict(tc=0, rec=cfg.n_layers)] * ZAMBA_NEW, step_ssd
 
@@ -1622,7 +1722,19 @@ def zamba_serving():
     f32_var = flash_variants(before_var)
     log(f"[zamba] flash variants of the float32 checks (b), (c), (d): "
         f"{f32_var}")
-    assert f32_var["tc"] == 0 and f32_var["scalar"] > 0, f32_var
+    # each call on the variant its shape gives: (b)'s prefill and (c)'s
+    # forward over the prompt, (c)'s prefill of the rest, (b)'s decode step
+    # and (c)'s eight, then (d)'s reduced prefill of 16 and eight steps
+    want = collections.Counter({v_: 0 for v_ in FLASH_VARIANTS})
+    g, hd = cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
+    want[FA.variant(torch.float32, ZAMBA_PROMPT, g, hd)] += 2 * napps
+    want[FA.variant(torch.float32, cut, g, hd)] += napps
+    want[FA.variant(torch.float32, 1, g, hd)] += 9 * napps
+    s_apps = transformer.n_shared_apps(small)
+    g, hd = small.n_heads // small.n_kv_heads, small.resolved_head_dim
+    want[FA.variant(torch.float32, 16, g, hd)] += s_apps
+    want[FA.variant(torch.float32, 1, g, hd)] += 8 * s_apps
+    assert f32_var == dict(want), (f32_var, want)
     return launches
 
 

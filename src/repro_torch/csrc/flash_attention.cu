@@ -3,11 +3,11 @@
 // Replaces the Pallas TPU kernel flash_attention_fwd (_flash_kernel) of
 // repro/kernels/flash_attention/kernel.py.  Inputs: q (B, S, H, D) and
 // k, v (B, T, K, D), H % K == 0, all float32, all bfloat16 or (the scalar
-// kernel only) all float16, contiguous;
+// and dec kernels) all float16, contiguous;
 // output o (B, S, H, D) in q's dtype.  Scores are q.k * (1/sqrt(D)) in
 // float32, set to -1e30 where q_offset + i < kpos (causal) or
 // kpos >= kv_valid_len; the softmax runs online in float32 (row max m, row
-// sum l); o = acc / max(l, 1e-30).  Two kernels compute it; ops.py picks
+// sum l); o = acc / max(l, 1e-30).  Three kernels compute it; ops.py picks
 // one by the call's dtype and shape alone (variant()):
 //
 // * flash_tc_kernel ("tc": bfloat16, D % 16 == 0, D <= 128, S * H/K >= 64,
@@ -21,9 +21,12 @@
 //   output past one bf16 step of the float32 function on random inputs,
 //   which the card tests and chip_smoke.py hold it to; the two-term
 //   product stays inside it (tests/test_torch_flash.py emulates both).
-// * flash_fwd_kernel ("scalar": every float32 and float16 call, decode
-//   steps and other short calls) upcasts every element to float32 and
-//   accumulates P.V in float32 with P never rounded.
+// * flash_decode_kernel ("dec": any of the three dtypes, S * H/K <= 16,
+//   the decode steps) and flash_fwd_kernel ("scalar": the rest, float32
+//   and float16 calls of more than 16 rows a kv head, bfloat16 ones of 17
+//   to 63 rows or with a D the tc kernel does not take) upcast every
+//   element to float32 as they read it and accumulate P.V in float32 with
+//   P never rounded.
 //
 // What bounds it on this card: the matrix products.  Prefill attention at
 // (B, S, H, K, D) = (4, 2048, 16, 8, 128), causal, is about 6.9e10
@@ -34,7 +37,7 @@
 // (S = 1) against a cache of about 2,080 valid slots reads about 34 MB of
 // K/V per layer for 1.7e8 operations: there the bytes bound it.
 //
-// Both kernels keep the TPU kernel's one saving that matters on both
+// All three kernels keep the TPU kernel's one saving that matters on both
 // machines: no tile past the causal horizon of a block's last row or past
 // kv_valid_len is read, so causal prefill does half the work and a decode
 // step reads only the valid part of the cache.  q_offset and kv_valid_len
@@ -88,6 +91,38 @@
 // one contiguous range of whole tiles and writes its row max, row sum and
 // unnormalised acc to a float32 scratch, and a second kernel merges the
 // splits per output element.
+//
+// The dec kernel (a decode step).  What bounds it: the bytes of K and V
+// (qwen3-0.6b's step reads 34 MB per layer for 1.7e8 operations, 10 us at
+// 3.35 TB/s).  What held the scalar kernel back there: its block of 32
+// rows computed 30 or 31 padding rows, each of its 8 warps read every K and
+// V row of a tile from shared memory, K and V were widened to float32 as
+// they were staged, and one synchronous stage left no load in flight while
+// it computed (13% of the bytes bound).  The dec kernel instead:
+// * takes one (b, kv head, key split) a block, with all S * g <= 16 rows of
+//   the group, so each K/V byte is read once per split and no warp
+//   computes a padding row (1 and 2 rows are compiled exactly; above, the
+//   row count is a bound of 4, 8 or 16 and rows past S * g are skipped);
+// * gives each of its 4 warps a slice of 32 / LPK keys of every tile and
+//   a ring of kDecStages slices of its own: 16-byte cp.async.cg copies of
+//   K and V in their own dtype (keys past the split arrive as zeros without
+//   a read), waited for by the warp alone, so no block barrier paces the
+//   loop; with 55 KB of ring a block (bf16, D 128) four blocks fit an SM,
+//   about 150 KB of an SM's slices in flight.  Each element is widened to
+//   float32 as the products read it;
+// * for the scores LPK = 4, 8 or 16 lanes share a key (each at most
+//   kDecChunks 16-byte chunks of its K row, the row padded so one load phase
+//   hits 8 bank groups) and meet by shuffles; for P.V each lane owns 4 (or
+//   8) output dims and takes each key's p by a shuffle.  Each warp keeps m,
+//   l and acc of every row; a masked key weighs exactly 0, so a warp or
+//   split that saw no valid key keeps m = -1e30, l = 0, acc = 0.  The loops
+//   are free of row and chunk branches (a chunk past the row reads zeros),
+//   so the rows' shuffle and exp chains interleave;
+// * merges its warps' states in shared memory, weights e^(m_w - M) once
+//   per row, and writes the result, or (kv_splits > 1) its state, which
+//   flash_dec_merge_kernel merges across the splits by the same rule.
+// ops.py chooses the splits from (B, K, the key count, the SM count): whole
+// multiples of 64 keys, aiming at 4 blocks an SM.
 
 #include <cstdint>
 #include <cuda.h>           // CUtensorMap and its enums; no libcuda link
@@ -848,6 +883,577 @@ cudaError_t launch_tc(const CUtensorMap& tq, const CUtensorMap& tk,
   return cudaGetLastError();
 }
 
+
+// ----------------------------------------------------------------------------
+// The decode kernel (every dtype, at most kDecMaxRows rows per kv head)
+// ----------------------------------------------------------------------------
+
+// ops.py mirrors kDecMaxRows and kDecGranule (DEC_MAX_ROWS,
+// DEC_KEY_GRANULE) to route calls and choose the splits;
+// tests/test_torch_flash_dec.py mirrors kDecWarps and dec_lanes_per_key to
+// emulate the order of work
+constexpr int kDecWarps = 4;
+constexpr int kDecThreads = kDecWarps * 32;
+constexpr int kDecStages = 3;             // slices in a warp's K/V ring
+constexpr int kDecMaxRows = 16;           // (query, head) rows of a block
+constexpr int kDecGranule = 64;           // a split is a multiple of this
+constexpr int kDecChunks = 4;             // K chunks a lane reads per key
+constexpr int kMergeThreads = 128;
+
+struct DecArgs {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  float* part;        // splits > 1: partial acc, m and l per split
+  int64_t s, t, h, kh, d;
+  int64_t q_offset;
+  int64_t n_keys;     // min(T, kv_valid_len, the last row's causal horizon)
+  int64_t splits;     // blocks along the keys per (b, kv head)
+  int64_t chunk;      // keys per split, a multiple of kDecGranule
+  int causal;
+  float scale;
+};
+
+// lanes that share one key's K row for the scores, each reading at most
+// kDecChunks of its 16-byte chunks: 4, 8 or 16, so a tile of
+// kDecWarps * 32 / LPK keys is 32, 16 or 8 keys (each divides kDecGranule)
+__host__ __device__ constexpr int dec_lanes_per_key(int row_bytes) {
+  return row_bytes <= 256 ? 4 : row_bytes <= 512 ? 8 : 16;
+}
+
+// bytes between two K rows in shared memory: the row padded so that the 8
+// lanes of one 16-byte load phase (two keys of 4 lanes, or 8 lanes of one
+// key, each lane on the next chunk) hit 8 distinct bank groups
+__host__ __device__ constexpr int dec_kstride(int row_bytes, int lpk) {
+  return row_bytes + ((16 * lpk - row_bytes) % 128 + 128) % 128;
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  // src-size 0 fills the 16 bytes with zeros and reads nothing
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(full ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// one 16-byte chunk (4 float32 or 8 16-bit elements) widened to float32
+__device__ __forceinline__ void widen16(const uint4& u, float* f, float) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+
+__device__ __forceinline__ void widen16(const uint4& u, float* f,
+                                        __nv_bfloat16) {
+  const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(e[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
+__device__ __forceinline__ void widen16(const uint4& u, float* f, __half) {
+  const __half2* e = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __half22float2(e[i]);
+    f[2 * i] = x.x;
+    f[2 * i + 1] = x.y;
+  }
+}
+
+// four neighbouring elements widened to float32
+__device__ __forceinline__ void widen4(const float* src, float* f) {
+  widen16(*reinterpret_cast<const uint4*>(src), f, 0.f);
+}
+
+__device__ __forceinline__ void widen4(const __nv_bfloat16* src, float* f) {
+  const uint2 u = *reinterpret_cast<const uint2*>(src);
+  const __nv_bfloat162* e = reinterpret_cast<const __nv_bfloat162*>(&u);
+  const float2 x = __bfloat1622float2(e[0]), y = __bfloat1622float2(e[1]);
+  f[0] = x.x;
+  f[1] = x.y;
+  f[2] = y.x;
+  f[3] = y.y;
+}
+
+__device__ __forceinline__ void widen4(const __half* src, float* f) {
+  const uint2 u = *reinterpret_cast<const uint2*>(src);
+  const __half2* e = reinterpret_cast<const __half2*>(&u);
+  const float2 x = __half22float2(e[0]), y = __half22float2(e[1]);
+  f[0] = x.x;
+  f[1] = x.y;
+  f[2] = y.x;
+  f[3] = y.y;
+}
+
+// max over the KW keys of a warp (the lanes of one key hold the same value)
+template <int LPK>
+__device__ __forceinline__ float keys_max(float x) {
+#pragma unroll
+  for (int o = 16; o >= LPK; o >>= 1) {
+    x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
+  }
+  return x;
+}
+
+// LPK lanes per key for the scores (dec_lanes_per_key), NC groups of 4
+// output dims per lane for P.V (ceil(D / 128)), RMAX >= the block's rows;
+// at RMAX <= 2 the block has exactly RMAX rows (no row is skipped, so the
+// rows' chains interleave), above it rows past S * g are skipped
+template <typename T, int LPK, int NC, int RMAX>
+__global__ void __launch_bounds__(kDecThreads)
+flash_decode_kernel(DecArgs a) {
+  constexpr int E = 16 / static_cast<int>(sizeof(T));   // elements a chunk
+  constexpr int KW = 32 / LPK;                          // keys a warp a tile
+  constexpr int TK = kDecWarps * KW;                    // keys a tile
+  constexpr bool kExact = RMAX <= 2;
+  constexpr bool kQInRegs = RMAX == 1;      // else q is read from smem
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  const int d = static_cast<int>(a.d);
+  const int row_bytes = d * static_cast<int>(sizeof(T));
+  const int chunks = row_bytes / 16;
+  const int kstride = dec_kstride(row_bytes, LPK);
+  const int slice_bytes = KW * (kstride + row_bytes);  // a warp's stage
+  const int64_t g = a.h / a.kh;
+  const int rows = kExact ? RMAX : static_cast<int>(a.s * g);
+  float* qs = reinterpret_cast<float*>(smem);           // rows x d
+  unsigned char* ring = smem + sizeof(float) * rows * d;
+
+  const int64_t split = blockIdx.x;
+  const int64_t kh = blockIdx.y;
+  const int64_t b = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int part = lane % LPK;                // chunk phase within the key
+  const int kk = lane / LPK;                  // this lane's key in a slice
+  const int64_t k_begin = split * a.chunk;
+  const int64_t k_end = min(k_begin + a.chunk, a.n_keys);
+  const int n_keys = k_end > k_begin ? static_cast<int>(k_end - k_begin) : 0;
+  // this warp's slices: keys [tile * TK + warp * KW, + KW) of each tile
+  // that starts before n_keys
+  const int first = warp * KW;
+  const int n_slices = n_keys > first ? (n_keys - first + TK - 1) / TK : 0;
+
+  // each warp stages its own slices in its own ring of kDecStages: lane
+  // copies the 16-byte chunks lane, lane + 32, ... of a slice's K and V
+  // rows (at most 4 each; keys past the split arrive as zeros and are never
+  // read from device memory)
+  const int64_t key_step = a.kh * d;          // elements from key t to t + 1
+  const T* kbase = static_cast<const T*>(a.k) +
+                   ((b * a.t + k_begin) * a.kh + kh) * d;
+  const int64_t v_minus_k =         // elements from a K chunk to its V
+      (reinterpret_cast<intptr_t>(a.v) - reinterpret_cast<intptr_t>(a.k)) /
+      static_cast<int64_t>(sizeof(T));
+  unsigned char* wring = ring + warp * kDecStages * slice_bytes;
+  int cp_key[4], cp_k[4], cp_v[4];
+  const T* cp_src[4];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const int c = lane + 32 * x;
+    const int jj = c / chunks;
+    const int cc = c % chunks;
+    cp_key[x] = c < KW * chunks ? first + jj : -1;  // -1: no chunk
+    cp_k[x] = jj * kstride + cc * 16;
+    cp_v[x] = KW * kstride + jj * row_bytes + cc * 16;
+    cp_src[x] = kbase + (first + jj) * key_step + cc * E;
+  }
+  const int64_t tile_step = TK * key_step;
+  auto issue = [&](int sl) {
+    if (sl < n_slices) {
+      const uint32_t st = smem_u32(wring + (sl % kDecStages) * slice_bytes);
+      const int64_t off = sl * tile_step;
+#pragma unroll
+      for (int x = 0; x < 4; ++x) {
+        if (cp_key[x] < 0) continue;
+        const bool ok = sl * TK + cp_key[x] < n_keys;
+        const T* src = ok ? cp_src[x] + off : kbase;
+        cp_async16(st + cp_k[x], src, ok);
+        cp_async16(st + cp_v[x], src + v_minus_k, ok);
+      }
+    }
+    cp_async_commit();                  // an empty group keeps the count
+  };
+  // q's rows (at most 16 x 256 elements: at most 4 chunks of 8 a thread)
+  // loaded while the first slices are asked for, then widened into smem
+  const T* q = static_cast<const T*>(a.q);
+  const int gi = static_cast<int>(g);
+  const int q_chunks = rows * (d / 8);
+  uint4 qraw[4][sizeof(T) == 4 ? 2 : 1];
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const int c = threadIdx.x + kDecThreads * x;
+    if (c < q_chunks) {
+      const int r = c / (d / 8);
+      const int dd = (c % (d / 8)) * 8;
+      const uint4* src = reinterpret_cast<const uint4*>(
+          q + ((b * a.s + r / gi) * a.h + kh * g + r % gi) * d + dd);
+#pragma unroll
+      for (int y = 0; y < (sizeof(T) == 4 ? 2 : 1); ++y) qraw[x][y] = src[y];
+    }
+  }
+#pragma unroll
+  for (int st = 0; st < kDecStages - 1; ++st) issue(st);
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    const int c = threadIdx.x + kDecThreads * x;
+    if (c < q_chunks) {
+      float* dst = qs + (c / (d / 8)) * d + (c % (d / 8)) * 8;
+#pragma unroll
+      for (int y = 0; y < (sizeof(T) == 4 ? 2 : 1); ++y) {
+        widen16(qraw[x][y], dst + y * E, T());
+      }
+    }
+  }
+
+  // per row: the last key of the split it may see, counted from k_begin
+  // (-1: none; the causal horizon q_offset + i of its query i)
+  int last[RMAX];
+  float m[RMAX], l[RMAX], acc[RMAX][NC][4];
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r) {
+    int64_t hz = n_keys - 1;
+    if (a.causal) hz = min(hz, a.q_offset + r / gi - k_begin);
+    last[r] = static_cast<int>(hz < -1 ? -1 : hz);
+    m[r] = kNegInf;
+    l[r] = 0.f;
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][c][e] = 0.f;
+    }
+  }
+  __syncthreads();                      // q staged
+  // one row: this lane's chunks of q in registers (zeros past the row)
+  float qreg[kQInRegs ? kDecChunks : 1][E];
+  if constexpr (kQInRegs) {
+#pragma unroll
+    for (int i = 0; i < kDecChunks; ++i) {
+      const int c = part + i * LPK;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        qreg[i][e] = c < chunks ? qs[c * E + e] : 0.f;
+      }
+    }
+  }
+
+  for (int sl = 0; sl < n_slices; ++sl) {
+    cp_async_wait<kDecStages - 2>();    // this lane's copies of the slice
+    __syncwarp();                       // every lane's, and the last read
+    issue(sl + kDecStages - 1);
+    const unsigned char* st = wring + (sl % kDecStages) * slice_bytes;
+    const int jt = sl * TK + first + kk;  // this lane's key, from k_begin
+
+    // scores: the LPK lanes of a key take every LPK-th chunk of its row
+    // (at most kDecChunks; a chunk past the row reads as zeros), summed in
+    // two partial sums, the lanes' sums then met by shuffles
+    const T* krow = reinterpret_cast<const T*>(st + kk * kstride);
+    float s[RMAX][2];
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) s[r][0] = s[r][1] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kDecChunks; ++i) {
+      const int c = part + i * LPK;
+      const bool in = c < chunks;
+      const uint4 raw = in ? *reinterpret_cast<const uint4*>(krow + c * E)
+                           : make_uint4(0u, 0u, 0u, 0u);
+      float kf[E];
+      widen16(raw, kf, T());
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r) {
+        if (r >= rows) break;
+#pragma unroll
+        for (int e = 0; e < E; e += 4) {
+          float qq[4];
+          if constexpr (kQInRegs) {
+#pragma unroll
+            for (int u = 0; u < 4; ++u) qq[u] = qreg[i][e + u];
+          } else {
+            const float4 q4 =
+                in ? *reinterpret_cast<const float4*>(qs + r * d + c * E + e)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+            qq[0] = q4.x;
+            qq[1] = q4.y;
+            qq[2] = q4.z;
+            qq[3] = q4.w;
+          }
+          float& acc_s = s[r][(i + e / 4) % 2];
+#pragma unroll
+          for (int u = 0; u < 4; ++u) acc_s = fmaf(qq[u], kf[e + u], acc_s);
+        }
+      }
+    }
+
+    // this warp's online softmax over its KW keys of the slice; a masked
+    // key weighs exactly 0, so a state that saw no valid key keeps
+    // m = -1e30, l = 0 and acc = 0
+    float p[RMAX];
+#pragma unroll
+    for (int r = 0; r < RMAX; ++r) {
+      p[r] = 0.f;
+      if (r >= rows) break;
+      float sr = s[r][0] + s[r][1];
+#pragma unroll
+      for (int o = LPK / 2; o > 0; o >>= 1) {
+        sr += __shfl_xor_sync(kFull, sr, o);
+      }
+      const bool ok = jt <= last[r];
+      sr = ok ? sr * a.scale : kNegInf;
+      const float mn = fmaxf(m[r], keys_max<LPK>(sr));
+      p[r] = ok ? expf(sr - mn) : 0.f;
+      const float alpha = expf(m[r] - mn);
+      l[r] = fmaf(l[r], alpha, part == 0 ? p[r] : 0.f);   // once per key
+      m[r] = mn;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][c][e] *= alpha;
+      }
+    }
+
+    // P.V: lane owns output dims 4 (lane + 32 c) .. + 3 (zeros past D) and
+    // takes p of each key of its slice from that key's first lane
+    const T* vt = reinterpret_cast<const T*>(st + KW * kstride);
+#pragma unroll
+    for (int jj = 0; jj < KW; ++jj) {
+      const T* vr = vt + jj * d;
+      float vv[NC][4];
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int dd = (lane + 32 * c) * 4;
+        widen4(vr + (dd < d ? dd : 0), vv[c]);
+        if (dd >= d) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) vv[c][e] = 0.f;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RMAX; ++r) {
+        if (r >= rows) break;
+        const float pj = __shfl_sync(kFull, p[r], jj * LPK);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            acc[r][c][e] = fmaf(pj, vv[c][e], acc[r][c][e]);
+          }
+        }
+      }
+    }
+  }
+
+  // the warps' states into the (now idle) ring; each row's weights
+  // e^(m_w - M), M = max_w m_w, and its sum of l once; then the merged
+  // state per element
+  cp_async_wait<0>();
+  __syncthreads();
+  float* accs = reinterpret_cast<float*>(ring);         // [warp][row][d]
+  float* ms = accs + kDecWarps * rows * d;              // [warp][row]
+  float* ls = ms + kDecWarps * rows;                    // [warp][row]
+  float* mx = ls + kDecWarps * rows;                    // [row]
+  float* lt = mx + rows;                                // [row]
+#pragma unroll
+  for (int r = 0; r < RMAX; ++r) {
+    if (r >= rows) break;
+    const float lsum = warp_sum(l[r]);
+    if (lane == 0) {
+      ms[warp * rows + r] = m[r];
+      ls[warp * rows + r] = lsum;
+    }
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const int dd = (lane + 32 * c) * 4;
+      if (dd < d) {
+        *reinterpret_cast<float4*>(accs + (warp * rows + r) * d + dd) =
+            make_float4(acc[r][c][0], acc[r][c][1], acc[r][c][2],
+                        acc[r][c][3]);
+      }
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < rows) {
+    const int r = threadIdx.x;
+    float big = kNegInf;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) big = fmaxf(big, ms[w * rows + r]);
+    float lsum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      const float wt = expf(ms[w * rows + r] - big);
+      ms[w * rows + r] = wt;            // m_w -> its weight
+      lsum = fmaf(ls[w * rows + r], wt, lsum);
+    }
+    mx[r] = big;
+    lt[r] = lsum;
+  }
+  __syncthreads();
+
+  T* o = static_cast<T*>(a.o);
+  const int64_t parts = gridDim.z * a.kh * a.splits * rows;
+  for (int e = threadIdx.x; e < rows * d; e += kDecThreads) {
+    const int r = e / d;
+    const int dd = e % d;
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) {
+      sum = fmaf(accs[(w * rows + r) * d + dd], ms[w * rows + r], sum);
+    }
+    if (a.splits > 1) {                 // the block's state, merged later
+      const int64_t p = ((b * a.kh + kh) * a.splits + split) * rows + r;
+      a.part[p * d + dd] = sum;
+      if (dd == 0) {
+        a.part[parts * d + p] = mx[r];
+        a.part[parts * d + parts + p] = lt[r];
+      }
+    } else {
+      const int64_t head = kh * g + r % g;
+      store(o + ((b * a.s + r / g) * a.h + head) * d + dd,
+            sum / fmaxf(lt[r], 1e-30f));
+    }
+  }
+}
+
+// kv_splits > 1: one block per (b, kv head, row) merges the splits' states
+// by the combine kernel's rule, o = sum_s acc_s e^(m_s - M) /
+// max(sum_s l_s e^(m_s - M), 1e-30) with M the largest m_s, each weight
+// computed once into shared memory; a split that saw no valid key of the
+// row has m_s = -1e30 and weighs 0
+template <typename T>
+__global__ void __launch_bounds__(kMergeThreads)
+flash_dec_merge_kernel(DecArgs a) {
+  extern __shared__ float wts[];                        // [split]
+  __shared__ float red[kMergeThreads / 32];
+  __shared__ float total;
+  const int64_t g = a.h / a.kh;
+  const int64_t rows = a.s * g;
+  const int64_t r = blockIdx.x % rows;
+  const int64_t bk = blockIdx.x / rows;                 // b * K + kv head
+  const int64_t parts = gridDim.x * a.splits;           // B * K * S*g * splits
+  const float* ms = a.part + parts * a.d;
+  const float* ls = ms + parts;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int n = static_cast<int>(a.splits);
+  auto idx = [&](int sp) { return (bk * a.splits + sp) * rows + r; };
+
+  float mx = kNegInf;
+  for (int sp = threadIdx.x; sp < n; sp += kMergeThreads) {
+    mx = fmaxf(mx, ms[idx(sp)]);
+  }
+  mx = warp_max(mx);
+  if (lane == 0) red[warp] = mx;
+  __syncthreads();
+  mx = red[0];
+#pragma unroll
+  for (int w = 1; w < kMergeThreads / 32; ++w) mx = fmaxf(mx, red[w]);
+  __syncthreads();                      // red is reused below
+  float lsum = 0.f;
+  for (int sp = threadIdx.x; sp < n; sp += kMergeThreads) {
+    const float w = expf(ms[idx(sp)] - mx);
+    wts[sp] = w;
+    lsum = fmaf(ls[idx(sp)], w, lsum);
+  }
+  lsum = warp_sum(lsum);
+  if (lane == 0) red[warp] = lsum;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kMergeThreads / 32; ++w) sum += red[w];
+    total = fmaxf(sum, 1e-30f);
+  }
+  __syncthreads();
+  const int64_t b = bk / a.kh;
+  const int64_t head = (bk % a.kh) * g + r % g;
+  T* o = static_cast<T*>(a.o) + ((b * a.s + r / g) * a.h + head) * a.d;
+  for (int dd = threadIdx.x; dd < a.d; dd += kMergeThreads) {
+    float sum = 0.f;
+#pragma unroll 4
+    for (int sp = 0; sp < n; ++sp) {
+      sum = fmaf(a.part[idx(sp) * a.d + dd], wts[sp], sum);
+    }
+    store(o + dd, sum / total);
+  }
+}
+
+template <typename T, int LPK, int NC, int RMAX>
+cudaError_t launch_dec(const DecArgs& a, int64_t batch, cudaStream_t stream) {
+  constexpr int TK = kDecWarps * 32 / LPK;
+  const int d = static_cast<int>(a.d);
+  const int rows = static_cast<int>(a.s * (a.h / a.kh));
+  const int row_bytes = d * static_cast<int>(sizeof(T));
+  const size_t ring = static_cast<size_t>(kDecStages) * TK *
+                      (dec_kstride(row_bytes, LPK) + row_bytes);
+  const size_t merge =
+      sizeof(float) * (kDecWarps * static_cast<size_t>(rows) * (d + 2) +
+                       2 * static_cast<size_t>(rows));
+  const size_t smem = sizeof(float) * static_cast<size_t>(rows) * d +
+                      (ring > merge ? ring : merge);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_decode_kernel<T, LPK, NC, RMAX>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(static_cast<unsigned>(a.splits),
+                  static_cast<unsigned>(a.kh), static_cast<unsigned>(batch));
+  flash_decode_kernel<T, LPK, NC, RMAX>
+      <<<grid, kDecThreads, smem, stream>>>(a);
+  if (a.splits > 1) {
+    const size_t wts = sizeof(float) * static_cast<size_t>(a.splits);
+    if (wts > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          flash_dec_merge_kernel<T>,
+          cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(wts));
+      if (err != cudaSuccess) return err;
+    }
+    flash_dec_merge_kernel<T>
+        <<<static_cast<unsigned>(batch * a.kh * rows), kMergeThreads, wts,
+           stream>>>(a);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, int LPK, int NC>
+cudaError_t dec_rows(const DecArgs& a, int64_t batch, cudaStream_t stream) {
+  const int64_t rows = a.s * (a.h / a.kh);
+  if (rows == 1) return launch_dec<T, LPK, NC, 1>(a, batch, stream);
+  if (rows == 2) return launch_dec<T, LPK, NC, 2>(a, batch, stream);
+  if (rows <= 4) return launch_dec<T, LPK, NC, 4>(a, batch, stream);
+  if (rows <= 8) return launch_dec<T, LPK, NC, 8>(a, batch, stream);
+  return launch_dec<T, LPK, NC, kDecMaxRows>(a, batch, stream);
+}
+
+// the (LPK, NC) pairs each element size meets for D a multiple of 8 up to
+// 256: 16-bit (4, 1) up to D 128, (8, 2) above; float32 (4, 1) up to 64,
+// (8, 1) up to 128, (16, 2) above
+template <typename T>
+cudaError_t dec_dispatch(const DecArgs& a, int64_t batch,
+                         cudaStream_t stream) {
+  const int lpk = dec_lanes_per_key(static_cast<int>(a.d * sizeof(T)));
+  if (lpk == 4) return dec_rows<T, 4, 1>(a, batch, stream);
+  if constexpr (sizeof(T) == 2) {
+    return dec_rows<T, 8, 2>(a, batch, stream);
+  } else {
+    if (lpk == 8) return dec_rows<T, 8, 1>(a, batch, stream);
+    return dec_rows<T, 16, 2>(a, batch, stream);
+  }
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16, 2 float16; kv_valid_len -1 for none;
@@ -944,6 +1550,67 @@ extern "C" int rt_flash_attention_tc(const void* q, const void* k,
     case 6: err = launch_tc<6>(tq, tk, tv, a, b, st); break;
     case 7: err = launch_tc<7>(tq, tk, tv, a, b, st); break;
     default: err = launch_tc<8>(tq, tk, tv, a, b, st); break;
+  }
+  return static_cast<int>(err);
+}
+
+// At most 16 (query, head) rows per kv head (S * H / K <= 16), T below
+// 2^31 (keys within a split are counted in 32 bits); dtype: 0
+// float32, 1 bfloat16, 2 float16; kv_valid_len -1 for none; kv_splits
+// blocks along the keys of each (b, kv head), `chunk` keys each (a
+// multiple of 64, kv_splits * chunk covering the keys), and for
+// kv_splits > 1 a float32 scratch of B * K * kv_splits * S * (H / K) *
+// (D + 2) elements
+extern "C" int rt_flash_attention_dec(const void* q, const void* k,
+                                      const void* v, void* o, int64_t b,
+                                      int64_t s, int64_t t, int64_t h,
+                                      int64_t kh, int64_t d, int64_t causal,
+                                      int64_t q_offset, int64_t kv_valid_len,
+                                      int64_t dtype, int64_t kv_splits,
+                                      int64_t chunk, void* scratch,
+                                      void* stream) {
+  if (d <= 0 || d > 256 || d % 8 || kh <= 0 || h % kh || s < 0 ||
+      s * (h / kh) > kDecMaxRows || q_offset < 0 || kv_valid_len == 0 ||
+      kv_valid_len < -1 || kv_splits < 1 || kv_splits > 0x7fffffff ||
+      chunk <= 0 || chunk % kDecGranule || t > 0x7fffffff || b > 65535 ||
+      kh > 65535 ||
+      (kv_splits > 1 && scratch == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (b == 0 || s == 0 || t == 0 || h == 0) {
+    return static_cast<int>(cudaSuccess);
+  }
+  DecArgs a;
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.o = o;
+  a.part = static_cast<float*>(scratch);
+  a.s = s;
+  a.t = t;
+  a.h = h;
+  a.kh = kh;
+  a.d = d;
+  a.q_offset = q_offset;
+  a.n_keys = kv_valid_len < 0 || kv_valid_len > t ? t : kv_valid_len;
+  if (causal && q_offset + s < a.n_keys) a.n_keys = q_offset + s;
+  if (kv_splits * chunk < a.n_keys) {   // a key no split covers
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  a.splits = kv_splits;
+  a.chunk = chunk;
+  a.causal = causal != 0;
+  a.scale = static_cast<float>(1.0 / sqrt(static_cast<double>(d)));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (dtype == 0) {
+    err = dec_dispatch<float>(a, b, st);
+  } else if (dtype == 1) {
+    err = dec_dispatch<__nv_bfloat16>(a, b, st);
+  } else if (dtype == 2) {
+    err = dec_dispatch<__half>(a, b, st);
+  } else {
+    err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);
 }

@@ -51,6 +51,9 @@ SIGNATURES = {
     "rt_flash_attention_fwd": (_P, _P, _P, _P) + (_I64,) * 11 + (_P, _P),
     # q, k, v, o, B, S, T, H, K, D, causal, q_offset, kv_valid_len, stream
     "rt_flash_attention_tc": (_P, _P, _P, _P) + (_I64,) * 9 + (_P,),
+    # q, k, v, o, B, S, T, H, K, D, causal, q_offset, kv_valid_len, dtype,
+    # kv_splits, chunk, scratch, stream
+    "rt_flash_attention_dec": (_P, _P, _P, _P) + (_I64,) * 12 + (_P, _P),
     # r, k, v, w, u, s0, y, s_out, B, S, H, hd, tile, stream (rt_wkv_tc:
     # no tile)
     "rt_wkv_fwd": (_P,) * 8 + (_I64,) * 5 + (_P,),

@@ -1,7 +1,7 @@
 """Grouped-query flash attention (forward).
 
 Counterpart of ``repro/kernels/flash_attention/ops.py``. On a CUDA tensor
-:func:`flash_attention` launches one of the two Hopper kernels of
+:func:`flash_attention` launches one of the three Hopper kernels of
 ``repro_torch/csrc/flash_attention.cu``, chosen by :func:`variant` from the
 call's dtype and shape alone; on a CPU tensor it runs
 :func:`flash_attention_plain`, the function's definition in torch ops. All
@@ -17,8 +17,14 @@ compute what the reference's ``_flash_kernel`` computes:
 
 What each variant does with P:
 
-* ``"scalar"`` (every float32 and float16 call, decode steps, short
-  calls): every element upcast to float32, P never rounded;
+* ``"dec"`` (any of the three dtypes with at most ``DEC_MAX_ROWS``
+  (query, head) rows per kv head: a decode step, short calls): every
+  element upcast to float32 as it is read, P never rounded; the keys split
+  across blocks (:func:`dec_splits`) and across the warps of a block, each
+  part's online softmax state merged by ``e^(m_part - M)``;
+* ``"scalar"`` (the rest: float32 and float16 calls of more than 16 rows
+  per kv head, bfloat16 ones of 17 to 63 rows or with a D the tc kernel
+  does not take): every element upcast to float32, P never rounded;
 * ``"tc"`` (bfloat16 prefill, on the tensor cores): Q, K and V exact (they
   are bfloat16 already), P carried as ``P_hi + P_lo``, two bfloat16 terms
   (``P_hi = bf16(P)``, ``P_lo = bf16(P - P_hi)``), relative error at most
@@ -46,6 +52,11 @@ ROWS_PER_BLOCK = 32      # (query, head) rows of one block of the scalar
 KEY_TILE = 32            # kernel, and the keys it stages per tile
 TC_MAX_HEAD_DIM = 128    # the tc kernel: D % 16 == 0 up to this,
 TC_MIN_ROWS = 64         # and at least one warpgroup of (query, head) rows
+DEC_MAX_ROWS = 16        # the dec kernel: every (query, head) row of a kv
+                         # group in one block
+DEC_KEY_GRANULE = 64     # its splits are whole multiples of this many keys
+                         # (each of its tile sizes divides it)
+DEC_BLOCKS_PER_SM = 4    # its split count aims at this many blocks an SM
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
@@ -114,11 +125,15 @@ def variant(dtype: torch.dtype, s: int, g: int, d: int) -> str:
     """Which kernel a CUDA call runs, from its dtype, query length ``s``,
     group size ``g = H / K`` and head width ``d``: ``"tc"`` (tensor cores)
     for bfloat16 with ``d % 16 == 0``, ``d <= 128`` and ``s * g >= 64`` (at
-    least one warpgroup of rows), else ``"scalar"`` (every float32 and
-    float16 call, a decode step, short calls)."""
+    least one warpgroup of rows); ``"dec"`` for any of the three dtypes with
+    ``d`` a multiple of 8 up to 256 and ``s * g <= DEC_MAX_ROWS`` (a decode
+    step: the rows of a group fit one block); else ``"scalar"``."""
     if (dtype == torch.bfloat16 and d % 16 == 0 and d <= TC_MAX_HEAD_DIM
             and s * g >= TC_MIN_ROWS):
         return "tc"
+    if (dtype in _DTYPE_CODES and d % 8 == 0 and d <= MAX_HEAD_DIM
+            and s * g <= DEC_MAX_ROWS):
+        return "dec"
     return "scalar"
 
 
@@ -133,6 +148,20 @@ def kv_splits(b: int, s: int, h: int, kh: int, kv_len: int,
         return 1
     return max(1, min(-(-2 * n_sms // blocks),
                       -(-kv_len // (4 * KEY_TILE))))
+
+
+def dec_splits(b: int, kh: int, kv_len: int, n_sms: int) -> tuple:
+    """``(splits, chunk)`` of the dec kernel: each of the ``b * kh``
+    (sequence, kv head) pairs runs ``splits`` blocks along its ``kv_len``
+    keys, block ``i`` keys ``[i * chunk, min((i + 1) * chunk, kv_len))``.
+    ``chunk`` is a whole number of ``DEC_KEY_GRANULE`` keys, so every split
+    boundary falls on a tile of the kernel; the count aims at
+    ``DEC_BLOCKS_PER_SM`` blocks on each of the card's ``n_sms`` SMs, at
+    most one split per granule, and no split is empty."""
+    granules = -(-kv_len // DEC_KEY_GRANULE)
+    want = -(-DEC_BLOCKS_PER_SM * n_sms // (b * kh))
+    chunk = -(-granules // min(want, granules)) * DEC_KEY_GRANULE
+    return -(-kv_len // chunk), chunk
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -175,15 +204,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out
     kv_len = tk if kv_valid_len is None else min(kv_valid_len, tk)
     n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    splits = kv_splits(b, s, h, kh, kv_len, n_sms)
+    if var == "dec":
+        if causal:              # no key past the last row's horizon
+            kv_len = min(kv_len, q_offset + s)
+        splits, chunk = dec_splits(b, kh, kv_len, n_sms)
+        entry, split_args = "rt_flash_attention_dec", (splits, chunk)
+    else:
+        splits = kv_splits(b, s, h, kh, kv_len, n_sms)
+        entry, split_args = "rt_flash_attention_fwd", (splits,)
     scratch = None
     if splits > 1:          # per split: acc (D), row max and row sum per row
         scratch = torch.empty(b * kh * splits * s * (h // kh) * (d + 2),
                               dtype=torch.float32, device=q.device)
-    _build.launch("flash_attention_fwd", "rt_flash_attention_fwd", q.device,
-                  q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                  b, s, tk, h, kh, d, int(causal), q_offset, valid,
-                  _DTYPE_CODES[q.dtype], splits,
+    _build.launch("flash_attention_fwd", entry, q.device, q.data_ptr(),
+                  k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s, tk, h,
+                  kh, d, int(causal), q_offset, valid,
+                  _DTYPE_CODES[q.dtype], *split_args,
                   None if scratch is None else scratch.data_ptr(),
                   variant=var)
     return out

@@ -132,7 +132,9 @@ FLASH_CASES = [
     (1, 5, 97, 5, 5, 80, True, 60, 65, torch.float32),
     (1, 40, 40, 2, 1, 256, True, 0, 23, torch.float32),
     (3, 16, 16, 4, 2, 16, True, 0, None, torch.float32),
-    # few blocks: the keys split across blocks and merge
+    # few blocks: the keys split across blocks and merge (scalar: 17 rows
+    # in one block, 5 splits; the rest of these run "dec")
+    (1, 17, 600, 1, 1, 64, True, 583, None, torch.bfloat16),
     (4, 1, 2080, 16, 8, 128, True, 2079, 2080, torch.bfloat16),
     (2, 3, 1000, 4, 2, 64, True, 990, 993, torch.bfloat16),
     (1, 2, 700, 2, 2, 80, False, 0, 650, torch.float32),
@@ -177,7 +179,7 @@ def test_flash_kernel_matches_plain(dev, case):
         float((got - want).abs().max())
 
 
-def test_flash_float32_and_decode_calls_take_the_scalar_kernel(dev):
+def test_flash_float32_prefill_takes_the_scalar_kernel_and_decode_dec(dev):
     g = torch.Generator(device=dev).manual_seed(9)
     q32 = torch.randn((2, 128, 8, 128), generator=g, device=dev)
     k32 = torch.randn((2, 128, 4, 128), generator=g, device=dev)
@@ -186,8 +188,61 @@ def test_flash_float32_and_decode_calls_take_the_scalar_kernel(dev):
     k16 = k32.to(torch.bfloat16)
     FA.flash_attention(q1, k16, k16, q_offset=127)          # decode step
     torch.cuda.synchronize()
-    assert _build.launches["flash_attention_fwd.scalar"] == 2
+    assert _build.launches["flash_attention_fwd.scalar"] == 1
+    assert _build.launches["flash_attention_fwd.dec"] == 1
     assert _build.launches["flash_attention_fwd.tc"] == 0
+
+
+# (B, S, T, H, K, D, causal, q_offset, kv_valid_len) through the dec kernel,
+# each in all three dtypes: kv_valid_len = 1 (every other key, warp and
+# split of the row sees no valid key), a split all masked for row 0 (query
+# 63 against keys 64 to 78), kv_len one key past two tiles and a split,
+# qwen3-0.6b's decode shape, g = 1, 2, 3, 5, 8, 12, S * g from 1 to 16 with
+# S up to 16 under causal masks with q_offset > 0, D = 8, 32, 64, 80, 96,
+# 112, 128 and 256 (each lanes-per-key and output-group case of each
+# element size), non-causal with kv_valid_len < T
+FLASH_DEC_CASES = [
+    (2, 1, 300, 4, 2, 64, True, 299, 1),
+    (1, 16, 200, 1, 1, 64, True, 63, None),
+    (1, 1, 129, 2, 2, 128, True, 128, 129),
+    (4, 1, 2080, 16, 8, 128, True, 2079, 2080),
+    (2, 1, 2080, 8, 8, 112, True, 2079, 2080),
+    (1, 1, 400, 12, 1, 128, True, 399, 400),
+    (1, 2, 300, 16, 2, 64, True, 250, 252),
+    (2, 16, 90, 2, 2, 32, True, 70, 86),
+    (1, 8, 333, 4, 2, 256, True, 300, 308),
+    (3, 1, 2080, 4, 4, 8, True, 2079, 2080),
+    (2, 5, 150, 3, 1, 80, False, 0, 140),
+    (1, 1, 1000, 5, 1, 128, True, 999, 1000),
+    (1, 3, 65, 6, 2, 96, True, 62, None),
+    (1, 4, 2000, 4, 4, 256, True, 1500, 1504),
+]
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16], ids=str)
+@pytest.mark.parametrize("case", FLASH_DEC_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_flash_dec_kernel_matches_plain(dev, case, dt):
+    """The dec kernel against the plain version: 1e-5 absolute, plus one
+    step of a 16-bit output (2^-7 bf16, 2^-10 float16) where the two
+    float32 results round to neighbours; one launch, on "dec" alone."""
+    b, s, t, h, kh, d, causal, off, valid = case
+    assert FA.variant(dt, s, h // kh, d) == "dec"
+    g = torch.Generator(device=dev).manual_seed(sum(case[:6]))
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
+               for shape in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d)))
+    kw = dict(causal=causal, q_offset=off, kv_valid_len=valid)
+    got = FA.flash_attention(q, k, v, **kw)
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == q.shape
+    assert {v_: _build.launches[f"flash_attention_fwd.{v_}"]
+            for v_ in ("tc", "scalar", "dec")} == dict(tc=0, scalar=0, dec=1)
+    step = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}.get(dt, 0.)
+    got, want = got.float(), want.float()
+    assert bool(((got - want).abs() <= want.abs() * step + 1e-5).all()), \
+        float((got - want).abs().max())
 
 
 def test_flash_kernel_refuses_bad_head_dim(dev):
@@ -202,32 +257,33 @@ def test_flash_kernel_refuses_head_dim_above_its_limit(dev):
         FA.flash_attention(q, q, q)
 
 
-# (B, S, T, H, K, D, q_offset, kv_valid_len): a prefill, a decode step
-# against a longer cache, and a grid under one wave (the keys split)
+# (B, S, T, H, K, D, q_offset, kv_valid_len, variant): a prefill (scalar),
+# a decode step against a longer cache and a short call (dec)
 FLASH_F16_CASES = [
-    (2, 77, 77, 4, 2, 128, 0, None),
-    (2, 1, 300, 8, 2, 64, 299, 300),
-    (1, 3, 700, 2, 2, 80, 697, 700),
+    (2, 77, 77, 4, 2, 128, 0, None, "scalar"),
+    (2, 1, 300, 8, 2, 64, 299, 300, "dec"),
+    (1, 3, 700, 2, 2, 80, 697, 700, "dec"),
 ]
 
 
 @pytest.mark.parametrize("case", FLASH_F16_CASES,
                          ids=lambda c: "-".join(map(str, c)))
-def test_flash_float16_runs_the_scalar_kernel(dev, case):
-    """float16 runs the scalar kernel (the tc kernel is bf16 only), held
-    like bf16 to the plain version: 1e-5, plus one float16 step (2^-10
-    relative) where the two float32 results round to neighbours."""
-    b, s, t, h, kh, d, off, valid = case
+def test_flash_float16_runs_the_scalar_and_dec_kernels(dev, case):
+    """float16 runs the scalar or the dec kernel (the tc kernel is bf16
+    only), held like bf16 to the plain version: 1e-5, plus one float16
+    step (2^-10 relative) where the two float32 results round to
+    neighbours."""
+    b, s, t, h, kh, d, off, valid, var = case
     g = torch.Generator(device=dev).manual_seed(sum(case[:6]))
     q, k, v = (torch.randn(shape, generator=g, device=dev).half()
                for shape in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d)))
-    assert FA.variant(torch.float16, s, h // kh, d) == "scalar"
+    assert FA.variant(torch.float16, s, h // kh, d) == var
     kw = dict(q_offset=off, kv_valid_len=valid)
     got = FA.flash_attention(q, k, v, **kw)
     want = FA.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
     assert got.dtype == torch.float16 and got.shape == q.shape
-    assert _build.launches["flash_attention_fwd.scalar"] == 1
+    assert _build.launches[f"flash_attention_fwd.{var}"] == 1
     assert _build.launches["flash_attention_fwd.tc"] == 0
     got, want = got.float(), want.float()
     tol = want.abs() * 2.0 ** -10 + 1e-5

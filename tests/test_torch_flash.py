@@ -8,10 +8,11 @@ products in different orders (the Pallas kernel tile by tile with an
 online softmax, the others over the whole row), on values of order 1.
 
 Then the CUDA side's decisions that the CPU can check: which kernel a call
-runs (``ops.variant``), and why the tensor-core kernel carries P as two
-bf16 terms: its arithmetic, emulated in torch, stays within the card
-test's tolerance against the plain version with two terms and leaves it
-with one.
+runs (``ops.variant``; the dec kernel's split formula and order of work
+are in ``test_torch_flash_dec.py``), and why the tensor-core kernel
+carries P as two bf16 terms: its arithmetic, emulated in torch, stays
+within the card test's tolerance against the plain version with two terms
+and leaves it with one.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -176,14 +177,14 @@ def test_kv_splits_fill_a_wave_of_the_card(shape, splits):
     (torch.bfloat16, 32, 2, 64, "tc"),           # S * g = 64: one warpgroup
     (torch.bfloat16, 63, 1, 64, "scalar"),       # S * g = 63
     (torch.bfloat16, 21, 3, 64, "scalar"),
-    (torch.bfloat16, 1, 2, 128, "scalar"),       # a decode step
+    (torch.bfloat16, 1, 2, 128, "dec"),          # a decode step
     (torch.bfloat16, 1, 64, 128, "tc"),          # one row, 64 heads a group
     (torch.bfloat16, 512, 1, 136, "scalar"),     # wider than 128
     (torch.bfloat16, 512, 1, 256, "scalar"),
     (torch.bfloat16, 512, 1, 72, "scalar"),      # not a multiple of 16
-    (torch.float32, 2048, 2, 128, "scalar"),     # every float32 call
+    (torch.float32, 2048, 2, 128, "scalar"),     # a float32 prefill
     (torch.float32, 512, 1, 64, "scalar"),
-    (torch.float32, 1, 2, 112, "scalar"),
+    (torch.float32, 1, 2, 112, "dec"),           # float32 decode step
 ])
 def test_variant_is_a_rule_of_dtype_and_shape(dtype, s, g, d, want):
     assert FA.variant(dtype, s, g, d) == want
