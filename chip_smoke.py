@@ -26,7 +26,9 @@ Phases (any failure raises and ends the run with a nonzero exit):
    the kernel, the plain version and, where one exists, the PyTorch
    library call computing the same function, beside the bound from bytes
    and operations, and the per-call time with launch overhead (CUDA
-   events);
+   events); pack also at every alignment of its two columns (odd N, a
+   view at an odd word offset, N = 1, 2, 3, values at 2^31 - 1), and timed
+   in turns with ``torch.add`` at the main path's N and at N - 1;
 5. a small input: the LUBM(1) drain loop on the card and on the CPU must
    give byte-identical traces, windows and layouts;
 6. LM serving, the port's second path: qwen3-0.6b at full width and depth
@@ -56,7 +58,7 @@ Phases (any failure raises and ends the run with a nonzero exit):
    greedy ``lm.decode_step``s. Launch counts are reset just before and read
    just after; the WKV kernel must launch once per layer in the prefill,
    all on its tensor-core variant ("tc"), and in every decode step, all on
-   its recurrence ("rec"). Then: wall times, tokens/s, peak and resident
+   its decode variant ("dec"). Then: wall times, tokens/s, peak and resident
    memory, the idle share over a decode step and a prefill and the WKV
    kernel's share of the prefill's device time (``torch.profiler``), and
    checks (e) prefill(S) plus one decode step against prefill(S + 1) in
@@ -65,12 +67,16 @@ Phases (any failure raises and ends the run with a nonzero exit):
    bf16-vs-float32 forward are printed beside it), (d) the reduced config in
    float32 on the card against the CPU;
 9. the WKV kernel against its plain version at edge cases, each through
-   the variant it must take, and a 2048-step call with w within 1e-6 of 1
+   the variant it must take (s0 never written; a misaligned s0 refused by
+   "dec" before any launch), and a 2048-step call with w within 1e-6 of 1
    through "tc" against a float64 recurrence; then timed as in phase 4:
    "tc" at the prefill shape of phase 8 beside its bound (bytes over 3.35
    TB/s, its three TF32 products over 495 TFLOP/s) and the "rec" kernel at
    the same shape beside the same bytes bound (its operations over 67
-   TFLOP/s float32), and "rec" at the decode shape;
+   TFLOP/s float32); "dec" at the decode shape over 32 input sets in turn
+   (L2-cold, as a decode step finds each layer's state) beside its bytes
+   bound, and in turns dec and "rec" (through ``ops._run``), each warm
+   and L2-cold;
 10. zamba2-7b serving, the port's fourth path: 81 Mamba2 layers at full
    width with the shared attention + MLP block before every sixth
    (random weights from a seeded generator with ``mamba2_init``'s
@@ -417,6 +423,17 @@ def kernels(rec, launches):
     for k in (1, 2):
         cols = t(rng.integers(0, 2**31, (k, 1000)))
         _exact("pack edge", J.pack_keys(cols), J.pack_keys_plain(cols))
+    # pack at every (c0, c1) alignment: odd N puts c1 8 bytes off a 16-byte
+    # boundary, a view one word into its storage moves c0 there; N = 1, 2,
+    # 3 and values at 2^31 - 1
+    for pn_ in (1, 2, 3, 4, 1000, 1001):
+        for offset in (0, 1):
+            vals = rng.integers(0, 2**31, 2 * pn_ + offset)
+            vals[offset::5] = 2**31 - 1
+            cols = t(vals)[offset:].view(2, pn_)
+            assert cols.data_ptr() % 16 == 8 * offset
+            _exact(f"pack edge N={pn_}, offset {offset}", J.pack_keys(cols),
+                   J.pack_keys_plain(cols))
     for q, w in ((1, 1), (13, 1), (130, 7), (33, 64)):
         a = torch.from_numpy(rng.integers(-2**31, 2**31, (q, w))
                              .astype(np.int32)).to(dev)
@@ -450,6 +467,26 @@ def kernels(rec, launches):
            lambda: torch.add(pk[1], pk[0], alpha=1 << 31),
            24 * pn, 2 * pn, f"K=2, N={pn}; library = torch.add(c1, c0, "
            "alpha=2^31)")
+    # the spread of kernel against library in turns (kernel, library,
+    # library, kernel, twice), at N and at N - 1 (the other parity: at odd
+    # N c1 starts 8 bytes off a 16-byte boundary and torch.add runs its
+    # unrolled 8-byte kernel, at even N its vectorized one)
+    for n_ in (pn, pn - 1):
+        cols = pk if n_ == pn else t(np.stack(rec["pack"])[:, :n_])
+        _exact("pack, other parity", J.pack_keys(cols),
+               J.pack_keys_plain(cols))
+        fns = {"kernel": lambda: J.pack_keys(cols),
+               "library": lambda: torch.add(cols[1], cols[0], alpha=1 << 31)}
+        got = collections.defaultdict(list)
+        for who in ("kernel", "library", "library", "kernel") * 2:
+            got[who].append(device_ms(fns[who]))
+        how = ("torch.add unvectorized" if n_ % 2 else
+               "torch.add vectorized")
+        ks, ls = (", ".join(f"{x:.5f}" for x in got[who])
+                  for who in ("kernel", "library"))
+        log(f"[kernels] pack N={n_} ({how}), device ms per call in turns: "
+            f"kernel {ks}; library {ls} (torch.add(c1, c0, alpha=2^31)); "
+            f"{card()}")
 
     lcs, rcs = rec["join"]
     lk_cols = t(np.stack(lcs))
@@ -575,7 +612,8 @@ FLASH_VARIANTS = ("tc", "scalar", "dec")
 SSD = "mamba2_ssd"
 WKV = "rwkv6_wkv"
 # each kernel with more than one design: its variants (its ops.variant)
-VARIANTS = {FLASH: FLASH_VARIANTS, SSD: ("tc", "rec"), WKV: ("tc", "rec")}
+VARIANTS = {FLASH: FLASH_VARIANTS, SSD: ("tc", "rec"),
+            WKV: ("tc", "rec", "dec")}
 
 
 def variants(kernel, since=None) -> dict:
@@ -1204,11 +1242,11 @@ def rwkv_serving():
         f"variant: prefill {prefill_vars}, decode steps "
         f"{_distinct(step_vars)}")
     # (a) one WKV launch per layer in the prefill, all "tc", and in every
-    # decode step, all "rec"
+    # decode step, all "dec"
     assert n_prefill == cfg.n_layers, n_prefill
     assert per_step == [cfg.n_layers] * RWKV_NEW, per_step
-    assert prefill_vars == dict(tc=cfg.n_layers, rec=0), prefill_vars
-    assert step_vars == [dict(tc=0, rec=cfg.n_layers)] * RWKV_NEW, \
+    assert prefill_vars == dict(tc=cfg.n_layers, rec=0, dec=0), prefill_vars
+    assert step_vars == [dict(tc=0, rec=0, dec=cfg.n_layers)] * RWKV_NEW, \
         _distinct(step_vars)
 
     # the card's busy and idle share over one decode step (one more step of
@@ -1284,15 +1322,28 @@ def rwkv_serving():
 # phase 9: the WKV kernel against its plain version
 # --------------------------------------------------------------------------- #
 
-# (B, S, H, hd, decay, s0 scale, variant): S = 1 and 63 (the recurrence),
+# (B, S, H, hd, decay, s0 scale, variant): S = 2 and 63 (the recurrence),
 # 64, 65, 100, 300 and 2049 (one chunk of the tc kernel, one and a step,
 # ragged ones, 32 chunks and one of a step), hd 16, 32 and 128 on both
 # sides of 64 steps, strong decay (w about 0.03) and w = 0 every third
 # step, nonzero s0, grids under one wave of the card (B * H under 132) and
-# a full wave of whole heads at hd 128, and the variant each must run
-# (ops.variant: "tc" from 64 steps up)
+# a full wave of whole heads at hd 128; S = 1 through "dec" at
+# rwkv6-3b's decode shape and every hd, one warp in all, grids under a
+# wave (24 warps) and over one (1056 and 5120 warps), w = 0 (every step
+# of one), strong decay, s0 zero and random; and the variant each must
+# run (ops.variant: "dec" for one step, "tc" from 64 steps up)
 WKV_EDGES = [
-    (4, 1, 40, 64, "model", 0.5, "rec"),
+    (4, 1, 40, 64, "model", 0.5, "dec"),
+    (2, 1, 3, 16, "model", 0.5, "dec"),
+    (2, 1, 3, 32, "model", 0.5, "dec"),
+    (1, 1, 3, 128, "model", 0.5, "dec"),
+    (1, 1, 1, 16, "model", 1.0, "dec"),
+    (33, 1, 4, 128, "model", 0.5, "dec"),
+    (32, 1, 40, 64, "model", 0.5, "dec"),
+    (2, 1, 4, 64, "zero", 0.5, "dec"),
+    (2, 1, 4, 64, "strong", 0.5, "dec"),
+    (3, 1, 5, 64, "model", 0.0, "dec"),
+    (2, 2, 8, 64, "model", 0.5, "rec"),
     (2, 63, 8, 64, "model", 0.0, "rec"),
     (2, 65, 8, 64, "model", 0.5, "tc"),
     (1, 100, 3, 64, "model", 0.5, "tc"),
@@ -1308,6 +1359,9 @@ WKV_EDGES = [
     (33, 30, 4, 128, "model", 0.5, "rec"),
 ]
 WKV_SRC = "src/repro_torch/csrc/rwkv6_wkv.cu"
+# input sets a decode-shape timing takes in turn: 32 states of 2.6 MB, as
+# a decode step walks rwkv6-3b's 32 layers, 84 MB against the 50 MB L2
+WKV_COLD_SETS = 32
 WKV_REPLACES = "src/repro/kernels/rwkv6_wkv/kernel.py:79"
 
 
@@ -1389,6 +1443,7 @@ def _wkv_float64(args):
 
 
 def wkv_kernel(rows, launches):
+    from repro_torch.kernels import _build
     from repro_torch.kernels.rwkv6_wkv import ops as W
 
     gen = torch.Generator(device="cuda").manual_seed(3)
@@ -1397,11 +1452,16 @@ def wkv_kernel(rows, launches):
         var = case[-1]
         assert W.variant(case[1], case[3]) == var, case
         before = variants(WKV)
+        s0 = args[-1].clone()
         got = W.wkv(*args)
         torch.cuda.synchronize()
         ran = variants(WKV, before)
         assert ran == {v: int(v == var) for v in VARIANTS[WKV]}, (case, ran)
+        assert torch.equal(args[-1], s0), f"{case}: s0 was written"
         _, rel = _wkv_err(got, W.wkv_plain(*args))
+        if var == "dec" and case[4] == "zero":     # w = 0: s0 forgotten
+            kv = args[1][:, 0, :, :, None] * args[2][:, 0, :, None, :]
+            assert torch.equal(got[1], kv), case
         ms = device_ms(lambda: W.wkv(*args), reps=5)
         plain_ms = device_ms(lambda: W.wkv_plain(*args), reps=1)
         n_bytes, n_ops = _wkv_cost(*case[:4])
@@ -1412,6 +1472,21 @@ def wkv_kernel(rows, launches):
             f"{bound_ms:.6f} ms, max rel err {rel:.2e}")
     log(f"[kernels] {WKV} edge cases: {len(WKV_EDGES)} shapes match the "
         "plain version, each through its variant")
+    # dec reads s0 in 16-byte groups: a state one float into its storage
+    # is refused before any launch
+    args = _wkv_inputs((2, 1, 3, 64, "model", 0.5), gen)
+    buf = torch.empty(args[-1].numel() + 1, device="cuda")
+    bad = buf[1:].view(args[-1].shape)
+    bad.copy_(args[-1])
+    before = dict(_build.launches)
+    try:
+        W.wkv(*args[:-1], bad)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("dec took a misaligned s0")
+    assert dict(_build.launches) == before and refused.startswith("s0")
+    log(f"[kernels] {WKV} dec refuses a misaligned s0: {refused}")
     # a long call with w near 1: the float32 recurrence itself drifts some
     # 4e-6 to 7e-6 from a float64 one there (tests/test_torch_wkv.py), so
     # the tc kernel is held to float64
@@ -1419,7 +1494,7 @@ def wkv_kernel(rows, launches):
     args = _wkv_inputs(case, gen)
     before = variants(WKV)
     got = W.wkv(*args)
-    assert variants(WKV, before) == dict(tc=1, rec=0)
+    assert variants(WKV, before) == dict(tc=1, rec=0, dec=0)
     want64 = _wkv_float64(args)
     _, rel = _wkv_err(got, want64)
     rel_plain = max(float((p.double() - w).abs().max() / w.abs().max())
@@ -1429,42 +1504,75 @@ def wkv_kernel(rows, launches):
         f"{rel:.2e} (limit 1e-5; the float32 plain version {rel_plain:.2e})")
 
     h, hd = 40, 64
-    for s, reps, what in ((RWKV_PROMPT, 2, "prefill"), (1, 20, "decode")):
-        shape = (RWKV_BATCH, s, h, hd)
-        args = _wkv_inputs(shape + ("model", 0.0 if s > 1 else 0.5), gen)
-        var = W.variant(s, hd)
-        err, rel = _wkv_err(W.wkv(*args), W.wkv_plain(*args))
-        n_bytes, n_ops = _wkv_cost(*shape)
-        rate = dict(ops_per_s=SCALAR_OPS_PER_S, ops_rate="67 TOP/s")
-        if var == "tc":
-            # the rec kernel at the same shape, against the same bytes
-            # bound and its operations over the scalar rate: a row of its
-            # own (its launches are the main path's decode steps')
-            rec_err, rec_rel = _wkv_err(W._run("rec", *args),
-                                        W.wkv_plain(*args))
-            kernel_row(rows, launches, WKV, WKV_SRC, WKV_REPLACES, rec_err,
-                       lambda: W._run("rec", *args),
-                       lambda: W.wkv_plain(*args), None, n_bytes, n_ops,
-                       f"{what} B={RWKV_BATCH}, S={s}, H={h}, hd={hd}, "
-                       f"float32, kernel rec (outside the main path at this "
-                       f"shape), max rel err {rec_rel:.2e}; no single "
-                       "library call computes it",
-                       plain_reps=reps, variant="rec")
-            n_ops, scalar_ops = _wkv_tc_ops(*shape)
-            rate = dict(ops_per_s=TF32_OPS_PER_S,
-                        ops_rate="495 TFLOP/s TF32")
-            log(f"[kernels] {WKV} tc at the {what} shape: {n_ops} TF32 "
-                f"tensor-core operations, {n_ops / TF32_OPS_PER_S * 1e3:.6f}"
-                f" ms at 495 TFLOP/s; {scalar_ops} scalar ones (A's "
-                f"diagonal blocks), {scalar_ops / SCALAR_OPS_PER_S * 1e3:.6f}"
-                f" ms at 67 TFLOP/s; {card()}")
-        kernel_row(rows, launches, WKV, WKV_SRC, WKV_REPLACES, err,
-                   lambda: W.wkv(*args), lambda: W.wkv_plain(*args), None,
-                   n_bytes, n_ops,
-                   f"{what} B={RWKV_BATCH}, S={s}, H={h}, hd={hd}, float32,"
-                   f" kernel {var}, max rel err {rel:.2e}; no single "
-                   "library call computes it",
-                   plain_reps=reps, variant=var, **rate)
+    # the prefill: tc, its row; the rec kernel at the same shape, against
+    # the same bytes bound and its operations over the scalar rate (outside
+    # the main path)
+    shape = (RWKV_BATCH, RWKV_PROMPT, h, hd)
+    args = _wkv_inputs(shape + ("model", 0.0), gen)
+    assert W.variant(RWKV_PROMPT, hd) == "tc"
+    err, rel = _wkv_err(W.wkv(*args), W.wkv_plain(*args))
+    n_bytes, n_ops = _wkv_cost(*shape)
+    _, rec_rel = _wkv_err(W._run("rec", *args), W.wkv_plain(*args))
+    rec_ms = device_ms(lambda: W._run("rec", *args), reps=5)
+    log(f"[kernels] {WKV} rec at the prefill shape B={RWKV_BATCH}, "
+        f"S={RWKV_PROMPT}, H={h}, hd={hd}: device time per call "
+        f"{rec_ms:.4f} ms, bound {n_bytes / HBM_BYTES_PER_S * 1e3:.6f} ms "
+        f"({n_bytes} B / 3.35 TB/s; its {n_ops} ops / 67 TFLOP/s "
+        f"{n_ops / SCALAR_OPS_PER_S * 1e3:.6f} ms), max rel err "
+        f"{rec_rel:.2e}; {card()}")
+    tc_ops, scalar_ops = _wkv_tc_ops(*shape)
+    log(f"[kernels] {WKV} tc at the prefill shape: {tc_ops} TF32 "
+        f"tensor-core operations, {tc_ops / TF32_OPS_PER_S * 1e3:.6f} ms at "
+        f"495 TFLOP/s; {scalar_ops} scalar ones (A's diagonal blocks), "
+        f"{scalar_ops / SCALAR_OPS_PER_S * 1e3:.6f} ms at 67 TFLOP/s; "
+        f"{card()}")
+    kernel_row(rows, launches, WKV, WKV_SRC, WKV_REPLACES, err,
+               lambda: W.wkv(*args), lambda: W.wkv_plain(*args), None,
+               n_bytes, tc_ops,
+               f"prefill B={RWKV_BATCH}, S={RWKV_PROMPT}, H={h}, hd={hd}, "
+               f"float32, kernel tc, max rel err {rel:.2e}; no single "
+               "library call computes it", plain_reps=2, variant="tc",
+               ops_per_s=TF32_OPS_PER_S, ops_rate="495 TFLOP/s TF32")
+    del args
+
+    # the decode step: dec, its row L2-cold (WKV_COLD_SETS input sets in
+    # turn, as a decode step finds each layer's state), and warm; the rec
+    # kernel, which ran the decode steps before dec, at the same shape
+    # through W._run, warm and L2-cold, in turns with dec
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    shape = (RWKV_BATCH, 1, h, hd)
+    sets = [_wkv_inputs(shape + ("model", 0.5), gen)
+            for _ in range(WKV_COLD_SETS)]
+    assert W.variant(1, hd) == "dec"
+    err, rel = _wkv_err(W.wkv(*sets[0]), W.wkv_plain(*sets[0]))
+    _, rec_rel = _wkv_err(W._run("rec", *sets[0]), W.wkv_plain(*sets[0]))
+    n_bytes, n_ops = _wkv_cost(*shape)
+    turn = itertools.cycle(sets)
+    kernel_row(rows, launches, WKV, WKV_SRC, WKV_REPLACES, err,
+               lambda: W.wkv(*next(turn)), lambda: W.wkv_plain(*next(turn)),
+               None, n_bytes, n_ops,
+               f"decode B={RWKV_BATCH}, S=1, H={h}, hd={hd}, float32, kernel "
+               f"dec, {WKV_COLD_SETS} input sets in turn (L2-cold), max rel "
+               f"err {rel:.2e}; no single library call computes it",
+               variant="dec")
+    timed = {
+        "dec warm": lambda: W.wkv(*sets[0]),
+        "rec warm": lambda: W._run("rec", *sets[0]),
+        "rec L2-cold": lambda: W._run("rec", *next(turn)),
+        "dec L2-cold": lambda: W.wkv(*next(turn)),
+    }
+    got = collections.defaultdict(list)
+    for _ in range(2):
+        for who in timed:
+            got[who].append(device_ms(timed[who]))
+    log(f"[kernels] {WKV} decode B={RWKV_BATCH}, S=1, H={h}, hd={hd}, in "
+        f"turns (device ms per call; L2-cold over {WKV_COLD_SETS} input "
+        "sets): " + "; ".join(
+            f"{who} {', '.join(f'{x:.5f}' for x in xs)}"
+            for who, xs in got.items())
+        + f"; bound {rows[-1]['bound_ms']:.6f} ms (bytes); rec max rel err "
+        f"{rec_rel:.2e}; dec {W.dec_warps(RWKV_BATCH, h, hd, n_sms)} warps "
+        f"a block on {n_sms} SMs; {card()}")
 
 
 # --------------------------------------------------------------------------- #

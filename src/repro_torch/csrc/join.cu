@@ -16,12 +16,24 @@
 //
 // What bounds them on the card: all four move a few int64 words per
 // element and do a handful of integer operations, so they are bound by
-// memory bytes, not by operations.  Pack, gather and the writes of every
-// kernel are coalesced (neighbouring threads touch neighbouring words);
-// the binary searches of probe and expand read scattered words, whose
-// first levels stay in L1/L2 because every thread walks the same upper
-// levels of the sorted array.  Nothing more is done about it yet: this is
-// the simple, exact first version.
+// memory bytes, not by operations.  Gather and the writes of every kernel
+// are coalesced (neighbouring threads touch neighbouring words); the binary
+// searches of probe and expand read scattered words, whose first levels
+// stay in L1/L2 because every thread walks the same upper levels of the
+// sorted array.
+//
+// Pack is compiled for two columns, the only packing the wrapper launches
+// (one column is its own key).  The data it reads was just uploaded and
+// sits in L2, so what bounds it is L2 traffic and the kernel's ramp, not
+// device memory: at the main path's largest key (587,583 rows, 14.1 MB)
+// it runs under its device-memory bound.  Each block takes 512 keys, each
+// thread four of them, 128 apart, reading c1 and c0 as 8-byte words (each
+// warp load covers 256 contiguous bytes, at any alignment and any n) and
+// issuing all eight loads before its first store; a full block checks no
+// bound.  That is the layout of PyTorch's own elementwise kernel for such
+// a call.  Pairs of keys read and written as 16-byte words over a grid
+// sized from the SM count were slower on the H100 at both parities of n
+// (PERF.md): from L2, the 16-byte loads lost to the 8-byte ones.
 //
 // Every entry point launches on the stream it is given, does not
 // synchronise, allocates nothing, and returns cudaGetLastError().
@@ -41,19 +53,54 @@ __device__ __forceinline__ int64_t thread_index() {
   return static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
 }
 
-// Base-2^31 positional packing of k key columns (column c at cols[c*n]):
-// key = c0 * 2^31 + c1 for k == 2, exactly as the host reference computes
-// it (the wrapper returns a single column as its own key, unlaunched).  Unsigned arithmetic keeps the (never reached for ids < 2^31)
-// wrap-around defined, as numpy's int64 arithmetic wraps.
-__global__ void pack_kernel(const int64_t* __restrict__ cols, int64_t n,
-                            int k, int64_t* __restrict__ out) {
-  const int64_t i = thread_index();
-  if (i >= n) return;
-  uint64_t key = static_cast<uint64_t>(cols[i]);
-  for (int c = 1; c < k; ++c) {
-    key = key * (uint64_t(1) << 31) + static_cast<uint64_t>(cols[c * n + i]);
+constexpr int kPackThreads = 128;   // threads of a pack block
+constexpr int kPackKeys = 4;        // keys a pack thread takes
+
+// Base-2^31 positional packing of two key columns: key = hi * 2^31 + lo,
+// exactly as the host reference computes it.  Unsigned arithmetic keeps the
+// (never reached for ids < 2^31) wrap-around defined, as numpy's int64
+// arithmetic wraps.
+__device__ __forceinline__ int64_t pack2(int64_t hi, int64_t lo) {
+  return static_cast<int64_t>(static_cast<uint64_t>(hi) *
+                                  (uint64_t(1) << 31) +
+                              static_cast<uint64_t>(lo));
+}
+
+// out[e] = pack2(c0[e], c1[e]) for e < n: block b takes keys
+// [512 b, 512 b + 512), thread t the keys 512 b + t + 128 u, u < 4.
+__global__ void __launch_bounds__(kPackThreads)
+    pack2_kernel(const int64_t* __restrict__ c0,
+                 const int64_t* __restrict__ c1, int64_t n,
+                 int64_t* __restrict__ out) {
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kPackThreads *
+                        kPackKeys;
+  const int64_t base = first + threadIdx.x;
+  int64_t hi[kPackKeys], lo[kPackKeys];
+  if (first + kPackThreads * kPackKeys <= n) {     // a full block
+#pragma unroll
+    for (int u = 0; u < kPackKeys; ++u) {
+      lo[u] = c1[base + u * kPackThreads];
+      hi[u] = c0[base + u * kPackThreads];
+    }
+#pragma unroll
+    for (int u = 0; u < kPackKeys; ++u) {
+      out[base + u * kPackThreads] = pack2(hi[u], lo[u]);
+    }
+    return;
   }
-  out[i] = static_cast<int64_t>(key);
+#pragma unroll
+  for (int u = 0; u < kPackKeys; ++u) {
+    const int64_t e = base + u * kPackThreads;
+    if (e < n) {
+      lo[u] = c1[e];
+      hi[u] = c0[e];
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < kPackKeys; ++u) {
+    const int64_t e = base + u * kPackThreads;
+    if (e < n) out[e] = pack2(hi[u], lo[u]);
+  }
 }
 
 // First index in [lo, m) whose value is >= key (right == false) or > key
@@ -116,12 +163,17 @@ __global__ void gather_kernel(const int64_t* __restrict__ values, int64_t m,
 
 }  // namespace
 
+// k must be 2 (the wrapper returns one column as its own key); cols holds
+// the two columns back to back
 extern "C" int rt_pack_keys(const int64_t* cols, int64_t n, int64_t k,
                             int64_t* out, void* stream) {
+  if (k != 2 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
-    pack_kernel<<<blocks_for(n), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-        cols, n, static_cast<int>(k), out);
+    constexpr int64_t per_block = kPackThreads * kPackKeys;
+    pack2_kernel<<<static_cast<unsigned int>((n + per_block - 1) /
+                                             per_block),
+                   kPackThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        cols, cols + n, n, out);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -11,14 +11,17 @@
 //   S[i][j] = w_t[i] S[i][j] + k_t[i] v_t[j]
 //
 // the reference's y_t = r_t . (diag(u) k_t v_t^T + S_{t-1}) and
-// S_t = diag(w_t) S_{t-1} + k_t v_t^T.  Two kernels compute it; ops.py
+// S_t = diag(w_t) S_{t-1} + k_t v_t^T.  Three kernels compute it; ops.py
 // picks one by S alone (variant()):
 //
 // * wkv_tc_kernel ("tc": S >= 64, the prefill) closes each chunk of 64
 //   steps into matrix products on the tensor cores, each product as three
 //   TF32 products, with every decay a product of w's: no exp or log;
-// * wkv_kernel ("rec": S < 64, decode steps) runs the recurrence step by
-//   step in float32 multiply-adds.
+// * wkv_dec_kernel ("dec": S == 1, every decode step) takes the one step
+//   with one warp per 16 state columns of a head, the state in 16-byte
+//   groups, no shared memory and no barrier;
+// * wkv_kernel ("rec": S = 0 and 2 to 63, short calls) runs the
+//   recurrence step by step in float32 multiply-adds.
 //
 // What bounds it on this card.  At the rwkv6-3b prefill shape
 // (B, S, H, hd) = (4, 2048, 40, 64) it reads r, k, v, w and writes y, 84 MB
@@ -122,6 +125,32 @@
 // written out row by row after the chunk: two barriers per chunk, none per
 // step.  It adds u_i k_i v_j to every state element before the sum, 7 hd^2
 // operations per step: two more per element than needed.
+//
+// The dec kernel.  A decode step reads and writes the (hd, hd) state of
+// every (b, h) once and little else: at rwkv6-3b's decode shape (4, 1, 40,
+// 64) 2.6 MB each way, 1.6 us at 3.35 TB/s, so the bytes bound it, and
+// what keeps it from the bound is how many of them are in flight at once.
+// The rec kernel at S = 1 stages four vectors through shared memory
+// behind two barriers and reads the state in 4-byte words, eight lanes to
+// a column, so each warp request covers half of its 32-byte sectors.  Here
+// one warp takes one (b, h) and 16 state columns; lane = (row group
+// g = lane / 4, column quad q = lane % 4) holds the R = hd / 8 rows
+// i = g R, g R + 1, ..., g R + R - 1 of columns 16 t + 4 q .. + 3 as
+// float4s: each load instruction of the warp reads eight whole 64-byte row
+// segments.  A lane reads r, w, k and u of its R rows as float4s (float2s
+// at hd 16; the four lanes of a row group load the same words: one
+// broadcast) and v of its four columns as one float4, every load issued
+// before the first use, so the warp's whole tile of the state is in flight
+// at once.  (Rows g, g + 8, ... instead, with r, w, k, u as 4-byte words,
+// were slower L2-cold at the decode shape on the H100, PERF.md: the
+// scattered coefficient loads cost a second round trip.)
+// Its partial y over its rows, in the rec kernel's multiply-adds, meets
+// the other row groups' by three xor shuffles over lane bits 2 to 4, and
+// lanes 0..3 write y as float4s; the new state goes out as float4s.  No
+// shared memory, no barrier.  The caller picks the warps per block
+// (ops.dec_warps) so the B H hd / 16 warps spread evenly over the SMs.
+// r, k, v, w, u, s0, y and s_out must be 16-byte aligned (the wrapper
+// refuses a misaligned s0), and s_out is never s0.
 
 #include <cstdint>
 #include <cuda_pipeline.h>
@@ -231,6 +260,103 @@ cudaError_t launch(const Args& a, int64_t bh, cudaStream_t stream) {
   const dim3 grid(static_cast<unsigned>(bh),
                   static_cast<unsigned>(HD / a.tile));
   wkv_kernel<HD><<<grid, a.tile * kGroups, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+
+// ---------------------------------------------------------------------------
+// The dec kernel: one step, one warp per 16 state columns of a head
+
+constexpr int kDecCols = 16;      // state columns of one warp
+constexpr int kDecMaxWarps = 8;   // warps of a block, at most (ops.py)
+
+// n contiguous floats from p into d, as float4s (float2s when n is 2);
+// p 16-byte aligned (8-byte when n is 2)
+template <int N>
+__device__ __forceinline__ void load_row(float (&d)[N],
+                                         const float* __restrict__ p) {
+  if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int c = 0; c < N; c += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(p + c);
+      d[c] = x.x;
+      d[c + 1] = x.y;
+      d[c + 2] = x.z;
+      d[c + 3] = x.w;
+    }
+  } else {
+    static_assert(N == 2, "rows a lane: 2 or a multiple of 4");
+    const float2 x = *reinterpret_cast<const float2*>(p);
+    d[0] = x.x;
+    d[1] = x.y;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(kDecMaxWarps * 32)
+    wkv_dec_kernel(Args a, int64_t warps) {
+  constexpr int kTiles = HD / kDecCols;       // warps of one (b, h)
+  constexpr int kRows = HD / kGroups;         // state rows of a lane
+  const int lane = static_cast<int>(threadIdx.x) & 31;
+  const int64_t wid = static_cast<int64_t>(blockIdx.x) * (blockDim.x >> 5) +
+                      (threadIdx.x >> 5);
+  if (wid >= warps) return;                   // a whole warp leaves
+  const int64_t bh = wid / kTiles;
+  const int64_t head = bh % a.h;
+  const int i0 = (lane >> 2) * kRows;         // the lane's first row, g R
+  const int j = static_cast<int>(wid % kTiles) * kDecCols + 4 * (lane & 3);
+
+  // every load first: the state tile, then the row coefficients and v
+  const float* s0 = a.s0 + (bh * HD + i0) * HD + j;
+  float4 st[kRows];
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) {
+    st[m] = *reinterpret_cast<const float4*>(s0 + m * HD);
+  }
+  float rr[kRows], ww[kRows], kk[kRows], uu[kRows];
+  load_row(rr, a.r + bh * HD + i0);           // S = 1: row (b, 0, h)
+  load_row(ww, a.w + bh * HD + i0);
+  load_row(kk, a.k + bh * HD + i0);
+  load_row(uu, a.u + head * HD + i0);
+  const float4 v4 = *reinterpret_cast<const float4*>(a.v + bh * HD + j);
+
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) {
+    const float uk = uu[m] * kk[m];
+    acc.x = fmaf(rr[m], fmaf(uk, v4.x, st[m].x), acc.x);
+    acc.y = fmaf(rr[m], fmaf(uk, v4.y, st[m].y), acc.y);
+    acc.z = fmaf(rr[m], fmaf(uk, v4.z, st[m].z), acc.z);
+    acc.w = fmaf(rr[m], fmaf(uk, v4.w, st[m].w), acc.w);
+    st[m].x = fmaf(ww[m], st[m].x, kk[m] * v4.x);
+    st[m].y = fmaf(ww[m], st[m].y, kk[m] * v4.y);
+    st[m].z = fmaf(ww[m], st[m].z, kk[m] * v4.z);
+    st[m].w = fmaf(ww[m], st[m].w, kk[m] * v4.w);
+  }
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {    // over g: lane bits 2..4
+    acc.x += __shfl_xor_sync(0xffffffffu, acc.x, off);
+    acc.y += __shfl_xor_sync(0xffffffffu, acc.y, off);
+    acc.z += __shfl_xor_sync(0xffffffffu, acc.z, off);
+    acc.w += __shfl_xor_sync(0xffffffffu, acc.w, off);
+  }
+  if (i0 == 0) *reinterpret_cast<float4*>(a.y + bh * HD + j) = acc;
+  float* so = a.s_out + (bh * HD + i0) * HD + j;
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) {
+    *reinterpret_cast<float4*>(so + m * HD) = st[m];
+  }
+}
+
+template <int HD>
+cudaError_t launch_dec(const Args& a, int64_t bh, int64_t warps_per_block,
+                       cudaStream_t stream) {
+  const int64_t warps = bh * (HD / kDecCols);
+  const int64_t blocks = (warps + warps_per_block - 1) / warps_per_block;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  wkv_dec_kernel<HD><<<static_cast<unsigned>(blocks),
+                       static_cast<unsigned>(32 * warps_per_block), 0,
+                       stream>>>(a, warps);
   return cudaGetLastError();
 }
 
@@ -726,6 +852,45 @@ extern "C" int rt_wkv_tc(const void* r, const void* k, const void* v,
     case 32: err = launch_tc<32>(a, b * h, st); break;
     case 64: err = launch_tc<64>(a, b * h, st); break;
     case 128: err = launch_tc<128>(a, b * h, st); break;
+    default: err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
+}
+
+// One decode step (S = 1).  hd one of 16, 32, 64, 128; warps_per_block
+// from 1 to 8; every pointer 16-byte aligned, s_out not s0
+extern "C" int rt_wkv_dec(const void* r, const void* k, const void* v,
+                          const void* w, const void* u, const void* s0,
+                          void* y, void* s_out, int64_t b, int64_t h,
+                          int64_t hd, int64_t warps_per_block, void* stream) {
+  const auto aligned = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  if (b < 0 || h < 0 || b * h > 0x7fffffffLL || warps_per_block < 1 ||
+      warps_per_block > kDecMaxWarps || !aligned(r) || !aligned(k) ||
+      !aligned(v) || !aligned(w) || !aligned(u) || !aligned(s0) ||
+      !aligned(y) || !aligned(s_out) || s0 == s_out) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (b == 0 || h == 0) return static_cast<int>(cudaSuccess);
+  Args a{};
+  a.r = static_cast<const float*>(r);
+  a.k = static_cast<const float*>(k);
+  a.v = static_cast<const float*>(v);
+  a.w = static_cast<const float*>(w);
+  a.u = static_cast<const float*>(u);
+  a.s0 = static_cast<const float*>(s0);
+  a.y = static_cast<float*>(y);
+  a.s_out = static_cast<float*>(s_out);
+  a.s = 1;
+  a.h = h;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (hd) {
+    case 16: err = launch_dec<16>(a, b * h, warps_per_block, st); break;
+    case 32: err = launch_dec<32>(a, b * h, warps_per_block, st); break;
+    case 64: err = launch_dec<64>(a, b * h, warps_per_block, st); break;
+    case 128: err = launch_dec<128>(a, b * h, warps_per_block, st); break;
     default: err = cudaErrorInvalidValue;
   }
   return static_cast<int>(err);

@@ -58,6 +58,8 @@ SIGNATURES = {
     # no tile)
     "rt_wkv_fwd": (_P,) * 8 + (_I64,) * 5 + (_P,),
     "rt_wkv_tc": (_P,) * 8 + (_I64,) * 4 + (_P,),
+    # r, k, v, w, u, s0, y, s_out, B, H, hd, warps per block, stream
+    "rt_wkv_dec": (_P,) * 8 + (_I64,) * 4 + (_P,),
     # x, b, c, dt, a, d, s0, y, s_out, B, S, H, hd, N, strides of x, b, c
     # and dt over batch and time, stream (rt_ssd_tc: G's scratch before
     # the stream)

@@ -133,7 +133,8 @@ def pack_keys(cols: torch.Tensor) -> torch.Tensor:
     """(K<=2, N) int64 key columns (one row per column, values < 2^31) ->
     (N,) int64 keys, the base-2^31 positional packing of ``_pack_np``.
     Replaces ``pack_keys_pallas``. One column is its own key: it comes back
-    as a view, with no kernel launched."""
+    as a view, with no kernel launched. Two columns at any storage offset
+    and any N."""
     _check("cols", cols, 2, cols.device)
     k, n = cols.shape
     if not 1 <= k <= 2:

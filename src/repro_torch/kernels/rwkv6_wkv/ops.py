@@ -1,7 +1,7 @@
 """RWKV6 WKV recurrence with data-dependent decay (forward).
 
 Counterpart of ``repro/kernels/rwkv6_wkv/ops.py``. On a CUDA tensor
-:func:`wkv` launches one of the two Hopper kernels of
+:func:`wkv` launches one of the three Hopper kernels of
 ``repro_torch/csrc/rwkv6_wkv.cu``, chosen by :func:`variant` from the
 call's length alone; on a CPU tensor it runs :func:`wkv_plain`, which
 repeats the recurrence step by step with torch ops, at any head size. All
@@ -18,14 +18,19 @@ The variants:
   chunk's matrix products on the tensor cores as three TF32 products each
   (hi·hi + hi·lo + lo·hi); within 1e-6 of the float32 recurrence (one
   TF32 product would leave it by 3e-4 to 6e-4: ``tests/test_torch_wkv.py``);
-* ``"rec"`` (S < 64: decode steps, short calls, S = 0): the recurrence in
-  float32 multiply-adds.
+* ``"dec"`` (S = 1: every decode step): the one step with one warp per 16
+  state columns of a head, the state read and written in 16-byte groups,
+  no shared memory and no barrier; the warps per block from
+  :func:`dec_warps`. It reads s0 in 16-byte groups, so a misaligned s0
+  is refused;
+* ``"rec"`` (S = 0 and 2 to 63: short calls): the recurrence in float32
+  multiply-adds.
 
 The reference's gates are gone: ``use_kernel`` (the scan where the TPU
 kernel did not pay), ``S % chunk == 0`` and ``interpret``. They guarded the
 TPU's chunked closed form, whose ``exp(−L)`` needs chunks of at most 64
-steps and ``w ≥ 1e-30``; neither CUDA kernel takes a logarithm, so both
-take any S in their range, ragged S included, and ``w = 0`` exactly. The
+steps and ``w ≥ 1e-30``; no CUDA kernel takes a logarithm, so each takes
+any S in its range, ragged S included, and ``w = 0`` exactly. The
 kernels are compiled for the head sizes in :data:`HEAD_DIMS`; a CUDA call
 at another size raises, a CPU call computes it.
 
@@ -42,6 +47,8 @@ from repro_torch.kernels import _build, dispatch
 HEAD_DIMS = (16, 32, 64, 128)   # the kernels' compiled head sizes
 MIN_TILE = 8                    # state columns of the rec kernel's blocks
 TC_CHUNK = 64                   # steps per chunk of the tc kernel
+DEC_COLS = 16                   # state columns of one warp of the dec kernel
+DEC_MAX_WARPS = 8               # warps of a dec block, at most
 
 
 def _check(r, k, v, w, u, s0) -> None:
@@ -94,11 +101,28 @@ def col_tiles(b: int, h: int, hd: int, n_sms: int) -> int:
     return tiles
 
 
+def dec_warps(b: int, h: int, hd: int, n_sms: int) -> int:
+    """Warps per block of the dec kernel. It runs ``b * h * hd / 16``
+    warps, warp ``i`` of block ``n`` taking warp index ``n * W + i``:
+    (b, h) = index // (hd / 16), columns 16 (index % (hd / 16)) + 0..15.
+    With ``waves`` = the fewest rounds of ``DEC_MAX_WARPS``-warp blocks on
+    every one of the card's ``n_sms`` SMs that hold them all, W is the
+    fewest warps that make at most ``n_sms * waves`` blocks: no SM holds
+    more than ``waves`` blocks, and a grid under one wave runs one warp a
+    block."""
+    warps = b * h * (hd // DEC_COLS)
+    waves = max(1, -(-warps // (n_sms * DEC_MAX_WARPS)))
+    return max(1, -(-warps // (n_sms * waves)))
+
+
 def variant(s: int, hd: int) -> str:
-    """Which kernel a CUDA call of length ``s`` and head size ``hd`` runs:
-    ``"tc"`` (the chunked form on the tensor cores) from one chunk of 64
-    steps up, at every ``hd`` of :data:`HEAD_DIMS`, else ``"rec"`` (the
-    recurrence: decode steps, short calls and S = 0)."""
+    """Which kernel a CUDA call of length ``s`` and head size ``hd`` runs,
+    at every ``hd`` of :data:`HEAD_DIMS`: ``"dec"`` for one step (every
+    decode step), ``"tc"`` (the chunked form on the tensor cores) from one
+    chunk of 64 steps up, else ``"rec"`` (the recurrence: S = 0 and 2 to
+    63)."""
+    if s == 1:
+        return "dec"
     return "tc" if s >= TC_CHUNK else "rec"
 
 
@@ -115,9 +139,14 @@ def _run(var: str, r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
     if var == "tc":
         _build.launch("rwkv6_wkv", "rt_wkv_tc", r.device, *ptrs, b, s, h, hd,
                       variant=var)
+        return y, s_out
+    n_sms = torch.cuda.get_device_properties(r.device).multi_processor_count
+    if var == "dec":
+        if s != 1:
+            raise ValueError(f"the dec kernel takes one step, got S = {s}")
+        _build.launch("rwkv6_wkv", "rt_wkv_dec", r.device, *ptrs, b, h, hd,
+                      dec_warps(b, h, hd, n_sms), variant=var)
     else:
-        n_sms = torch.cuda.get_device_properties(
-            r.device).multi_processor_count
         _build.launch("rwkv6_wkv", "rt_wkv_fwd", r.device, *ptrs, b, s, h, hd,
                       hd // col_tiles(b, h, hd, n_sms), variant=var)
     return y, s_out
@@ -138,8 +167,11 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd}: the CUDA kernels are compiled for "
                          f"head_dim in {HEAD_DIMS}")
-    for name, x in (("r", r), ("k", k), ("v", v), ("w", w), ("u", u)):
+    var = variant(s, hd)
+    # rec and tc read s0 in 4-byte words; dec reads it in 16-byte groups
+    aligned = (("r", r), ("k", k), ("v", v), ("w", w), ("u", u))
+    for name, x in aligned + ((("s0", s0),) if var == "dec" else ()):
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel reads 16-byte groups; the "
                              "tensor's storage is not 16-byte aligned")
-    return _run(variant(s, hd), r, k, v, w, u, s0)
+    return _run(var, r, k, v, w, u, s0)

@@ -68,6 +68,25 @@ def test_join_kernels_match_plain(dev):
     assert dict(_build.launches) == dict(pack=1, probe=1, expand=1, gather=1)
 
 
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 1000, 1001, 4097])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "offset-view"])
+def test_pack_kernel_at_odd_lengths_and_offset_views(dev, n, offset):
+    """Every (c0, c1) alignment: odd n puts c1 8 bytes off a 16-byte
+    boundary, a view one word into its storage moves c0 there; values up
+    to 2^31 - 1. Bit for bit against the plain version, one launch."""
+    rng = np.random.default_rng(n + offset)
+    vals = rng.integers(0, 2**31, 2 * n + offset)
+    vals[offset::7] = 2**31 - 1
+    cols = _t(vals, dev)[offset:].view(2, n)
+    assert cols.data_ptr() % 16 == 8 * offset and cols.is_contiguous()
+    got = J.pack_keys(cols)
+    torch.cuda.synchronize()
+    assert torch.equal(got, J.pack_keys_plain(cols))
+    assert torch.equal(got.cpu(), torch.from_numpy(
+        J._pack_np(list(vals[offset:].reshape(2, n)))))
+    assert dict(_build.launches) == dict(pack=1)
+
+
 def test_pipeline_on_card_matches_host_reference(dev):
     rng = np.random.default_rng(6)
     lcs = [rng.integers(0, 50, 3000), rng.integers(0, 3, 3000)]
@@ -330,7 +349,8 @@ def test_lm_on_card_matches_cpu_and_launches_once_per_layer(dev):
 # chunk at hd 64 (S = 1, 63, 65, 100), hd 16 and 128, strong decay (w
 # about 0.03) and w = 0 exactly, nonzero s0, grids under one wave (column
 # tiles) and a full wave of whole heads at hd 128 (blocks of 1024 threads);
-# each runs the variant its length picks (tc from 64 steps up)
+# each runs the variant its length picks (dec for one step, tc from 64
+# steps up)
 WKV_CASES = [
     (4, 1, 40, 64, "model", 0.5),
     (2, 63, 8, 64, "model", 0.0),
@@ -403,6 +423,54 @@ def test_wkv_kernel_matches_plain(dev, case):
     got = W.wkv(*args)
     _wkv_ran(W.variant(case[1], case[3]))
     _wkv_close(got, W.wkv_plain(*args))
+
+
+# (B, S = 1, H, hd, w, s0 scale) through the dec kernel: rwkv6-3b's decode
+# shape, every hd, one warp in all (B * H * hd / 16 = 1), grids under a
+# wave and over one (1056 and 5120 warps), w = 0, strong decay, s0 zero
+WKV_DEC_CASES = [
+    (4, 1, 40, 64, "model", 0.5),
+    (2, 1, 3, 16, "model", 0.5),
+    (2, 1, 3, 32, "model", 0.5),
+    (1, 1, 2, 128, "model", 0.5),
+    (1, 1, 1, 16, "model", 1.0),
+    (33, 1, 4, 128, "model", 0.5),
+    (32, 1, 40, 64, "model", 0.5),
+    (2, 1, 4, 64, "zero", 0.5),
+    (2, 1, 4, 64, "strong", 0.5),
+    (3, 1, 5, 64, "model", 0.0),
+]
+
+
+@pytest.mark.parametrize("case", WKV_DEC_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_wkv_dec_kernel_matches_plain(dev, case):
+    args = _wkv_inputs(case, dev)
+    s0 = args[-1].clone()
+    assert W.variant(case[1], case[3]) == "dec"
+    y, st = W.wkv(*args)
+    _wkv_ran("dec")
+    _wkv_close((y, st), W.wkv_plain(*args))
+    assert torch.equal(args[-1], s0) and st.data_ptr() != s0.data_ptr()
+    if case[4] == "zero":                  # w = 0: s0 forgotten
+        k, v = args[1][:, 0], args[2][:, 0]
+        assert torch.equal(st, k[..., :, None] * v[..., None, :])
+
+
+def test_wkv_dec_kernel_refuses_a_misaligned_state(dev):
+    """dec reads s0 in 16-byte groups: a state one float into its storage
+    is refused, and nothing launches (rec, S = 2, still takes it)."""
+    r, k, v, w, u, s0 = _wkv_inputs((2, 1, 3, 64, "model", 0.5), dev)
+    buf = torch.empty(s0.numel() + 1, device=dev)
+    bad = buf[1:].view(s0.shape)
+    bad.copy_(s0)
+    assert bad.is_contiguous() and bad.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="s0: .*16-byte"):
+        W.wkv(r, k, v, w, u, bad)
+    assert not _build.launches
+    args2 = _wkv_inputs((2, 2, 3, 64, "model", 0.5), dev)
+    _wkv_close(W.wkv(*args2[:-1], bad), W.wkv_plain(*args2[:-1], s0))
+    _wkv_ran("rec")
 
 
 @pytest.mark.parametrize("case", WKV_TC_CASES,

@@ -393,7 +393,9 @@ def test_near_one_decay_over_2048_steps_against_float64(seed):
 
 
 def test_variant_routes_by_length_alone():
-    """tc from one chunk (64 steps) up, at every hd; rec below."""
+    """tc from one chunk (64 steps) up, at every hd; dec for one step;
+    rec for the rest below."""
     for hd in W.HEAD_DIMS:
-        assert [W.variant(s, hd) for s in (0, 1, 63)] == ["rec"] * 3
+        assert [W.variant(s, hd) for s in (0, 2, 63)] == ["rec"] * 3
+        assert W.variant(1, hd) == "dec"
         assert [W.variant(s, hd) for s in (64, 65, 2048)] == ["tc"] * 3
