@@ -16,10 +16,15 @@ Phases (any failure raises and ends the run with a nonzero exit):
    against the port's ``NumpyExecutor`` on the same facade and epoch
    (bindings and every ``ExecStats.COMPARABLE`` field). Kernel launch
    counts are reset just before and read just after; all five kernels must
-   have launched;
+   have launched. The run records what the main path hands the join
+   kernels: the largest join (most pairs), the join with the largest probe
+   side, the largest two-column key, and the largest federation
+   ``expand_segment_ids`` call (``query/exec.py`` ``_federation_bincounts``);
 3. a profile: the window executed again at the final layout, once under
    ``cProfile`` (host functions by self time) and once under
-   ``torch.profiler`` (wall time, the card's busy time and idle share);
+   ``torch.profiler`` (wall time, the card's busy time and idle share, the
+   top device operations, and always the device time and launches of
+   the five join and Jaccard kernels by name);
 4. the kernels: each against its plain PyTorch version on the card, at the
    largest shapes the main path gave it and at edge cases, exactly (the
    Jaccard kernel bitwise), with the device time per call (profiler) of
@@ -28,7 +33,15 @@ Phases (any failure raises and ends the run with a nonzero exit):
    and operations, and the per-call time with launch overhead (CUDA
    events); pack also at every alignment of its two columns (odd N, a
    view at an odd word offset, N = 1, 2, 3, values at 2^31 - 1), and timed
-   in turns with ``torch.add`` at the main path's N and at N - 1;
+   in turns with ``torch.add`` at the main path's N and at N - 1; the
+   launch floor (the device time of a one-element ``fill_``); probe at the
+   largest join and the largest probe side, at every group size of its
+   k-ary search (each held to the plain version) and in turns at the
+   group ``probe_group`` gives against one lane a key, and at every group
+   size over probe sides from 203 to 135,168 keys (the rule's thresholds);
+   expand at the largest join, the largest probe side's join and the
+   largest federation call, each beside ``repeat_interleave`` and its
+   bound;
 5. a small input: the LUBM(1) drain loop on the card and on the CPU must
    give byte-identical traces, windows and layouts;
 6. LM serving, the port's second path: qwen3-0.6b at full width and depth
@@ -295,6 +308,11 @@ def main_path(rec):
     return launches, svc, window
 
 
+# the join and Jaccard kernels, by the names the profiler gives them
+JOIN_KERNELS = ("pack2_kernel", "probe_kernel", "expand_kernel",
+                "gather_kernel", "jaccard_kernel")
+
+
 def profile_window(svc, window) -> None:
     """The window executed again by the torch executor at the final layout:
     once under ``cProfile`` (host functions by self time), once under
@@ -336,6 +354,21 @@ def profile_window(svc, window) -> None:
         f"{1 - busy / wall:.4f}, {len(dev)} device operations")
     for name, (n, t_us) in top:
         log(f"[profile]   {t_us / 1e3:9.3f} ms  {n:5d}x  {name[:90]}")
+    for kernel in JOIN_KERNELS:
+        us = sorted((e.device_time_total for e in dev
+                     if f"::{kernel}" in e.name), reverse=True)
+        # a kernel compiled in several forms (probe_kernel<G>) by form
+        forms = collections.Counter()
+        for e in dev:
+            if f"::{kernel}" in e.name:
+                forms[e.name.split("::")[-1].split("(")[0]] += \
+                    e.device_time_total
+        log(f"[profile]   {kernel}: {sum(us) / 1e3:.4f} ms over {len(us)} "
+            f"launches ({sum(us) / max(len(us), 1) / 1e3:.5f} ms a launch; "
+            f"longest {', '.join(f'{u / 1e3:.4f}' for u in us[:5])}); "
+            + "".join(f"{f} {t / 1e3:.4f} ms, "
+                      for f, t in sorted(forms.items()) if len(forms) > 1)
+            + card())
 
 
 # --------------------------------------------------------------------------- #
@@ -414,6 +447,28 @@ def kernels(rec, launches):
         starts = torch.cumsum(c, 0) - c
         _exact("expand edge", J.expand_pairs(lo, c),
                J.expand_pairs_plain(starts, lo, int(c.sum())))
+    # the k-ary probe at every group size: fewer build keys than lanes,
+    # keys near +-2^62, a run of equal keys across every splitter
+    run = t(np.r_[np.ones(10), np.full(1000, 5), np.full(10, 9)])
+    wide = t([-2**62 - 5, -2**62, -1, 0, 2**62, 2**62, 2**62 + 9])
+    for grp in (1, 2, 4, 8, 16, 32):
+        for b_, p_ in ((t([-4, 2, 2, 9, 11]), t([-5, -4, 2, 3, 11, 12])),
+                       (wide, t([-2**63, -2**62, 0, 2**62 + 9, 2**63 - 1])),
+                       (run, t([0, 1, 4, 5, 6, 9, 10]))):
+            _exact(f"probe edge, {grp} lanes a key", J._probe(b_, p_, grp),
+                   J.probe_sorted_plain(b_, p_))
+    # the merge-path expansion: a million empty segments, one segment over
+    # many tiles, a total off the tile size
+    million = np.zeros(1_000_000, np.int64)
+    million[[0, 499_999, 999_999]] = [3, 2 * J.EXPAND_TILE, 1]
+    many = np.zeros(7, np.int64)
+    many[3] = 9 * J.EXPAND_TILE + 5
+    for counts in (million, many, np.r_[2, np.ones(J.EXPAND_TILE + 2)]):
+        c = t(counts)
+        lo = t(rng.integers(-2**40, 2**40, len(counts)))
+        starts = torch.cumsum(c, 0) - c
+        _exact("expand edge", J.expand_pairs(lo, c),
+               J.expand_pairs_plain(starts, lo, int(c.sum())))
     vals = t(rng.integers(0, 2**40, 500))
     idx = t(rng.integers(-50, 550, 2000))
     _exact("gather edge", J.gather_rows(vals, idx, fill=-1),
@@ -488,31 +543,119 @@ def kernels(rec, launches):
             f"kernel {ks}; library {ls} (torch.add(c1, c0, alpha=2^31)); "
             f"{card()}")
 
-    lcs, rcs = rec["join"]
-    lk_cols = t(np.stack(lcs))
-    rk_cols = t(np.stack(rcs))
-    k, n = lk_cols.shape
-    m = rk_cols.shape[1]
+    # the floor any launch pays: the device time of a one-element fill_
+    one = torch.empty(1, dtype=torch.int64, device=dev)
+    floor_ms = device_ms(lambda: one.fill_(1))
+    log(f"[kernels] launch floor: a one-element fill_ takes {floor_ms:.5f} "
+        f"ms of device time; {card()}")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def probe_inputs(lcs, rcs):
+        lk = J.pack_keys(t(np.stack(lcs)))
+        rk_sorted, order = torch.sort(J.pack_keys(t(np.stack(rcs))),
+                                      stable=True)
+        return lk, rk_sorted, order
+
+    def probe_cost(n, m):
+        # two binary searches per probe key read at most ``steps`` build
+        # keys each key, and never more than the whole build side
+        steps = 2 * math.ceil(math.log2(m + 1))
+        return min(8 * m, 8 * n * steps) + 8 * n + 16 * n, 2 * steps * n
+
+    def probe_shape(what, rk_sorted, lk):
+        """Probe at one recorded shape: at every group size, each held to
+        the plain version, then the formula's group in turns with one
+        lane a key, beside searchsorted and the bound."""
+        n, m = lk.shape[0], rk_sorted.shape[0]
+        want = J.probe_sorted_plain(rk_sorted, lk)
+        g = J.probe_group(n, m, n_sms)
+        at = {}
+        for grp in (1, 2, 4, 8, 16, 32):
+            _exact(f"probe, {grp} lanes a key", J._probe(rk_sorted, lk, grp),
+                   want)
+            at[grp] = device_ms(lambda: J._probe(rk_sorted, lk, grp))
+        lib = device_ms(lambda: (torch.searchsorted(rk_sorted, lk),
+                                 torch.searchsorted(rk_sorted, lk,
+                                                    right=True)))
+        n_bytes, n_ops = probe_cost(n, m)
+        bound = max(n_bytes / HBM_BYTES_PER_S, n_ops / SCALAR_OPS_PER_S) * 1e3
+        # in turns with one lane a key, or with 32 where the rule gives 1
+        other = 1 if g != 1 else 32
+        turns = collections.defaultdict(list)
+        for grp in (g, other, other, g) * 2:
+            turns[grp].append(device_ms(lambda: J._probe(rk_sorted, lk, grp)))
+        log(f"[kernels] probe at the {what} (M={m}, N={n}; probe_group "
+            f"gives {g}): device ms per call by lanes a key "
+            + ", ".join(f"{k}: {v:.5f}" for k, v in at.items())
+            + f"; in turns {g} lanes "
+            + ", ".join(f"{x:.5f}" for x in turns[g]) + f"; {other} lanes "
+            + ", ".join(f"{x:.5f}" for x in turns[other])
+            + f"; library (searchsorted left + right) {lib:.5f}; bound "
+            f"{bound:.6f} ms; launch floor {floor_ms:.5f}; {card()}")
+
+    def expand_shape(what, lo, counts, starts, total):
+        """Expand at one recorded shape against its plain version, timed
+        beside repeat_interleave and the bound."""
+        s_ = counts.shape[0]
+        _exact(f"expand at the {what}",
+               J.expand_pairs(lo, counts, starts=starts, total=total),
+               J.expand_pairs_plain(starts, lo, total))
+        seg = torch.arange(s_, device=dev)
+        ms = device_ms(lambda: J.expand_pairs(lo, counts, starts=starts,
+                                              total=total))
+        lib = device_ms(lambda: torch.repeat_interleave(seg, counts,
+                                                        output_size=total))
+        bound = 16 * (s_ + total) / HBM_BYTES_PER_S * 1e3
+        log(f"[kernels] expand at the {what} (segments={s_}, total={total},"
+            f" {J.expand_tiles(total, s_)} tiles of {J.EXPAND_TILE}): device"
+            f" ms per call {ms:.5f}, library (repeat_interleave, li only) "
+            f"{lib:.5f}, bound {bound:.6f} ms (bytes), launch floor "
+            f"{floor_ms:.5f}; {card()}")
+
+    lk, rk_sorted, order = probe_inputs(*rec["join"])
+    n, m = lk.shape[0], rk_sorted.shape[0]
     log(f"[kernels] largest main-path join: probe side {n} rows, build "
-        f"side {m} rows, {k} key column(s), {rec['join_total']} pairs")
+        f"side {m} rows, {len(rec['join'][0])} key column(s), "
+        f"{rec['join_total']} pairs")
 
     # probe, over the stably sorted packed build side
-    lk = J.pack_keys(lk_cols)
-    rk_sorted, order = torch.sort(J.pack_keys(rk_cols), stable=True)
     lo, counts = J.probe_sorted(rk_sorted, lk)
     err = _exact("probe", (lo, counts), J.probe_sorted_plain(rk_sorted, lk))
-    # two binary searches per probe key read at most ``steps`` build keys
-    # each key, and never more than the whole build side
-    steps = 2 * math.ceil(math.log2(m + 1))
     report("probe", join_src, f"{join_ref}:127", err,
            lambda: J.probe_sorted(rk_sorted, lk),
            lambda: J.probe_sorted_plain(rk_sorted, lk),
            lambda: (torch.searchsorted(rk_sorted, lk),
                     torch.searchsorted(rk_sorted, lk, right=True)),
-           min(8 * m, 8 * n * steps) + 8 * n + 16 * n, 2 * steps * n,
-           f"M={m}, N={n}; library = searchsorted left + right")
+           *probe_cost(n, m),
+           f"M={m}, N={n}, {J.probe_group(n, m, n_sms)} lanes a key; "
+           "library = searchsorted left + right")
+    probe_shape("largest join", rk_sorted, lk)
+    # the group rule against the card: every group size at probe sides
+    # from the main path's smallest to past the rule's last threshold, keys
+    # drawn from the largest join's build side (half of them one above a
+    # build key)
+    for n_ in (203, 2112, 4224, 8448, 16896, 33792, 135168):
+        keys = rk_sorted[t(rng.integers(0, m, n_))] + t(rng.integers(0, 2, n_))
+        g = J.probe_group(n_, m, n_sms)
+        _exact("probe sweep", J.probe_sorted(rk_sorted, keys),
+               J.probe_sorted_plain(rk_sorted, keys))
+        at = {grp: device_ms(lambda: J._probe(rk_sorted, keys, grp))
+              for grp in (1, 4, 8, 16, 32)}
+        log(f"[kernels] probe sweep M={m}, N={n_}: device ms per call by "
+            "lanes a key " + ", ".join(f"{k}: {v:.5f}" for k, v in at.items())
+            + f"; probe_group gives {g}, the fastest was "
+            f"{min(at, key=at.get)}; {card()}")
+    plk, prk_sorted, _ = probe_inputs(*rec["probe"])
+    log(f"[kernels] the main path's largest probe side: {plk.shape[0]} "
+        f"rows, build side {prk_sorted.shape[0]} rows, "
+        f"{len(rec['probe'][0])} key column(s)")
+    probe_shape("largest probe side", prk_sorted, plk)
+    plo, pcounts = J.probe_sorted(prk_sorted, plk)
+    expand_shape("largest probe side", plo, pcounts,
+                 torch.cumsum(pcounts, 0) - pcounts, int(pcounts.sum()))
 
-    # expand, of the probe's match runs
+    # expand, of the probe's match runs: one search a tile, no output
+    # searches, so about two operations an output
     starts = torch.cumsum(counts, 0) - counts
     total = int(counts.sum())
     assert total == rec["join_total"]
@@ -524,9 +667,14 @@ def kernels(rec, launches):
            lambda: J.expand_pairs(lo, counts, starts=starts, total=total),
            lambda: J.expand_pairs_plain(starts, lo, total),
            lambda: torch.repeat_interleave(seg, counts, output_size=total),
-           16 * n + 16 * total, 2 * math.ceil(math.log2(n + 1)) * total,
+           16 * n + 16 * total, 2 * total,
            f"segments={n}, total={total}; library = repeat_interleave "
            "(li only)")
+    expand_shape("largest join", lo, counts, starts, total)
+    fed = rec["fed"]
+    fed_starts = torch.cumsum(fed, 0) - fed
+    expand_shape("largest federation call", torch.zeros_like(fed), fed,
+                 fed_starts, rec["fed_total"])
 
     # gather: ri = order[pos]
     err = _exact("gather", J.gather_rows(order, pos),
@@ -2062,11 +2210,14 @@ def main() -> int:
     _build.library()
 
     # record what the main path hands the kernels (the largest join's key
-    # columns, the largest two-column key, the adaptation round's bitmaps)
+    # columns, those of the join with the largest probe side, the largest
+    # two-column key, the largest federation segment expansion's counts,
+    # the adaptation round's bitmaps)
     # for the kernel phase: references only, nothing is copied or computed
     # inside the timed windows
-    rec = {"join_total": -1, "pack_n": -1}
+    rec = {"join_total": -1, "pack_n": -1, "probe_n": -1, "fed_total": -1}
     pipeline, jaccard = join_ops.hash_join_pipeline, jac_ops.jaccard_distance
+    segment_ids = join_ops.expand_segment_ids
 
     def recording_pipeline(lcs, rcs, **kw):
         out = pipeline(lcs, rcs, **kw)
@@ -2074,6 +2225,14 @@ def main() -> int:
             rec.update(join=(lcs, rcs), join_total=out[2])
         if len(lcs) == 2 and len(lcs[0]) > rec["pack_n"]:
             rec.update(pack=lcs, pack_n=len(lcs[0]))
+        if len(rcs[0]) and len(lcs[0]) > rec["probe_n"]:
+            rec.update(probe=(lcs, rcs), probe_n=len(lcs[0]))
+        return out
+
+    def recording_segment_ids(counts):
+        out = segment_ids(counts)
+        if out.shape[0] > rec["fed_total"]:
+            rec.update(fed=counts, fed_total=out.shape[0])
         return out
 
     def recording_jaccard(bitmaps, **kw):
@@ -2082,9 +2241,11 @@ def main() -> int:
         return jaccard(bitmaps, **kw)
 
     join_ops.hash_join_pipeline = recording_pipeline
+    join_ops.expand_segment_ids = recording_segment_ids
     jac_ops.jaccard_distance = recording_jaccard
     launches, svc, window = main_path(rec)
     join_ops.hash_join_pipeline = pipeline
+    join_ops.expand_segment_ids = segment_ids
     jac_ops.jaccard_distance = jaccard
     profile_window(svc, window)
 

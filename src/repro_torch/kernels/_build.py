@@ -42,8 +42,10 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 # lengths and scalars as c_int64)
 SIGNATURES = {
     "rt_pack_keys": (_P, _I64, _I64, _P, _P),
-    "rt_probe_sorted": (_P, _I64, _P, _I64, _P, _P, _P),
-    "rt_expand_pairs": (_P, _P, _I64, _I64, _P, _P, _P),
+    # build, m, probe, n, group, lo, counts, stream
+    "rt_probe_sorted": (_P, _I64, _P, _I64, _I64, _P, _P, _P),
+    # starts, lo, m, total, tile, li, pos, stream
+    "rt_expand_pairs": (_P, _P, _I64, _I64, _I64, _P, _P, _P),
     "rt_gather_rows": (_P, _I64, _P, _I64, _I64, _P, _P),
     "rt_jaccard_distance": (_P, _I64, _P, _I64, _I64, _P, _P),
     # q, k, v, o, B, S, T, H, K, D, causal, q_offset, kv_valid_len, dtype,

@@ -13,10 +13,9 @@ tensor's device answers it alone:
 The reference's envelopes are gone because the TPU limits they encoded do
 not exist on Hopper: the size floor (``dispatch.py:120``) and the probe and
 expand work caps existed because the TPU probe and expand are O(n*m)
-broadcast compares — the CUDA kernels binary-search per thread in
-O(n log m); the gather VMEM-residency cap existed because the TPU gather
-kept the whole table in one VMEM panel — the CUDA gather reads device
-memory; the int32 envelope existed because the TPU has no int64 — the CUDA
+broadcast compares — the CUDA kernels search in O(n log m); the gather
+VMEM-residency cap existed because the TPU gather kept the whole table in
+one VMEM panel — the CUDA gather reads device memory; the int32 envelope existed because the TPU has no int64 — the CUDA
 kernels carry int64 keys and indices natively.
 
 :func:`note_tier` keeps the reference's counter names,

@@ -163,12 +163,53 @@ def probe_sorted_plain(build_sorted: torch.Tensor, probe: torch.Tensor,
     return lo, hi - lo
 
 
+PROBE_MAX_GROUP = 32          # lanes a probe key takes, at most: a warp
+PROBE_MIN_GROUP = 4           # the fewest lanes worth a ballot
+PROBE_SM_THREADS = 512        # threads on an SM while a search stays bound
+                              # by latency (16 warps)
+
+
+def probe_group(n: int, m: int, n_sms: int) -> int:
+    """Lanes of the probe kernel that serve one probe key. The G lanes
+    load G splitters of the ``m`` build keys in one round trip, so a search
+    takes ``floor(log_{G+1} m) + 1`` rounds, but G times the loads of one
+    lane: wide groups pay while the card is nearly empty and cost once it
+    is busy. So G is the widest power of two ``<= 32`` with which ``n * G``
+    threads stay within ``PROBE_SM_THREADS`` on each of the card's
+    ``n_sms`` SMs; below ``PROBE_MIN_GROUP`` lanes, 1 (one lane runs a
+    plain pair of bisections, with no ballot, which beat 2 lanes at every
+    size timed on the H100). No more than the smallest power of two
+    ``>= m``, with which one round settles a key."""
+    g = PROBE_MAX_GROUP
+    while g >= PROBE_MIN_GROUP and n * g > n_sms * PROBE_SM_THREADS:
+        g //= 2
+    if g < PROBE_MIN_GROUP:
+        return 1
+    return min(g, 1 << max(m - 1, 0).bit_length())
+
+
+def _probe(build_sorted: torch.Tensor, probe: torch.Tensor, group: int,
+           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the probe kernel with ``group`` lanes a key on checked CUDA
+    inputs (:func:`probe_sorted` passes :func:`probe_group`'s; another
+    group is for timing the shapes of the search against each other)."""
+    n, m = probe.shape[0], build_sorted.shape[0]
+    lo = torch.empty(n, dtype=_I64, device=probe.device)
+    counts = torch.empty(n, dtype=_I64, device=probe.device)
+    if n:
+        _build.launch("probe", "rt_probe_sorted", probe.device,
+                      build_sorted.data_ptr(), m, probe.data_ptr(), n, group,
+                      lo.data_ptr(), counts.data_ptr())
+    return lo, counts
+
+
 def probe_sorted(build_sorted: torch.Tensor, probe: torch.Tensor,
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per probe key, ``(lo, counts)``: the searchsorted-left index of the
     key in the ascending int64 ``build_sorted`` and the length of its run of
     equal keys. Replaces ``probe_sorted_pallas`` (which returned lo/hi
-    counts from O(n*m) compares); here each thread binary-searches."""
+    counts from O(n*m) compares); here :func:`probe_group` lanes search
+    k-ary for each key, both bounds in the same rounds."""
     dev = probe.device
     _check("build_sorted", build_sorted, 1, dev)
     _check("probe", probe, 1, dev)
@@ -176,14 +217,9 @@ def probe_sorted(build_sorted: torch.Tensor, probe: torch.Tensor,
     dispatch.note_tier("join.probe_sorted", t)
     if t == "torch":
         return probe_sorted_plain(build_sorted, probe)
-    n, m = probe.shape[0], build_sorted.shape[0]
-    lo = torch.empty(n, dtype=_I64, device=dev)
-    counts = torch.empty(n, dtype=_I64, device=dev)
-    if n:
-        _build.launch("probe", "rt_probe_sorted", dev,
-                      build_sorted.data_ptr(), m, probe.data_ptr(), n,
-                      lo.data_ptr(), counts.data_ptr())
-    return lo, counts
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return _probe(build_sorted, probe,
+                  probe_group(probe.shape[0], build_sorted.shape[0], n_sms))
 
 
 # --------------------------------------------------------------------------- #
@@ -197,6 +233,19 @@ def expand_pairs_plain(starts: torch.Tensor, lo: torch.Tensor, total: int,
     return li, lo[li] + (j - starts[li])
 
 
+EXPAND_THREADS = 256          # threads of an expand block
+EXPAND_ITEMS = 3              # merge-path items one thread walks
+EXPAND_TILE = EXPAND_THREADS * EXPAND_ITEMS     # items of one block
+
+
+def expand_tiles(total: int, m: int) -> int:
+    """Blocks of the expand kernel: the merge of ``total`` output slots
+    with ``m`` segment starts, cut into tiles of ``EXPAND_TILE`` items.
+    Empty segments take up items too, so no block's work grows with the
+    lengths of runs of them."""
+    return -(-(total + m) // EXPAND_TILE)
+
+
 def expand_pairs(lo: torch.Tensor, counts: torch.Tensor, *,
                  starts: "torch.Tensor | None" = None,
                  total: "int | None" = None,
@@ -206,7 +255,8 @@ def expand_pairs(lo: torch.Tensor, counts: torch.Tensor, *,
     belongs to segment ``li[j]`` (zero-count segments own nothing) and
     ``pos[j] = lo[li[j]] + j - starts[li[j]]``. ``starts`` (the exclusive
     cumsum of ``counts``) and ``total`` are computed when not given.
-    Replaces ``expand_pairs_pallas``."""
+    Replaces ``expand_pairs_pallas``; the kernel walks the merge of output
+    slots and segment starts in :func:`expand_tiles` tiles."""
     dev = counts.device
     _check("lo", lo, 1, dev)
     _check("counts", counts, 1, dev)
@@ -225,8 +275,8 @@ def expand_pairs(lo: torch.Tensor, counts: torch.Tensor, *,
     pos = torch.empty(total, dtype=_I64, device=dev)
     if total:
         _build.launch("expand", "rt_expand_pairs", dev, starts.data_ptr(),
-                      lo.data_ptr(), starts.shape[0], total, li.data_ptr(),
-                      pos.data_ptr())
+                      lo.data_ptr(), starts.shape[0], total, EXPAND_TILE,
+                      li.data_ptr(), pos.data_ptr())
     return li, pos
 
 

@@ -114,6 +114,123 @@ def test_jaccard_kernel_bitwise(dev):
     assert _build.launches["jaccard"] == 1
 
 
+# the probe kernel's edges: (build, probe) as numpy arrays
+def _probe_edges(rng):
+    run = np.array([1] * 10 + [5] * 1000 + [9] * 10)
+    big = np.sort(rng.integers(-2**62, 2**62, 36_191))
+    return {
+        "m0": (np.array([], np.int64), np.array([-1, 0, 5])),
+        "m1": (np.array([7]), np.array([6, 7, 8])),
+        "n0": (np.arange(100), np.array([], np.int64)),
+        "m_below_g": (np.array([-4, 2, 2, 9, 11]),
+                      np.array([-5, -4, 2, 3, 11, 12])),
+        "all_equal": (np.full(300, 7), np.array([6, 7, 8])),
+        "near_2_62": (np.array([-2**62 - 5, -2**62, -1, 0, 2**62, 2**62,
+                                2**62 + 9]),
+                      np.array([-2**63, -2**62 - 5, -2**62, -1, 0, 2**62,
+                                2**62 + 9, 2**63 - 1])),
+        "run_across_splitters": (run, np.array([0, 1, 4, 5, 6, 9, 10])),
+        "random": (np.sort(rng.integers(0, 900, 4000)),
+                   rng.integers(-3, 905, 3001)),
+        "main_path_m": (big, np.concatenate([rng.choice(big, 150),
+                                             rng.integers(-2**62, 2**62,
+                                                          53)])),
+    }
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 16, 32])
+def test_probe_kernel_at_every_group_matches_plain(dev, g):
+    """The probe kernel at each group the formula can give, through its
+    private launcher, on every edge: exactly the plain version."""
+    for name, (build, probe) in _probe_edges(np.random.default_rng(g)) \
+            .items():
+        b, p = _t(build, dev), _t(probe, dev)
+        got = J._probe(b, p, g)
+        want = J.probe_sorted_plain(b, p)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]), (name, g)
+        assert torch.equal(got[1], want[1]), (name, g)
+    assert _build.launches["probe"] == 8        # n = 0 launches nothing
+    with pytest.raises(RuntimeError, match="failed to launch"):
+        J._probe(b, p, 3)
+
+
+def test_probe_group_thresholds_on_card(dev):
+    """probe_sorted at and either side of each threshold of probe_group on
+    this card's SM count: the group it gives, and exactly the plain
+    version."""
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    room = n_sms * J.PROBE_SM_THREADS
+    rng = np.random.default_rng(11)
+    build = torch.sort(_t(rng.integers(0, 10**6, 36_191), dev)).values
+    seen = set()
+    for g in (4, 8, 16, 32):
+        for n in (room // g - 1, room // g, room // g + 1):
+            probe = _t(rng.integers(-5, 10**6 + 5, n), dev)
+            seen.add(J.probe_group(n, build.shape[0], n_sms))
+            lo, counts = J.probe_sorted(build, probe)
+            plo, pcounts = J.probe_sorted_plain(build, probe)
+            torch.cuda.synchronize()
+            assert torch.equal(lo, plo) and torch.equal(counts, pcounts), n
+    assert seen == {1, 4, 8, 16, 32}
+
+
+def _expand_edges(rng):
+    d = J.EXPAND_TILE
+    zero_runs = rng.integers(0, 4, 3000)
+    zero_runs[100:2900] = 0
+    zero_runs[1500] = 5
+    lead, trail = rng.integers(0, 4, 3000), rng.integers(0, 4, 3000)
+    lead[:2500] = 0
+    trail[-2500:] = 0
+    many = np.zeros(7, np.int64)
+    many[3] = 9 * d + 5
+    million = np.zeros(1_000_000, np.int64)
+    million[[0, 499_999, 999_999]] = [3, 2 * d, 1]
+    return {"mixed": rng.integers(0, 4, 3000), "leading_zero": lead,
+            "trailing_zero": trail, "zero_runs": zero_runs,
+            "one_segment_many_tiles": many,
+            "off_tile_total": np.r_[2, np.ones(d + 2, np.int64)],
+            "ones": np.ones(5000, np.int64), "single": np.array([1]),
+            "million_empty": million,
+            # either side of the one-round search (at most 256 segments)
+            "256_segments": rng.integers(0, 9, 256),
+            "257_segments": rng.integers(0, 9, 257),
+            "main_path": np.r_[rng.integers(0, 7241, 203)]}
+
+
+def test_expand_kernel_matches_plain_at_edges(dev):
+    rng = np.random.default_rng(12)
+    edges = _expand_edges(rng)
+    for name, counts in edges.items():
+        c = _t(counts, dev)
+        lo = _t(rng.integers(-2**40, 2**40, len(counts)), dev)
+        starts = torch.cumsum(c, 0) - c
+        total = int(c.sum())
+        li, pos = J.expand_pairs(lo, c, starts=starts, total=total)
+        pli, ppos = J.expand_pairs_plain(starts, lo, total)
+        torch.cuda.synchronize()
+        assert torch.equal(li, pli) and torch.equal(pos, ppos), name
+    assert _build.launches["expand"] == len(edges)
+
+
+def test_expand_segment_ids_as_federation_counts_call_it(dev):
+    from repro_torch.query import exec as port_exec
+
+    rng = np.random.default_rng(13)
+    lens = rng.integers(0, 5000, 300)
+    lens[::7] = 0
+    seg = J.expand_segment_ids(_t(lens, dev))
+    torch.cuda.synchronize()
+    assert torch.equal(seg.cpu(), torch.repeat_interleave(
+        torch.arange(len(lens)), torch.from_numpy(lens)))
+    ids = [rng.integers(0, 8, n) for n in lens]
+    got = port_exec._federation_bincounts(ids, 8, dev)
+    want = port_exec._federation_bincounts(ids, 8, torch.device("cpu"))
+    np.testing.assert_array_equal(got, want)
+    assert _build.launches["expand"] == 2
+
+
 def test_wrappers_refuse_mixed_devices(dev):
     with pytest.raises(ValueError, match="expected cuda"):
         J.probe_sorted(torch.arange(4), torch.arange(3, device=dev))
