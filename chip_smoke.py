@@ -44,7 +44,33 @@ Phases (any failure raises and ends the run with a nonzero exit):
    bound;
 5. a small input: the LUBM(1) drain loop on the card and on the CPU must
    give byte-identical traces, windows and layouts;
-6. LM serving, the port's second path: qwen3-0.6b at full width and depth
+6. the paper's experiments (``repro_torch.launch.serve``): experiment 1
+   (workload composition change, LUBM(10) on 8 shards, AWAPart, 4 MiB
+   budget) and, on a fresh system, experiment 2 (``Q1`` hot at share 0.5)
+   on the torch executor, each against the same experiment on the numpy
+   executor with the Jaccard matrix on the CPU: every modeled time, the
+   accept decision, the plan's summary, the final layout and the printed
+   lines equal; launch counts reset just before each torch run and read
+   just after (all five KG kernels must launch); then the CLI
+   (``python -m repro_torch.launch.serve --experiment 1
+   --show-federated``) in a subprocess, its ``[exp1]`` lines against the
+   in-process run's;
+7. a WatDiv drift scenario: ``watdiv.load(640)`` (about 10 M triples) on
+   8 shards, AWAPart, 4 MiB budget; ``scenario.flash_crowd`` through
+   ``run_scenario`` adaptive and frozen on the torch executor, each against
+   the numpy executor's run (every ``WindowRecord``, the recoveries and
+   ``reactivity`` equal), launch counts reset just before each torch run
+   and read just after; ``stream_schedule`` against the synchronous
+   replay; generation, bootstrap and window wall times, one window again
+   under ``cProfile`` and ``torch.profiler`` (idle share, top device
+   operations), peak device memory beside the store's size;
+8. HAC and Jaccard at the new shapes: ``core.hac.hac_torch`` on the card
+   against ``hac_numpy`` (Z columns 0, 1 and 3 exactly, distances within
+   1e-5) at every Jaccard matrix of phases 6 and 7 and a seeded 512 x 512
+   matrix, for the three linkages, with its device time per call; the
+   Jaccard kernel bitwise against its plain version at the largest
+   bitmaps of phases 6 and 7, timed beside the launch floor and its bound;
+9. LM serving, the port's second path: qwen3-0.6b at full width and depth
    (random weights from a seeded generator, bf16 compute, flash attention)
    serves 4 prompts of 2048 tokens with one ``lm.prefill_step`` and 32
    greedy ``lm.decode_step``s against a 2080-slot cache. Launch counts are
@@ -56,8 +82,8 @@ Phases (any failure raises and ends the run with a nonzero exit):
    attention path's logits, (c) teacher-forced decode against the uncached
    forward, (d) the reduced config in float32 on the card against the CPU
    (each call on the variant its shape gives);
-7. the flash kernel against its plain version at the prefill and decode
-   shapes of phase 6 and at edge cases, each edge through the variant it
+10. the flash kernel against its plain version at the prefill and decode
+   shapes of phase 9 and at edge cases, each edge through the variant it
    must take, timed as in phase 4 beside ``scaled_dot_product_attention``
    and its bound (the larger of its bytes over 3.35 TB/s and its
    operations over 989 TFLOP/s bf16), and the decode call again over five
@@ -65,7 +91,7 @@ Phases (any failure raises and ends the run with a nonzero exit):
    scalar kernel, which decode steps ran before the dec kernel, timed at
    the decode shape beside it, warm and L2-cold, through its own launcher,
    and the dec kernel at other split counts than its rule gives;
-8. rwkv6-3b serving, the port's third path: full width and depth (random
+11. rwkv6-3b serving, the port's third path: full width and depth (random
    weights from a seeded generator, bf16 compute, the time mix in float32)
    serves 4 prompts of 2048 tokens with one ``lm.prefill_step`` and 32
    greedy ``lm.decode_step``s. Launch counts are reset just before and read
@@ -79,18 +105,18 @@ Phases (any failure raises and ends the run with a nonzero exit):
    the uncached forward, at full width in float32 (the bf16 numbers and the
    bf16-vs-float32 forward are printed beside it), (d) the reduced config in
    float32 on the card against the CPU;
-9. the WKV kernel against its plain version at edge cases, each through
+12. the WKV kernel against its plain version at edge cases, each through
    the variant it must take (s0 never written; a misaligned s0 refused by
    "dec" before any launch), and a 2048-step call with w within 1e-6 of 1
    through "tc" against a float64 recurrence; then timed as in phase 4:
-   "tc" at the prefill shape of phase 8 beside its bound (bytes over 3.35
+   "tc" at the prefill shape of phase 11 beside its bound (bytes over 3.35
    TB/s, its three TF32 products over 495 TFLOP/s) and the "rec" kernel at
    the same shape beside the same bytes bound (its operations over 67
    TFLOP/s float32); "dec" at the decode shape over 32 input sets in turn
    (L2-cold, as a decode step finds each layer's state) beside its bytes
    bound, and in turns dec and "rec" (through ``ops._run``), each warm
    and L2-cold;
-10. zamba2-7b serving, the port's fourth path: 81 Mamba2 layers at full
+13. zamba2-7b serving, the port's fourth path: 81 Mamba2 layers at full
    width with the shared attention + MLP block before every sixth
    (random weights from a seeded generator with ``mamba2_init``'s
    constants, bf16 compute, flash attention) serves 4 prompts of 2048
@@ -106,15 +132,15 @@ Phases (any failure raises and ends the run with a nonzero exit):
    flash against plain attention and (c) teacher-forced decode against
    the forward, both in float32 at full width and depth, (d) the reduced
    config in float32 on the card against the CPU;
-11. the SSD kernel against its plain version at edge cases, each through
+14. the SSD kernel against its plain version at edge cases, each through
    the variant it must take, and a long tiny-dt call through "tc" against
    a float64 recurrence; then timed as in phase 4: "tc" at the prefill
-   shape of phase 10 beside its bound (bytes over 3.35 TB/s, its three
+   shape of phase 13 beside its bound (bytes over 3.35 TB/s, its three
    TF32 products over 495 TFLOP/s) and the "rec" kernel at the same shape
    beside its scalar floor, "rec" at the decode shape (operations over 67
    TFLOP/s float32) over eight input sets in turn, so that each call finds
    its state outside the card's L2, as a decode step does; then the flash
-   kernel at zamba2-7b's prefill and decode shapes, as in phase 7.
+   kernel at zamba2-7b's prefill and decode shapes, as in phase 10.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -123,11 +149,15 @@ from __future__ import annotations
 
 import cProfile
 import collections
+import contextlib
 import dataclasses
 import functools
+import hashlib
+import io
 import itertools
 import json
 import math
+import os
 import pathlib
 import pstats
 import statistics
@@ -313,7 +343,7 @@ JOIN_KERNELS = ("pack2_kernel", "probe_kernel", "expand_kernel",
                 "gather_kernel", "jaccard_kernel")
 
 
-def profile_window(svc, window) -> None:
+def profile_window(svc, window, tag="profile") -> None:
     """The window executed again by the torch executor at the final layout:
     once under ``cProfile`` (host functions by self time), once under
     ``torch.profiler`` (wall time, the card's busy time and idle share,
@@ -326,13 +356,13 @@ def profile_window(svc, window) -> None:
     host.runcall(svc.executor.run_batch, plans, kg)
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t) * 1e3
-    log(f"[profile] host profile (cProfile, {host_ms:.1f} ms wall with its "
+    log(f"[{tag}] host profile (cProfile, {host_ms:.1f} ms wall with its "
         "overhead), functions by self time:")
     rows = sorted(pstats.Stats(host).stats.items(),
                   key=lambda kv: -kv[1][2])[:12]
     for (path, line, func), (_, ncalls, self_s, cum_s, _) in rows:
         where = f"{pathlib.Path(path).name}:{line}({func})"
-        log(f"[profile]   self {self_s * 1e3:8.1f} ms  cum {cum_s * 1e3:8.1f}"
+        log(f"[{tag}]   self {self_s * 1e3:8.1f} ms  cum {cum_s * 1e3:8.1f}"
             f" ms  {ncalls:6d}x  {where[:80]}")
     prof = torch.profiler
     acts = [prof.ProfilerActivity.CPU, prof.ProfilerActivity.CUDA]
@@ -349,11 +379,11 @@ def profile_window(svc, window) -> None:
         n, t_us = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (n + 1, t_us + e.device_time_total)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    log(f"[profile] window at the final layout: wall {wall * 1e3:.1f} ms, "
+    log(f"[{tag}] window at the final layout: wall {wall * 1e3:.1f} ms, "
         f"device busy {busy * 1e3:.3f} ms, idle share "
         f"{1 - busy / wall:.4f}, {len(dev)} device operations")
     for name, (n, t_us) in top:
-        log(f"[profile]   {t_us / 1e3:9.3f} ms  {n:5d}x  {name[:90]}")
+        log(f"[{tag}]   {t_us / 1e3:9.3f} ms  {n:5d}x  {name[:90]}")
     for kernel in JOIN_KERNELS:
         us = sorted((e.device_time_total for e in dev
                      if f"::{kernel}" in e.name), reverse=True)
@@ -363,7 +393,7 @@ def profile_window(svc, window) -> None:
             if f"::{kernel}" in e.name:
                 forms[e.name.split("::")[-1].split("(")[0]] += \
                     e.device_time_total
-        log(f"[profile]   {kernel}: {sum(us) / 1e3:.4f} ms over {len(us)} "
+        log(f"[{tag}]   {kernel}: {sum(us) / 1e3:.4f} ms over {len(us)} "
             f"launches ({sum(us) / max(len(us), 1) / 1e3:.5f} ms a launch; "
             f"longest {', '.join(f'{u / 1e3:.4f}' for u in us[:5])}); "
             + "".join(f"{f} {t / 1e3:.4f} ms, "
@@ -738,7 +768,332 @@ def small_input() -> None:
 
 
 # --------------------------------------------------------------------------- #
-# phase 6: LM serving, qwen3-0.6b at full width and depth
+# phase 6: the paper's experiments, held against the numpy executor
+# --------------------------------------------------------------------------- #
+
+KG_KERNELS = ("pack", "probe", "expand", "gather", "jaccard")
+
+
+def _timed_adapt(svc, walls):
+    """Wrap ``svc.adapt`` so each round's wall time lands in ``walls``."""
+    adapt = svc.adapt
+
+    def timed(*args, **kwargs):
+        t = time.perf_counter()
+        report = adapt(*args, **kwargs)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        return report
+    svc.adapt = timed
+
+
+def _experiment(serve, exp, executor, device):
+    """One ``serve.experiment1|2`` on a fresh LUBM(10)/8 system; returns the
+    result, its captured ``[exp]``/``[migrate]`` lines, the experiment's
+    wall time and its adaptation rounds' wall times."""
+    ds, svc = serve.build_system(10, 8, executor=executor, device=device,
+                                 migration_budget=MIGRATION_BUDGET)
+    rounds = []
+    _timed_adapt(svc, rounds)
+    run = serve.experiment1 if exp == 1 else serve.experiment2
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        out = run(ds, svc)
+    torch.cuda.synchronize()
+    return out, buf.getvalue().splitlines(), time.perf_counter() - t, rounds
+
+
+def _same_experiment(exp, got, want) -> None:
+    keys = (("initial", "adaptive") if exp == 1
+            else ("t_initial", "t_adaptive"))
+    for k in keys:
+        assert got[k] == want[k], (exp, k)
+    assert got["report"].accepted == want["report"].accepted, exp
+    assert got["report"].plan.summary() == want["report"].plan.summary()
+    assert np.array_equal(got["state"].feature_to_shard,
+                          want["state"].feature_to_shard), exp
+
+
+def paper_experiments(bitmaps) -> None:
+    """``launch/serve.py``'s experiments 1 and 2 at LUBM(10)/8 on the card
+    (torch executor), each against the same experiment on the numpy
+    executor with the adaptation's Jaccard matrix on the CPU, then the CLI
+    in a subprocess against the in-process run. ``bitmaps`` collects the
+    workload bitmaps the rounds hand the Jaccard kernel (phase 8)."""
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve
+
+    t_phase = time.perf_counter()
+    for exp in (1, 2):
+        tag = f"exp{exp}"
+        bitmaps.phase = f"6/{tag}"
+        _build.reset_launches()
+        got, lines, wall, rounds = _experiment(serve, exp, "torch", "cuda")
+        launches = dict(_build.launches)
+        bitmaps.phase = None
+        want, want_lines, want_wall, want_rounds = _experiment(
+            serve, exp, "numpy", "cpu")
+        _same_experiment(exp, got, want)
+        assert lines == want_lines, (lines, want_lines)
+        for line in lines:
+            log(f"[paper] {line}")
+        times = got["initial"] if exp == 1 else {"biased": got["t_initial"]}
+        log(f"[paper] {tag}: torch executor on the card: wall {wall:.3f} s,"
+            f" adaptation rounds {[round(r, 3) for r in rounds]} s; numpy "
+            f"executor: wall {want_wall:.3f} s, rounds "
+            f"{[round(r, 3) for r in want_rounds]} s; {len(times)} modeled "
+            "times, accept decision, plan and final layout equal; "
+            f"{card()}")
+        log(f"[paper] {tag} kernel launches: {launches}")
+        for k in KG_KERNELS:
+            assert launches.get(k, 0) > 0, f"{tag}: kernel {k} never launched"
+        if exp == 1:
+            exp1_lines = [ln for ln in lines if ln.startswith("[exp1]")]
+        del got, want
+    t = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--universities",
+         "10", "--shards", "8", "--experiment", "1", "--executor", "torch",
+         "--migration-budget", str(MIGRATION_BUDGET), "--show-federated"],
+        capture_output=True, text=True, timeout=600, cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+    assert cli.returncode == 0, cli.stderr[-4000:]
+    cli_lines = [ln for ln in cli.stdout.splitlines()
+                 if ln.startswith("[exp1]")]
+    assert cli_lines == exp1_lines and len(cli_lines) >= 4, cli.stdout
+    log(f"[paper] CLI: {cli.stdout.splitlines()[0]}")
+    fed = cli.stdout.split("Federated rewrite of Q9")[1].strip().splitlines()
+    for line in fed[1:]:
+        log(f"[paper] CLI rewrite: {line}")
+    log(f"[paper] CLI (python -m repro_torch.launch.serve --experiment 1) "
+        f"exit 0 in {time.perf_counter() - t:.1f} s, its [exp1] lines equal "
+        f"the in-process run's; phase wall {time.perf_counter() - t_phase:.1f}"
+        " s")
+
+
+# --------------------------------------------------------------------------- #
+# phase 7: a WatDiv drift scenario, held against the numpy executor
+# --------------------------------------------------------------------------- #
+
+# WatDiv at scale 640: about 10.0 M triples at the generator's 15.7 k
+# triples a unit, the size of WatDiv's smallest published dataset (scale
+# factor 100, 10 M triples), on 8 shards
+WATDIV_SCALE = 640
+
+
+def watdiv_drift(bitmaps) -> None:
+    """``scenario.flash_crowd`` over WatDiv on 8 shards (AWAPart, 4 MiB
+    migration budget): adaptive and frozen on the torch executor, each
+    record for record against the numpy executor (Jaccard on the CPU); the
+    streamed schedule against the synchronous replay; one window again
+    under ``torch.profiler``."""
+    from repro_torch import scenario as drift
+    from repro_torch.api import KGService
+    from repro_torch.graph import watdiv
+    from repro_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    ds = watdiv.load(WATDIV_SCALE, seed=0)
+    log(f"[watdiv] WatDiv({WATDIV_SCALE}): {ds.store.n_triples} triples, "
+        f"{len(ds.queries)} templates, generated in "
+        f"{time.perf_counter() - t:.2f} s")
+    scn = drift.flash_crowd(ds)
+    windows = scn.schedule(ds)
+
+    def service(executor, device, walls=None, digests=None):
+        t = time.perf_counter()
+        svc = KGService.from_dataset(ds, 8, executor=executor, device=device,
+                                     migration_budget=MIGRATION_BUDGET)
+        svc.bootstrap(scn.bootstrap_workload(ds))
+        torch.cuda.synchronize()
+        boot = time.perf_counter() - t
+        if walls is not None:
+            batch = svc.query_batch
+
+            def timed(queries):
+                t = time.perf_counter()
+                res = batch(queries)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t)
+                if digests is not None:
+                    digests.extend(_digest(b) for b, _ in res)
+                return res
+            svc.query_batch = timed
+        return svc, boot
+
+    runs = {}
+    for adapt in (True, False):
+        mode = "adaptive" if adapt else "frozen"
+        walls, rounds, digests = [], [], []
+        bitmaps.phase = f"7/{mode}"
+        svc, boot = service("torch", "cuda", walls,
+                            None if adapt else digests)
+        _timed_adapt(svc, rounds)
+        _build.reset_launches()
+        t = time.perf_counter()
+        rep = drift.run_scenario(svc, scn, ds, adapt=adapt, mode=mode)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        launches = dict(_build.launches)
+        bitmaps.phase = None
+        nsvc, _ = service("numpy", "cpu")
+        t = time.perf_counter()
+        want = drift.run_scenario(nsvc, scn, ds, adapt=adapt, mode=mode)
+        numpy_wall = time.perf_counter() - t
+        assert [dataclasses.astuple(w) for w in rep.windows] \
+            == [dataclasses.astuple(w) for w in want.windows], mode
+        assert [dataclasses.astuple(r) for r in rep.recoveries] \
+            == [dataclasses.astuple(r) for r in want.recoveries], mode
+        assert [dataclasses.astuple(r) for r in drift.reactivity(rep.windows)] \
+            == [dataclasses.astuple(r)
+                for r in drift.reactivity(want.windows)], mode
+        assert np.array_equal(svc.kg.state.feature_to_shard,
+                              nsvc.kg.state.feature_to_shard), mode
+        log(f"[watdiv] flash_crowd {mode}: bootstrap {boot:.3f} s, "
+            f"{len(rep.windows)} windows of {scn.queries_per_window} in "
+            f"{wall:.3f} s on the card (numpy executor {numpy_wall:.3f} s), "
+            "every WindowRecord and reactivity equal; window walls ms "
+            f"{[round(w * 1e3, 1) for w in walls]}; adaptation rounds "
+            f"{[round(r, 3) for r in rounds]} s; {card()}")
+        counters = svc.metrics.snapshot()["counters"]
+        log(f"[watdiv] {mode}: summary {rep.summary()}; adapted windows "
+            f"{[w.index for w in rep.windows if w.adapted]}; epochs "
+            f"{[w.epoch for w in rep.windows]}; window_ms "
+            f"{[round(w.window_ms, 1) for w in rep.windows]}; executed "
+            f"{counters.get('executor.queries', 0)} queries in "
+            f"{counters.get('executor.batches', 0)} batches, "
+            f"{counters.get('cache.result_hits', 0)} result-cache hits")
+        log(f"[watdiv] {mode} kernel launches: {launches}")
+        for k in KG_KERNELS if adapt else KG_KERNELS[:4]:
+            assert launches.get(k, 0) > 0, f"{mode}: kernel {k} never launched"
+        runs[mode] = (svc, digests)
+        del nsvc, want
+    # the streamed schedule against the synchronous (frozen) replay
+    ssvc, _ = service("torch", "cuda")
+    t = time.perf_counter()
+    _, results = drift.stream_schedule(ssvc, windows,
+                                       max_window=scn.queries_per_window)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t
+    sync = runs["frozen"][1]
+    assert [_digest(r.bindings) for r in results] == sync
+    log(f"[watdiv] stream_schedule: {len(results)} queries in "
+        f"{stream_s:.3f} s, bindings equal to the synchronous replay's")
+    del ssvc, results
+    svc = runs["adaptive"][0]
+    profile_window(svc, windows[len(windows) // 2].queries, tag="watdiv")
+    peak = torch.cuda.max_memory_allocated()
+    store_b = ds.store.triples.nbytes
+    log(f"[watdiv] peak device memory {peak / 2**30:.3f} GiB; the store, "
+        f"{ds.store.n_triples} triples x 3 int32 = {store_b / 2**20:.1f} MiB,"
+        " stays on the host: the card holds each window's matched columns "
+        f"and join tensors; phase wall {time.perf_counter() - t_phase:.1f} "
+        f"s; {card()}")
+    del runs, svc
+
+
+def _digest(bindings) -> tuple:
+    c = canon(bindings)
+    return c.shape, hashlib.sha256(c.tobytes()).hexdigest()
+
+
+# --------------------------------------------------------------------------- #
+# phase 8: HAC on the card, and Jaccard at the new paths' shapes
+# --------------------------------------------------------------------------- #
+
+def hac_and_jaccard(bitmaps) -> None:
+    """``hac_torch`` on the card against ``hac_numpy`` at the Jaccard
+    distances of phases 6 and 7 and at a seeded 512 x 512 matrix, for
+    every linkage; the Jaccard kernel bitwise against its plain version at
+    the largest bitmaps phases 6 and 7 gave it, timed beside the launch
+    floor and its bound."""
+    from repro_torch.core import hac
+    from repro_torch.kernels.jaccard import ops as jac
+
+    dev = torch.device("cuda")
+    mats = {}
+    for phase, bm in bitmaps.calls:
+        words = torch.from_numpy(np.ascontiguousarray(bm, np.uint32)
+                                 .view(np.int32)).to(dev)
+        key = (phase.split("/")[0], bm.shape, hashlib.sha256(
+            np.ascontiguousarray(bm).tobytes()).hexdigest())
+        mats.setdefault(key, (phase, words))
+    rng = np.random.default_rng(0)
+    rand = rng.random((512, 512)).astype(np.float32)
+    rand = (rand + rand.T) / 2
+    np.fill_diagonal(rand, 0)
+    cases = [(f"Jaccard {phase} {tuple(w.shape)}",
+              jac.distance(w, w).cpu().numpy())
+             for phase, w in mats.values()]
+    cases.append(("random 512 x 512 (seed 0)", rand))
+    assert any(c.startswith("Jaccard 6/") for c, _ in cases)
+    assert any(c.startswith("Jaccard 7/") for c, _ in cases)
+    for what, d in cases:
+        for linkage in ("single", "complete", "average"):
+            z = hac.hac_torch(d, linkage, device=dev)
+            assert z.device.type == "cuda"
+            z = z.cpu().numpy()
+            want = hac.hac_numpy(d.astype(np.float64), linkage)
+            assert np.array_equal(z[:, [0, 1, 3]], want[:, [0, 1, 3]]), \
+                (what, linkage)
+            err = float(np.abs(z[:, 2] - want[:, 2]).max()) if len(z) else 0
+            assert err <= 1e-5, (what, linkage, err)
+            ms = device_ms(lambda: hac.hac_torch(d, linkage, device=dev),
+                           reps=2)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            hac.hac_torch(d, linkage, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            log(f"[hac] {what}, {linkage}: Z columns 0, 1, 3 equal to "
+                f"hac_numpy, distances within {err:.2e} (limit 1e-5); "
+                f"device time per call {ms:.4f} ms over {len(z)} merges, "
+                f"wall {wall * 1e3:.1f} ms; {card()}")
+    one = torch.empty(1, dtype=torch.int64, device=dev)
+    floor_ms = device_ms(lambda: one.fill_(1))
+    for tag in ("6", "7"):
+        phase, a = max(((p, w) for (t, _, _), (p, w) in mats.items()
+                        if t == tag), key=lambda pw: pw[1].numel())
+        got, want = jac.distance(a, a), jac.distance_plain(a, a)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+            "jaccard: kernel not bitwise equal to its plain version"
+        q, w = a.shape
+        n_bytes, n_ops = 4 * 2 * q * w + 4 * q * q, 4 * q * q * w + 2 * q * q
+        bound = max(n_bytes / HBM_BYTES_PER_S, n_ops / SCALAR_OPS_PER_S) * 1e3
+        ms = device_ms(lambda: jac.distance(a, a))
+        log(f"[jaccard] largest bitmaps of phase {phase} (Q={q}, W={w}): "
+            f"bitwise equal to the plain version; device time per call "
+            f"{ms:.5f} ms, launch floor {floor_ms:.5f} ms (a one-element "
+            f"fill_), bound {bound:.7f} ms ({n_bytes} B / 3.35 TB/s, {n_ops}"
+            f" ops / 67 TOP/s); the floor is {floor_ms / ms:.2f} of the "
+            f"kernel's time; {card()}")
+
+
+class BitmapLog:
+    """The workload bitmaps each Jaccard call is handed while ``phase`` is
+    set (the torch runs of phases 6 and 7)."""
+
+    def __init__(self):
+        self.phase = None
+        self.calls = []
+
+    def install(self, jac_ops):
+        jaccard = jac_ops.jaccard_distance
+
+        def recording(bitmaps, **kw):
+            if self.phase is not None:
+                self.calls.append((self.phase, np.asarray(bitmaps)))
+            return jaccard(bitmaps, **kw)
+        jac_ops.jaccard_distance = recording
+        return jaccard
+
+
+# --------------------------------------------------------------------------- #
+# phase 9: LM serving, qwen3-0.6b at full width and depth
 # --------------------------------------------------------------------------- #
 
 # 4 requests of 2048 prompt tokens, then 32 greedy decode steps against a
@@ -1012,7 +1367,7 @@ def lm_serving():
 
 
 # --------------------------------------------------------------------------- #
-# phase 7: the flash kernel against its plain version
+# phase 10: the flash kernel against its plain version
 # --------------------------------------------------------------------------- #
 
 # (B, S, T, H, K, D, causal, q_offset, kv_valid_len, dtype, variant): S and
@@ -1264,7 +1619,7 @@ def _flash_split(var, q, k, v, splits, chunk=None, *, causal, q_offset,
 
 
 # --------------------------------------------------------------------------- #
-# phase 8: rwkv6-3b serving at full width and depth
+# phase 11: rwkv6-3b serving at full width and depth
 # --------------------------------------------------------------------------- #
 
 # 4 requests of 2048 prompt tokens, then 32 greedy decode steps. Cut from
@@ -1467,7 +1822,7 @@ def rwkv_serving():
 
 
 # --------------------------------------------------------------------------- #
-# phase 9: the WKV kernel against its plain version
+# phase 12: the WKV kernel against its plain version
 # --------------------------------------------------------------------------- #
 
 # (B, S, H, hd, decay, s0 scale, variant): S = 2 and 63 (the recurrence),
@@ -1724,7 +2079,7 @@ def wkv_kernel(rows, launches):
 
 
 # --------------------------------------------------------------------------- #
-# phase 10: zamba2-7b serving at full width and depth
+# phase 13: zamba2-7b serving at full width and depth
 # --------------------------------------------------------------------------- #
 
 # 4 requests of 2048 prompt tokens, then 32 greedy decode steps against a
@@ -1995,7 +2350,7 @@ def zamba_serving():
 
 
 # --------------------------------------------------------------------------- #
-# phase 11: the SSD kernel against its plain version
+# phase 14: the SSD kernel against its plain version
 # --------------------------------------------------------------------------- #
 
 # (B, S, H, hd, N, dt, s0, strided, variant): the decode shape (S = 1), S =
@@ -2251,6 +2606,14 @@ def main() -> int:
 
     rows = kernels(rec, launches)
     small_input()
+    bitmaps = BitmapLog()
+    jaccard = bitmaps.install(jac_ops)
+    paper_experiments(bitmaps)
+    watdiv_drift(bitmaps)
+    jac_ops.jaccard_distance = jaccard
+    hac_and_jaccard(bitmaps)
+    del svc, window, bitmaps
+    torch.cuda.empty_cache()       # the KG phases' services are gone
     lm_launches = lm_serving()
     flash_kernel(rows, lm_launches)
     torch.cuda.empty_cache()       # the qwen3 model and caches are gone

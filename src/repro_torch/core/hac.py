@@ -1,8 +1,11 @@
 """Hierarchical agglomerative clustering (Fig. 4) — single/complete/average linkage.
 
-``hac_numpy`` is the host-side implementation the adaptive controller runs
-(scipy-compatible merge list). The reference's jit-able ``hac_jax`` is off
-the serving path and not ported yet.
+Two implementations with identical semantics:
+  * ``hac_numpy`` — host-side reference (scipy-compatible merge list), the
+    one the adaptive controller runs;
+  * ``hac_torch`` — the same merges in float32 on a torch device (the card
+    unless the caller asks for the CPU), step for step the reference's
+    jit-able ``hac_jax``: plain PyTorch, off the serving path.
 
 Merges use Lance–Williams updates. Output is a scipy-style ``Z`` matrix
 (n-1, 4): [cluster_a, cluster_b, distance, new_size] with original leaves
@@ -13,6 +16,9 @@ line 5).
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from repro_torch.kernels import dispatch
 
 LINKAGES = ("single", "complete", "average")
 
@@ -54,6 +60,74 @@ def hac_numpy(dist: np.ndarray, linkage: str = "single") -> np.ndarray:
         active[j] = False
         sizes[i] += sizes[j]
         ids[i] = n + step
+    return z
+
+
+def _fma32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` for float32 tensors, rounded once, as a fused
+    multiply-add rounds it: the product is exact in float64 (24 × 24 bits),
+    the sum is rounded to odd there (TwoSum's error term picks the odd
+    neighbour) and then to float32, which rounds as one rounding would
+    (Boldo and Melquiond, 2008). Infinite sums pass through."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, float("inf"), float("-inf")).double()
+    nudge = torch.isfinite(s) & (err != 0) & even
+    return torch.where(nudge, torch.nextafter(s, toward), s).float()
+
+
+def hac_torch(dist, linkage: str = "single", *,
+              device="cuda") -> torch.Tensor:
+    """HAC in float32 on ``device``; the same Z as the reference's
+    ``hac_jax``: the diagonal set to +inf, n - 1 masked argmins over the
+    flattened matrix (ties to the first index), and the Lance–Williams row
+    updates in the same order of float32 operations: XLA contracts the
+    average linkage's ``n_i d_i + n_j d_j`` into one fused multiply-add on
+    the CPU, and so does :func:`_fma32`. Every index stays a one-element
+    tensor, so the loop never waits on the device."""
+    if linkage not in LINKAGES:
+        raise ValueError(f"unknown linkage {linkage!r}; expected one of "
+                         f"{list(LINKAGES)}")
+    dev = dispatch.resolve_device(device)
+    d = torch.as_tensor(dist, dtype=torch.float32, device=dev).clone(
+        memory_format=torch.contiguous_format)
+    n = d.shape[0]
+    big = float("inf")
+    diag = torch.arange(n, device=dev)
+    d[diag, diag] = big
+    flat_d = d.view(-1)
+    active = torch.ones(n, dtype=torch.bool, device=dev)
+    sizes = torch.ones(n, dtype=torch.float32, device=dev)
+    ids = torch.arange(n, dtype=torch.int32, device=dev)
+    z = torch.zeros((max(n - 1, 0), 4), dtype=torch.float32, device=dev)
+    for step in range(n - 1):
+        masked = torch.where(active[:, None] & active[None, :], d, big)
+        flat = torch.argmin(masked.view(-1), dim=0, keepdim=True)
+        i0, j0 = flat // n, flat % n
+        i, j = torch.minimum(i0, j0), torch.maximum(i0, j0)
+        dij = masked.view(-1).index_select(0, i * n + j)
+        id_i, id_j = ids.index_select(0, i), ids.index_select(0, j)
+        s_i, s_j = sizes.index_select(0, i), sizes.index_select(0, j)
+        z[step] = torch.cat([torch.minimum(id_i, id_j).float(),
+                             torch.maximum(id_i, id_j).float(),
+                             dij, s_i + s_j])
+        di, dj = d.index_select(0, i), d.index_select(0, j)
+        if linkage == "single":
+            new_row = torch.minimum(di, dj)
+        elif linkage == "complete":
+            new_row = torch.maximum(di, dj)
+        else:
+            new_row = _fma32(s_i, di, s_j * dj) / (s_i + s_j)
+        d.index_copy_(0, i, new_row)
+        d.index_copy_(1, i, new_row.t())
+        flat_d.index_fill_(0, i * n + i, big)
+        active.index_fill_(0, j, False)
+        sizes.index_copy_(0, i, s_i + s_j)
+        ids.index_fill_(0, i, n + step)
     return z
 
 

@@ -919,3 +919,54 @@ def test_zamba_on_card_matches_cpu_and_launches_once_per_layer(
     assert torch.allclose(out["cuda"][0], out["cpu"][0], atol=1e-4, rtol=0)
     for got, want in zip(out["cuda"][1], out["cpu"][1]):
         assert torch.allclose(got, want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("linkage", ["single", "complete", "average"])
+def test_hac_torch_on_card_equals_cpu(dev, linkage):
+    """hac_torch on the card gives the CPU's Z bit for bit (the same float32
+    operations, the average update's fused multiply-add emulated exactly),
+    and hac_numpy's merges (distances within 1e-5)."""
+    from repro_torch.core import hac
+
+    rng = np.random.default_rng(11)
+    bitmaps = rng.integers(0, 2 ** 32, (96, 3), dtype=np.uint32)
+    bitmaps[::5] = 0
+    bitmaps[::7] = bitmaps[1::7][:len(bitmaps[::7])]
+    jd = jac.jaccard_distance(bitmaps, device="cpu").numpy()
+    rd = rng.random((128, 128)).astype(np.float32)
+    rd = (rd + rd.T) / 2
+    np.fill_diagonal(rd, 0)
+    for d in (jd, rd):
+        z = hac.hac_torch(d, linkage, device=dev)
+        assert z.device.type == "cuda"
+        z = z.cpu().numpy()
+        np.testing.assert_array_equal(
+            z, hac.hac_torch(d, linkage, device="cpu").numpy())
+        want = hac.hac_numpy(d.astype(np.float64), linkage)
+        np.testing.assert_array_equal(z[:, [0, 1, 3]], want[:, [0, 1, 3]])
+        np.testing.assert_allclose(z[:, 2], want[:, 2], rtol=0, atol=1e-5)
+
+
+def test_serve_cli_on_card_equals_cpu(dev):
+    """``python -m repro_torch.launch.serve`` on the card (the default) and
+    with ``--device cpu`` print the same experiment lines and rewrite."""
+    import os
+    import subprocess
+    import sys
+
+    src = os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    out = {}
+    for extra in ((), ("--device", "cpu")):
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve",
+             "--universities", "1", "--shards", "4", "--experiment", "1",
+             "--migration-budget", "120000", "--show-federated", *extra],
+            env=env, capture_output=True, text=True, timeout=600)
+        assert run.returncode == 0, run.stderr
+        out[extra] = run.stdout
+    assert "device=cuda" in out[()]
+    assert "device=cpu" in out["--device", "cpu"]
+    # past the first line (load time, device): every line the same
+    card, cpu = (o.split("\n", 1)[1] for o in out.values())
+    assert card == cpu and "[exp1]" in card and "SERVICE" in card

@@ -14,7 +14,7 @@ the same bf16 products, summed in other orders); the reduced model's logits
 and caches within 2^-4, the limit ``chip_smoke.py`` sets for bf16 logits.
 
 The deep case (32 layers, as rwkv6-3b has, at d_model 256) is the witness
-for the bf16 teacher-forced check of ``chip_smoke.py`` phase 8: at that
+for the bf16 teacher-forced check of ``chip_smoke.py`` phase 11: at that
 depth bf16 rounding alone moves the reference's own logits past 2^-4, and
 the port's bf16 logits lie as far from the reference's as the reference's
 bf16 logits lie from its float32 ones.

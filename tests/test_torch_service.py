@@ -167,9 +167,28 @@ for key in zbig:
 for pos in (8, 9):
     zlogits, zbig = lm.decode_step(
         zmodel, zbig, {"token": zlogits.argmax(-1), "pos": pos}, zcfg)
+from repro_torch import scenario
+from repro_torch.core import hac
+from repro_torch.graph import watdiv
+from repro_torch.launch import serve
+from repro_torch.query import engine, rewrite
+wds = watdiv.load(1, seed=0)
+one = scenario.DriftScenario("one", (scenario.Phase(
+    "p", 1, tuple((n, 1.0) for n in sorted(wds.queries))),),
+    queries_per_window=4)
+wsvc = KGService.from_dataset(wds, n_shards=4, device="cpu")
+wsvc.bootstrap(one.bootstrap_workload(wds))
+wrep = scenario.run_scenario(wsvc, one, wds, adapt=True)
+sds, ssvc = serve.build_system(1, 4, device="cpu")
+exp2 = serve.experiment2(sds, ssvc, verbose=False)
+fed = rewrite.federated_sparql(sds.queries["Q9"], ssvc.space, ssvc.kg.state)
+z = hac.hac_torch(np.eye(3, dtype=np.float32), device="cpu")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"accepted": rep.accepted, "bad": bad,
+                  "windows": len(wrep.windows),
+                  "exp2": exp2["t_adaptive"] > 0, "fed": "SELECT" in fed,
+                  "z": list(z.shape),
                   "logits": list(logits.shape),
                   "rwkv_logits": list(rlogits.shape),
                   "zamba_logits": list(zlogits.shape)}))
@@ -183,7 +202,8 @@ def test_port_loop_loads_neither_jax_nor_reference():
     assert out.returncode == 0, out.stderr
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"accepted": True, "bad": [], "logits": [2, 128],
-                   "rwkv_logits": [2, 128], "zamba_logits": [2, 128]}
+                   "rwkv_logits": [2, 128], "zamba_logits": [2, 128],
+                   "windows": 1, "exp2": True, "fed": True, "z": [2, 4]}
 
 
 def test_default_device_is_the_card(small_lubm):

@@ -21,7 +21,7 @@ bf16 logits.
 
 The deep case (81 layers, as zamba2-7b has, at d_model 256 with the shared
 block before every sixth) is the witness for the float32 checks (b) and (c)
-of ``chip_smoke.py`` phase 10: at that depth bf16 rounding alone moves the
+of ``chip_smoke.py`` phase 13: at that depth bf16 rounding alone moves the
 reference's own logits past 2^-4 of its float32 logits, and the port's
 bf16 logits lie about as far from the reference's.
 """
