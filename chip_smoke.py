@@ -1,6 +1,7 @@
 """Smoke run of repro_torch on one CUDA card: build the kernels, hold each
 against its plain PyTorch version, drive the AWAPart serving loop and the
-LM serving paths end to end on the card, and report.
+LM serving paths (MoE with AWAPart expert placement among them) end to
+end on the card, and report.
 
     python3 chip_smoke.py
 
@@ -140,7 +141,32 @@ Phases (any failure raises and ends the run with a nonzero exit):
    beside its scalar floor, "rec" at the decode shape (operations over 67
    TFLOP/s float32) over eight input sets in turn, so that each call finds
    its state outside the card's L2, as a decode step does; then the flash
-   kernel at zamba2-7b's prefill and decode shapes, as in phase 10.
+   kernel at zamba2-7b's prefill and decode shapes, as in phase 10;
+15. MoE serving, the port's fifth path: olmoe-1b-7b at full width and
+   depth (16 layers, 64 experts top-8; float32 parameters, bf16 compute,
+   flash attention, random weights from a seeded generator) serves 4
+   prompts of 2048 tokens with one ``lm.prefill_step`` and 32 greedy
+   ``lm.decode_step``s. Launch counts are reset just before and read just
+   after: flash once per layer in the prefill, all "tc", and in every
+   decode step, all "dec". Then: wall times, tokens/s, peak memory, the
+   idle share, device operations a layer and the top device operations
+   over a decode step and a prefill; check (p): one
+   ``core.placement.plan_expert_placement`` a layer on topical routing
+   (as ``examples/adaptive_moe.py`` draws it), its Jaccard matrix on the
+   card (one launch a layer), map and report equal to the same plan on
+   the CPU, each accepted map applied with ``apply_expert_placement``,
+   and the same requests served again bit for bit; checks (b) flash
+   against plain attention and (c) teacher-forced decode against the
+   forward, in float32 at full width and depth, and (d) the reduced
+   config card against CPU, each comparing every layer's routes (top-k
+   sets) token by token: a differing route passes where the oracle's gap
+   between its k-th and (k+1)-th router logits is under 2^-10, and the
+   rows whose routes agree are held to the limits; then the flash kernel
+   at the prefill and decode shapes and the Jaccard kernel at the
+   placement shape against their plain versions, timed as in phase 10;
+16. the same for qwen3-moe-30b-a3b (48 layers, 128 experts top-8, GQA
+   32/4) in bfloat16 parameters (61 GB), its float32 checks (b) and (c)
+   at full width and 12 of the 48 layers.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -1157,7 +1183,7 @@ def _profile_idle(label, run, ref_wall, prefix, share_of=None) -> None:
     """The card's busy time and idle share over one call of ``run``
     (``torch.profiler``), against the unprofiled ``ref_wall`` too; with
     ``share_of``, the share of device time of the kernels whose name holds
-    it."""
+    it. Returns the number of device operations."""
     prof = torch.profiler
     acts = [prof.ProfilerActivity.CPU, prof.ProfilerActivity.CUDA]
     for attempt in range(4):           # an empty trace is taken again
@@ -1191,6 +1217,7 @@ def _profile_idle(label, run, ref_wall, prefix, share_of=None) -> None:
                    if share_of in name) / 1e6
         log(f"[{prefix}] {label}: kernels named '{share_of}' take "
             f"{mine * 1e3:.3f} ms, {mine / busy:.4f} of the device time")
+    return len(dev_ev)
 
 
 def _copy_caches(pre, big, n):
@@ -2543,6 +2570,487 @@ def ssd_kernel(rows, launches):
                    "computes it", plain_reps=reps, variant=var, **rate)
 
 
+# --------------------------------------------------------------------------- #
+# phases 15 and 16: mixture-of-experts serving with AWAPart expert placement
+# --------------------------------------------------------------------------- #
+
+# (config, log prefix, parameter dtype, layers of the float32 checks (b)
+# and (c), None for all). Both serve phase 9's requests: 4 prompts of 2048
+# tokens, then 32 greedy decode steps against a 2080-slot cache (cut from
+# prefill_32k and decode_32k as there). olmoe-1b-7b keeps its config's
+# float32 parameters (27.7 GB, and a 13.8 GB bf16 copy for the bf16
+# compute); qwen3-moe-30b-a3b serves in bfloat16 parameters, the published
+# checkpoint's dtype: in float32 its 30.5 B parameters, 122 GB, do not fit
+# the card. Its float32 checks run at full width and 12 of its 48 layers
+# (about 32 GB of float32 weights).
+MOE_PHASES = (("olmoe-1b-7b", "olmoe", "float32", None),
+              ("qwen3-moe-30b-a3b", "qmoe", "bfloat16", 12))
+# checks (b) and (c) in float32, as zamba2-7b's: the same float32 sums in
+# other orders through 12 or 16 layers, held within this share of the
+# largest logit on the rows whose routes agree
+MOE_F32_REL = 2.0 ** -12
+# a route that differs between two float32 runs (its top-k set, in one
+# layer, at one token) passes where the oracle's gap between its k-th and
+# (k+1)-th router logits is under this: the two runs' hidden states differ
+# by float32 rounding (about 1e-6 relative, more in the layers after
+# another token's route differed), so router logits of order 1 differ by
+# about 1e-5 at most; the limit leaves a factor 100
+MOE_ROUTE_GAP = 2.0 ** -10
+# check (p): each layer's routing drawn as examples/adaptive_moe.py draws
+# it: every request takes the k experts of one topic (topics of k experts:
+# 8 at 64 experts, 16 at 128), each pick replaced by a random expert with
+# probability 0.1; 2048 requests a layer, 16 expert-parallel ranks
+MOE_PLACE_REQUESTS, MOE_PLACE_RANKS, MOE_PLACE_NOISE = 2048, 16, 0.1
+
+
+def topical_routing(rng, n_requests, n_experts, k, noise=MOE_PLACE_NOISE):
+    """(n_requests, k) expert ids with topical structure (check (p))."""
+    topics = rng.permutation(n_experts).reshape(-1, k)
+    out = np.empty((n_requests, k), np.int64)
+    for i in range(n_requests):
+        t = topics[rng.integers(len(topics))]
+        picks = list(rng.permutation(t)[:k])
+        for j in range(k):
+            if rng.random() < noise:
+                picks[j] = int(rng.integers(n_experts))
+        out[i] = picks
+    return out
+
+
+class RouteLog:
+    """Each ``models.moe._router`` call while watching: its top-k sets
+    (sorted expert ids, (T, k)) and the gap between its k-th and (k+1)-th
+    router logits (T,), both on the host."""
+
+    def __init__(self):
+        self.calls = []
+
+    @contextlib.contextmanager
+    def watching(self):
+        from repro_torch.models import moe
+
+        router = moe._router
+
+        def recording(p, x2d, cfg):
+            out = router(p, x2d, cfg)
+            top = torch.topk(x2d.float() @ p.wr.float(), cfg.top_k + 1,
+                             dim=-1).values
+            self.calls.append((torch.sort(out[1], -1).values.cpu(),
+                               (top[:, -2] - top[:, -1]).cpu()))
+            return out
+        moe._router = recording
+        try:
+            yield self
+        finally:
+            moe._router = router
+
+    def routes(self, n_layers, batch, lengths):
+        """(L, B, P, k) ids and (L, B, P) gaps over the positions of calls
+        made segment by segment (a prefill of ``n`` positions, a decode
+        step of one), each segment's layers in order."""
+        ids, gaps = [], []
+        it = iter(self.calls)
+        for n in lengths:
+            seg = [next(it) for _ in range(n_layers)]
+            ids.append(torch.stack([c[0].reshape(batch, n, -1)
+                                    for c in seg]))
+            gaps.append(torch.stack([c[1].reshape(batch, n) for c in seg]))
+        assert next(it, None) is None, "more router calls than segments"
+        return torch.cat(ids, 2), torch.cat(gaps, 2)
+
+
+def _route_check(prefix, what, got, want):
+    """The routes of a run, ``got``, against the oracle's, ``want`` ((ids,
+    gaps) from ``RouteLog.routes``). A differing route is a root where no
+    route of its sequence differs in an earlier layer at its position or
+    before: only rounding explains a root, and its oracle gap must be
+    under ``MOE_ROUTE_GAP``. The others follow from a root (the token's
+    own hidden state, or through attention later tokens', moved with the
+    root's experts) and are printed. Returns the (B, P) mask of the rows
+    at or after a differing route of their sequence."""
+    diff = (got[0] != want[0]).any(-1)                 # (L, B, P)
+    seen = torch.zeros_like(diff[0])
+    roots = torch.zeros_like(diff)
+    for layer in range(diff.shape[0]):
+        roots[layer] = diff[layer] & ~seen
+        seen |= diff[layer].cumsum(-1) > 0
+    spans = []
+    for mask in (roots, diff & ~roots):
+        gaps = want[1][mask]
+        spans.append(f"{int(mask.sum())}, oracle gaps "
+                     f"{float(gaps.min()):.3e} to {float(gaps.max()):.3e}"
+                     if bool(mask.any()) else "0")
+    log(f"[{prefix}] routes {what}: {int(diff.sum())} of {diff.numel()} "
+        f"(layer, token) top-{got[0].shape[-1]} sets differ; roots "
+        f"{spans[0]} (limit {MOE_ROUTE_GAP:.3e}); following a root "
+        f"{spans[1]}; rows at or after one: "
+        f"{int((diff.any(0).cumsum(-1) > 0).sum())} of {diff[0].numel()}")
+    gaps = want[1][roots]
+    assert not bool(roots.any()) or float(gaps.max()) < MOE_ROUTE_GAP, what
+    return diff.any(0).cumsum(-1) > 0
+
+
+def _rows_check(prefix, what, chunks, limit) -> float:
+    """max |got - want| over the rows whose routes agree, within ``limit``
+    of the largest |want|; ``chunks``: (got, want, flipped) triples of
+    (rows..., V) logits and their rows' masks. The other rows' difference
+    is printed beside it."""
+    err = scale = off = 0.0
+    kept = rows = 0
+    for got, want, flipped in chunks:
+        keep = ~flipped.to(got.device)
+        assert bool(torch.isfinite(got).all()), what
+        scale = max(scale, float(want.abs().max()))
+        if bool(keep.any()):
+            err = max(err, float((got[keep] - want[keep]).abs().max()))
+        if not bool(keep.all()):
+            off = max(off, float((got[~keep] - want[~keep]).abs().max()))
+        kept, rows = kept + int(keep.sum()), rows + keep.numel()
+    assert kept, f"{what}: every row's routes differ"
+    log(f"[{prefix}] check {what}: {kept} of {rows} rows with equal "
+        f"routes: max abs diff {err:.6g}, max |logit| {scale:.4f}, ratio "
+        f"{err / scale:.6g} (limit {limit:.6g}); the other rows' max abs "
+        f"diff {off:.6g}")
+    assert err <= limit * scale, what
+    return err / scale
+
+
+def _serve(model, cfg, prompts, dev, transformer, lm):
+    """One prefill and LM_NEW greedy decode steps: the prefill logits, the
+    decode steps' logits and tokens, the last step's input token and the
+    caches, and the walls and flash launches and variants of each."""
+    from repro_torch.kernels import _build
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits, pre = lm.prefill_step(model, {"tokens": prompts}, cfg)
+    torch.cuda.synchronize()
+    st = dict(prefill_s=time.perf_counter() - t,
+              n_prefill=_build.launches[FLASH], prefill_var=flash_variants(),
+              per_step=[], step_var=[])
+    caches = _fill_cache(cfg, pre, LM_PROMPT, dev, transformer)
+    del pre
+    torch.cuda.synchronize()
+    tok, first, steps, out = logits.argmax(-1), logits, [], []
+    t = time.perf_counter()
+    for i in range(LM_NEW):
+        before, before_var = _build.launches[FLASH], flash_variants()
+        last_tok = tok
+        logits, caches = lm.decode_step(
+            model, caches, {"token": tok, "pos": LM_PROMPT + i}, cfg)
+        st["per_step"].append(_build.launches[FLASH] - before)
+        st["step_var"].append(flash_variants(before_var))
+        steps.append(logits)
+        tok = logits.argmax(-1)
+        out.append(tok)
+    torch.cuda.synchronize()
+    st["decode_s"] = time.perf_counter() - t
+    return (first, torch.stack(steps, 1), torch.stack(out, 1), last_tok,
+            caches, st)
+
+
+def _placement_round(model, cfg, prefix, dev, placement):
+    """Check (p)'s round: one ``plan_expert_placement`` a layer on the
+    card, equal to the same plan on the CPU, each accepted map applied.
+    Returns the round's kernel launches."""
+    from repro_torch.kernels import _build
+
+    rng = np.random.default_rng(0)
+    nbytes = 3 * cfg.d_model * cfg.d_ff * (4 if cfg.param_dtype == "float32"
+                                           else 2)
+    _build.reset_launches()
+    reports, plan_s = [], 0.0
+    for i, blk in enumerate(model.blocks):
+        routing = topical_routing(rng, MOE_PLACE_REQUESTS, cfg.n_experts,
+                                  cfg.top_k)
+        before = _build.launches["jaccard"]
+        t = time.perf_counter()
+        e2r, rep = placement.plan_expert_placement(
+            routing, cfg.n_experts, MOE_PLACE_RANKS, None, nbytes,
+            device=dev)
+        plan_s += time.perf_counter() - t
+        assert _build.launches["jaccard"] == before + 1, i
+        want = placement.plan_expert_placement(
+            routing, cfg.n_experts, MOE_PLACE_RANKS, None, nbytes,
+            device="cpu")
+        assert np.array_equal(e2r, want[0]) and rep == want[1], i
+        reports.append(rep)
+        if rep.accepted:
+            blk.moe.load_state_dict(placement.apply_expert_placement(
+                blk.moe.state_dict(), e2r))
+    torch.cuda.synchronize()
+    acc = [r for r in reports if r.accepted]
+    log(f"[{prefix}] (p) placement: {len(acc)} of {len(reports)} layers "
+        f"accepted; distinct ranks a token (mean) "
+        f"{statistics.fmean(r.ranks_before for r in reports):.4f} -> "
+        f"{statistics.fmean(r.ranks_after for r in reports):.4f}; "
+        f"{sum(r.moved_experts for r in acc)} experts moved, "
+        f"{sum(r.migration_bytes for r in acc)} B; plan wall {plan_s:.2f} s; "
+        f"every layer's map and report equal to the CPU plan's; launches "
+        f"{dict(_build.launches)}")
+    assert acc, "no layer's placement was accepted"
+    return dict(_build.launches)
+
+
+def moe_serving(arch, prefix, param_dtype, f32_layers):
+    """Phase 15 (olmoe-1b-7b) or 16 (qwen3-moe-30b-a3b): serving at full
+    width and depth, check (p), then checks (b) and (c) in float32 at
+    ``f32_layers`` layers (all when None) and (d). Returns the serving
+    run's launches and check (p)'s round's."""
+    from repro_torch import configs
+    from repro_torch.core import placement
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.models import lm, transformer
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(configs.get(arch), use_flash=True,
+                              param_dtype=param_dtype)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    model = lm.init_params(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    # (a comprehension: a loop variable would keep one layer's view, and
+    # with it the whole stacked leaf, alive after the model is freed)
+    by_dtype = collections.Counter()
+    for dt, numel in [(str(t.dtype), t.numel()) for t in model.parameters()]:
+        by_dtype[dt] += numel
+    experts = 3 * cfg.n_layers * cfg.n_experts * cfg.d_model * cfg.d_ff
+    log(f"[{prefix}] {cfg.arch_id}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads x "
+        f"{cfg.resolved_head_dim}, {cfg.n_experts} experts top-"
+        f"{cfg.top_k}, expert ff {cfg.d_ff}, vocab {cfg.vocab_size}; "
+        f"{sum(by_dtype.values())} parameters held ({dict(by_dtype)}; "
+        f"{experts} in experts), drawn in {cfg.param_dtype}, compute "
+        f"{cfg.compute_dtype}, random (seed 0), built in "
+        f"{time.perf_counter() - t:.2f} s")
+    _mem("weights (the peak is the draw's)", prefix)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=torch.Generator(device=dev)
+                            .manual_seed(1), device=dev, dtype=torch.int32)
+    lm.prefill_step(model, {"tokens": prompts}, cfg)   # warm-up
+    torch.cuda.synchronize()
+
+    # the main path: one prefill, 32 greedy decode steps
+    _build.reset_launches()
+    first, steps, generated, last_tok, caches, st = _serve(
+        model, cfg, prompts, dev, transformer, lm)
+    launches = dict(_build.launches)
+    _mem("prefill + decode", prefix)
+    assert generated.shape == (LM_BATCH, LM_NEW)
+    assert torch.isfinite(steps).all()
+    tokens = LM_BATCH * LM_PROMPT
+    log(f"[{prefix}] prefill {LM_BATCH} x {LM_PROMPT} tokens: wall "
+        f"{st['prefill_s'] * 1e3:.1f} ms, {tokens / st['prefill_s']:.0f} "
+        f"tokens/s; {card()}")
+    log(f"[{prefix}] decode {LM_NEW} steps x {LM_BATCH} sequences: wall "
+        f"{st['decode_s'] * 1e3:.1f} ms, {st['decode_s'] / LM_NEW * 1e3:.3f}"
+        f" ms per step, {LM_BATCH * LM_NEW / st['decode_s']:.1f} tokens/s; "
+        f"{card()}")
+    log(f"[{prefix}] flash launches: prefill {st['n_prefill']}, per decode "
+        f"step {sorted(set(st['per_step']))}, total "
+        f"{launches.get(FLASH, 0)}; variants: prefill {st['prefill_var']}, "
+        f"decode steps {_distinct(st['step_var'])}")
+    # (a) one flash launch per layer: the prefill's on the tensor cores,
+    # each decode step's on the dec kernel
+    n = cfg.n_layers
+    assert st["n_prefill"] == n, st["n_prefill"]
+    assert st["per_step"] == [n] * LM_NEW, st["per_step"]
+    assert st["prefill_var"] == dict(tc=n, scalar=0, dec=0)
+    assert st["step_var"] == [dict(tc=0, scalar=0, dec=n)] * LM_NEW
+    # the card's busy and idle share over one decode step (the last step
+    # again) and a prefill; device operations a layer; flash's share
+    n_ops = _profile_idle("decode step", lambda: lm.decode_step(
+        model, caches, {"token": last_tok, "pos": LM_CACHE - 1}, cfg),
+        st["decode_s"] / LM_NEW, prefix, share_of="flash")
+    log(f"[{prefix}] decode step: {n_ops / n:.1f} device operations a "
+        "layer (each expert the layer's 4 tokens routed to: a gather, "
+        "three GEMMs, silu, two products, an index_add)")
+    n_ops = _profile_idle(
+        "prefill", lambda: lm.prefill_step(model, {"tokens": prompts}, cfg),
+        st["prefill_s"], prefix, share_of="flash")
+    log(f"[{prefix}] prefill: {n_ops / n:.1f} device operations a layer")
+    del caches
+
+    # (p) AWAPart expert placement, then the same requests again: logits
+    # and tokens equal to the unplaced run's bit for bit
+    place_launches = _placement_round(model, cfg, prefix, dev, placement)
+    again = _serve(model, cfg, prompts, dev, transformer, lm)
+    same = (torch.equal(again[0], first), torch.equal(again[1], steps),
+            torch.equal(again[2], generated))
+    log(f"[{prefix}] (p) after placement: the prefill's logits, the {LM_NEW}"
+        f" decode steps' logits and tokens equal to the unplaced run's bit "
+        f"for bit: {same}")
+    assert all(same), same
+    del model, again
+    torch.cuda.empty_cache()
+
+    # (b) and (c) in float32 at full width, weights drawn again from the
+    # same seed
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32",
+                                param_dtype="float32",
+                                n_layers=f32_layers or cfg.n_layers)
+    torch.cuda.reset_peak_memory_stats()
+    model = lm.init_params(cfg32, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0))
+    _mem(f"float32 weights, {cfg32.n_layers} layers", prefix)
+    n32 = cfg32.n_layers
+    plain32 = dataclasses.replace(cfg32, use_flash=False)
+    before_var = flash_variants()
+
+    # (b) the forward through flash and through plain attention, logits at
+    # every position; then one decode step from the plain forward's caches
+    # through each
+    flash_log, plain_log = RouteLog(), RouteLog()
+    with flash_log.watching():
+        xf, pre_f = transformer.hidden(model, prompts, cfg32,
+                                       collect_cache=True)
+    with plain_log.watching():
+        xp, pre_p = transformer.hidden(model, prompts, plain32,
+                                       collect_cache=True)
+    fwd = flash_log.routes(n32, LM_BATCH, (LM_PROMPT,))
+    flipped = _route_check(prefix, "(b) forward, flash vs plain attention, "
+                           "float32", fwd,
+                           plain_log.routes(n32, LM_BATCH, (LM_PROMPT,)))
+    span = 256
+    _rows_check(prefix, "(b) forward logits at every position, flash vs "
+                "plain attention, float32",
+                ((transformer.lm_head(model, xf[:, i:i + span], cfg32),
+                  transformer.lm_head(model, xp[:, i:i + span], cfg32),
+                  flipped[:, i:i + span])
+                 for i in range(0, LM_PROMPT, span)), MOE_F32_REL)
+    tok = transformer.lm_head(model, xp[:, -1:], cfg32)[:, 0].argmax(-1)
+    del xp
+    step, logs = {}, {}
+    for c in (cfg32, plain32):
+        big = _copy_caches(pre_p, transformer.init_decode_caches(
+            c, LM_BATCH, LM_PROMPT + 1, device=dev), LM_PROMPT)
+        logs[c.use_flash] = RouteLog()
+        with logs[c.use_flash].watching():
+            step[c.use_flash] = lm.decode_step(
+                model, big, {"token": tok, "pos": LM_PROMPT}, c)[0]
+        del big
+    del pre_p
+    flipped = _route_check(prefix, "(b) decode step from the same caches, "
+                           "flash vs plain attention, float32",
+                           logs[True].routes(n32, LM_BATCH, (1,)),
+                           logs[False].routes(n32, LM_BATCH, (1,)))
+    _rows_check(prefix, "(b) decode step, flash vs plain attention, "
+                "float32", [(step[True], step[False], flipped[:, 0])],
+                MOE_F32_REL)
+
+    # (c) teacher-forced decode of the last 8 prompt positions against the
+    # flash forward at those positions, from the forward's caches (their
+    # slots from the first decoded position on are rewritten as the steps
+    # go): the rows compared depend on the decode steps' routes alone
+    cut = LM_PROMPT - LM_TEACHER
+    want = transformer.lm_head(model, xf[:, cut:], cfg32)
+    del xf
+    big = _copy_caches(pre_f, transformer.init_decode_caches(
+        cfg32, LM_BATCH, LM_PROMPT, device=dev), LM_PROMPT)
+    del pre_f
+    tf_log, got = RouteLog(), []
+    with tf_log.watching():
+        for pos in range(cut, LM_PROMPT):
+            lg, big = lm.decode_step(model, big, {"token": prompts[:, pos],
+                                                  "pos": pos}, cfg32)
+            got.append(lg)
+    del big
+    flipped = _route_check(
+        prefix, f"(c) {LM_TEACHER} teacher-forced decode steps vs the "
+        "forward, float32",
+        tf_log.routes(n32, LM_BATCH, (1,) * LM_TEACHER),
+        (fwd[0][:, :, cut:], fwd[1][:, :, cut:]))
+    _rows_check(prefix, f"(c) teacher-forced decode of {LM_TEACHER} "
+                "positions vs forward, float32",
+                [(torch.stack(got, 1), want, flipped)], MOE_F32_REL)
+    del model, want, got
+    torch.cuda.empty_cache()
+    _mem("checks (b), (c)", prefix)
+
+    # (d) the reduced config in float32, on the card and on the CPU
+    small = dataclasses.replace(configs.get(arch).reduced(), use_flash=True)
+    res, logs = {}, {}
+    for device in ("cuda", "cpu"):
+        m = lm.init_params(small, device="cpu").to(device)
+        toks = prompts[:, :24].remainder(small.vocab_size).to(device)
+        logs[device] = RouteLog()
+        with logs[device].watching():
+            lg, c = lm.prefill_step(m, {"tokens": toks[:, :16]}, small)
+            big = _copy_caches(c, transformer.init_decode_caches(
+                small, LM_BATCH, 24, device=device), 16)
+            seq = [lg]
+            for pos in range(16, 24):
+                lg, big = lm.decode_step(m, big, {"token": toks[:, pos],
+                                                  "pos": pos}, small)
+                seq.append(lg)
+        res[device] = torch.stack(seq, 1).cpu()
+    segs = (small.n_layers, LM_BATCH, (16,) + (1,) * 8)
+    flipped = _route_check(prefix, f"(d) reduced {arch} in float32, card vs "
+                           "CPU", logs["cuda"].routes(*segs),
+                           logs["cpu"].routes(*segs))
+    keep = ~flipped[:, 15:]
+    assert bool(keep.any()), "(d): every row's routes differ"
+    err_d = float((res["cuda"][keep] - res["cpu"][keep]).abs().max())
+    log(f"[{prefix}] check (d) reduced {arch} in float32, prefill + 8 "
+        f"decode steps, card vs CPU: max abs diff {err_d:.3e} over "
+        f"{int(keep.sum())} of {keep.numel()} rows with equal routes "
+        "(limit 1e-4)")
+    assert err_d <= 1e-4
+    f32_var = flash_variants(before_var)
+    log(f"[{prefix}] flash variants of the float32 checks (b), (c), (d): "
+        f"{f32_var}")
+    # each call on the variant its shape gives: (b)'s flash forward over
+    # the prompt, (b)'s flash decode step and (c)'s eight, then (d)'s
+    # prefill of 16 and 8 steps
+    want_var = collections.Counter({v_: 0 for v_ in FLASH_VARIANTS})
+    g, hd = cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
+    want_var[FA.variant(torch.float32, LM_PROMPT, g, hd)] += n32
+    want_var[FA.variant(torch.float32, 1, g, hd)] += (1 + LM_TEACHER) * n32
+    g, hd = small.n_heads // small.n_kv_heads, small.resolved_head_dim
+    want_var[FA.variant(torch.float32, 16, g, hd)] += small.n_layers
+    want_var[FA.variant(torch.float32, 1, g, hd)] += 8 * small.n_layers
+    assert f32_var == dict(want_var), (f32_var, want_var)
+    return launches, place_launches
+
+
+def moe_kernel_rows(rows, arch, launches, place_launches):
+    """The flash kernel at the config's prefill and decode shapes, and the
+    Jaccard kernel at its placement shape (experts x 2048 requests), each
+    against its plain version, timed as in phase 4."""
+    from repro_torch import configs
+    from repro_torch.core import placement
+    from repro_torch.kernels.jaccard import ops as jac
+
+    cfg = configs.get(arch)
+    rand = _flash_rand(torch.Generator(device="cuda").manual_seed(6))
+    shape = (cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim)
+    flash_prefill_row(rows, launches, rand, arch, LM_BATCH, LM_PROMPT,
+                      *shape)
+    flash_decode_row(rows, launches, rand, arch, LM_BATCH, *shape, LM_CACHE)
+    routing = topical_routing(np.random.default_rng(0), MOE_PLACE_REQUESTS,
+                              cfg.n_experts, cfg.top_k)
+    bm = placement.coactivation_bitmaps(routing, cfg.n_experts,
+                                        MOE_PLACE_REQUESTS)
+    a = torch.from_numpy(bm.view(np.int32)).to("cuda")
+    q, w = a.shape
+    got, want = jac.distance(a, a), jac.distance_plain(a, a)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        "jaccard: kernel not bitwise equal to its plain version"
+    kernel_row(rows, place_launches, "jaccard",
+               "src/repro_torch/csrc/jaccard.cu",
+               "src/repro/kernels/jaccard/kernel.py:45",
+               float((got - want).abs().max()),
+               lambda: jac.distance(a, a), lambda: jac.distance_plain(a, a),
+               None, 4 * 2 * q * w + 4 * q * q, 4 * q * q * w + 2 * q * q,
+               f"{arch} placement, Q={q} experts, W={w} words of 2048 "
+               "requests")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card",
@@ -2629,6 +3137,11 @@ def main() -> int:
                       ZAMBA_PROMPT, *zshape)
     flash_decode_row(rows, zamba_launches, rand, "zamba2-7b", ZAMBA_BATCH,
                      *zshape, ZAMBA_CACHE)
+    for arch, prefix, param_dtype, f32_layers in MOE_PHASES:
+        torch.cuda.empty_cache()   # the earlier phases' models are gone
+        moe_launches, place_launches = moe_serving(arch, prefix, param_dtype,
+                                                   f32_layers)
+        moe_kernel_rows(rows, arch, moe_launches, place_launches)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card())
     print(json.dumps({"kernels": rows}))

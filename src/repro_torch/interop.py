@@ -103,9 +103,11 @@ def lm_params(tree: Mapping[str, np.ndarray], cfg: ArchConfig, *,
     ``models.transformer.Transformer`` on ``device``. ``tree`` maps each
     leaf's path (``"embed"``, ``"ln_f/scale"``, ``"blocks/attn/wq"``; for
     RWKV6 ``"blocks/tm/wr"``; for Mamba2 ``"blocks/mamba/in_proj"`` and the
-    hybrid's unstacked ``"shared/attn/wq"``, ...) to its array, blocks
-    stacked on a leading ``layers`` axis; the paths and shapes must be
-    exactly those of ``models.lm.param_shapes(cfg)``."""
+    hybrid's unstacked ``"shared/attn/wq"``; for MoE ``"blocks/moe/wg"``
+    and the integer slot map ``"blocks/moe/inv_perm"``, ...) to its array,
+    blocks stacked on a leading ``layers`` axis; the paths and shapes must
+    be exactly those of ``models.lm.param_shapes(cfg)``. Every leaf is
+    carried as float32 but ``inv_perm``, which stays an integer (int32)."""
     from repro_torch.models import lm, transformer
     dev = dispatch.resolve_device(device)
     want = lm.param_shapes(cfg)
@@ -118,5 +120,6 @@ def lm_params(tree: Mapping[str, np.ndarray], cfg: ArchConfig, *,
         a = np.asarray(tree[path])
         if a.shape != shape:
             raise ValueError(f"{path}: shape {a.shape}, expected {shape}")
-        flat[path] = torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+        dt = np.int32 if path.endswith("/inv_perm") else np.float32
+        flat[path] = torch.from_numpy(np.array(a, dtype=dt)).to(dev)
     return transformer.Transformer(cfg, flat)

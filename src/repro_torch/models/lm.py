@@ -48,19 +48,26 @@ def _mamba_block_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
 
 def _attn_block_shapes(cfg: ArchConfig, norms: Dict[str, tuple]
                        ) -> Dict[str, tuple]:
-    """One attention + MLP block's leaves (``attn_block_init``'s tree)."""
+    """One attention + MLP (or MoE) block's leaves (``attn_block_init``'s
+    tree)."""
     d, h, k = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
-    hd, f = cfg.resolved_head_dim, cfg.d_ff
+    hd, f, e = cfg.resolved_head_dim, cfg.d_ff, cfg.n_experts
     blk = {"attn/wq": (d, h, hd), "attn/wk": (d, k, hd),
            "attn/wv": (d, k, hd), "attn/wo": (h, hd, d)}
     if cfg.qkv_bias:
         blk.update({"attn/bq": (h, hd), "attn/bk": (k, hd),
-                    "attn/bv": (k, hd), "attn/bo": (d,),
-                    "mlp/bi": (f,), "mlp/bo": (d,)})
+                    "attn/bv": (k, hd), "attn/bo": (d,)})
     if cfg.qk_norm:
         blk.update({"attn/q_norm": (hd,), "attn/k_norm": (hd,)})
     for ln in ("ln1", "ln2"):
         blk.update({f"{ln}/{name}": s for name, s in norms.items()})
+    if cfg.is_moe:                          # ``moe_init``'s tree
+        blk.update({"moe/wr": (d, e), "moe/wg": (e, d, f),
+                    "moe/wi": (e, d, f), "moe/wo": (e, f, d),
+                    "moe/inv_perm": (e,)})
+        return blk
+    if cfg.qkv_bias:
+        blk.update({"mlp/bi": (f,), "mlp/bo": (d,)})
     if cfg.activation == "silu":
         blk["mlp/wg"] = (d, f)
     blk.update({"mlp/wi": (d, f), "mlp/wo": (f, d)})
@@ -68,11 +75,10 @@ def _attn_block_shapes(cfg: ArchConfig, norms: Dict[str, tuple]
 
 
 def param_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
-    """The reference's parameter tree for an attention-family, RWKV6 or
-    Mamba2 (hybrid or not) config, keyed by path, blocks stacked on a
-    leading ``layers`` axis; the hybrid's ``shared`` block is not
-    stacked."""
-    transformer.require_ported(cfg)
+    """The reference's parameter tree for an attention-family (dense or
+    MoE), RWKV6 or Mamba2 (hybrid or not) config, keyed by path, blocks
+    stacked on a leading ``layers`` axis; the hybrid's ``shared`` block is
+    not stacked."""
     d, v, n = cfg.d_model, cfg.vocab_size, cfg.n_layers
     names = ("scale", "bias") if cfg.norm == "layernorm" else ("scale",)
     norms = {name: (d,) for name in names}
@@ -103,7 +109,14 @@ def _fan_in(path: str, shape: tuple, cfg: ArchConfig) -> int:
         return cfg.d_model
     if path.endswith("attn/wo"):
         return cfg.n_heads * cfg.resolved_head_dim
+    if path in MOE_EXPERT_LEAVES:        # (L, E, fan_in, fan_out)
+        return shape[2]
     return shape[1] if path.startswith("blocks/") else shape[0]
+
+
+# the stacked expert leaves: drawn one layer at a time (one float32 leaf of
+# qwen3-moe-30b-a3b, (48, 128, 2048, 768), is 38.6 GB)
+MOE_EXPERT_LEAVES = ("blocks/moe/wg", "blocks/moe/wi", "blocks/moe/wo")
 
 
 # RWKV6 leaves the reference initialises otherwise (``rwkv6_init``):
@@ -145,8 +158,12 @@ def init_params(cfg: ArchConfig, *, device="cuda",
     """Random weights in the reference's distribution (normal scaled by
     1/sqrt(fan_in) for matrices, ones for norm scales, zeros for biases;
     RWKV6's ``tm`` leaves as ``rwkv6_init`` draws them, Mamba2's as
-    ``mamba2_init`` does), drawn on ``device`` from ``generator`` (a
-    generator on that device; seed 0 when omitted)."""
+    ``mamba2_init`` does; MoE's as ``moe_init`` does: the router float32
+    whatever ``param_dtype`` is, the slot map ``inv_perm`` the identity,
+    int32), drawn on ``device`` from ``generator`` (a generator on that
+    device; seed 0 when omitted). The stacked expert leaves are drawn one
+    layer at a time in float32 and cast into the parameter dtype, so no
+    float32 copy of a whole leaf exists."""
     dev = dispatch.resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -157,6 +174,18 @@ def init_params(cfg: ArchConfig, *, device="cuda",
         leaf = path.rsplit("/", 1)[-1]
         rwkv_leaf = cfg.rwkv and path.startswith("blocks/tm/")
         mamba_leaf = path.startswith("blocks/mamba/")
+        if path in MOE_EXPERT_LEAVES:
+            t = torch.empty(shape, dtype=pdt, device=dev)
+            scale = 1.0 / np.sqrt(max(_fan_in(path, shape, cfg), 1))
+            for i in range(shape[0]):
+                t[i] = torch.randn(shape[1:], generator=generator,
+                                   device=dev) * scale
+            flat[path] = t
+            continue
+        if leaf == "inv_perm":
+            flat[path] = torch.arange(shape[-1], dtype=torch.int32,
+                                      device=dev).expand(shape).contiguous()
+            continue
         if mamba_leaf and leaf in mamba:
             t = torch.from_numpy(mamba[leaf]).to(dev).expand(shape)
         elif mamba_leaf and leaf == "conv_w":
@@ -174,7 +203,7 @@ def init_params(cfg: ArchConfig, *, device="cuda",
         else:
             t = torch.randn(shape, generator=generator, device=dev)
             t *= 1.0 / np.sqrt(max(_fan_in(path, shape, cfg), 1))
-        flat[path] = t.to(pdt)
+        flat[path] = t if path == "blocks/moe/wr" else t.to(pdt)
     return transformer.Transformer(cfg, flat)
 
 

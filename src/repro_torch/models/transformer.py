@@ -1,4 +1,4 @@
-"""Layer stacks: the attention family (dense / VLM / audio-encoder
+"""Layer stacks: the attention family (dense / MoE / VLM / audio-encoder
 transformers), RWKV6, and Mamba2 with zamba2's shared attention block.
 
 Counterpart of ``repro/models/transformer.py``. The reference stacks each
@@ -17,8 +17,9 @@ The hybrid (zamba2) applies one shared attention + MLP block, with its own
 residual, before every ``attn_every``-th Mamba2 layer (layers 0,
 ``attn_every``, ...); ``attn_every = 0`` is the pure Mamba2 stack.
 
-Mixture-of-experts blocks are a later slice of the port and raise
-``NotImplementedError`` here (ROADMAP Queue 1, item 4).
+A mixture-of-experts config (``cfg.is_moe``) puts a one-device
+``models.moe.MoE`` layer where the dense block has its MLP; the forward
+sums the layers' router aux losses, as the reference's does.
 """
 from __future__ import annotations
 
@@ -29,21 +30,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import rwkv, ssm
+from repro_torch.models import moe, rwkv, ssm
 from repro_torch.models.layers import (MLP, Attention, Norm, _param, _sub,
                                        attention_apply, dtype, mlp_apply,
                                        norm_apply)
 
 Caches = Dict[str, torch.Tensor]
-
-
-def require_ported(cfg: ArchConfig) -> None:
-    """Raise for a config whose stack this package does not run yet."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: mixture-of-experts blocks are not ported yet "
-            "(ROADMAP Queue 1, item 4: models/moe.py with AWAPart expert "
-            "placement)")
 
 
 # --------------------------------------------------------------------------- #
@@ -56,18 +48,25 @@ class Block(nn.Module):
         self.ln1 = Norm(_sub(w, "ln1"))
         self.attn = Attention(cfg, _sub(w, "attn"))
         self.ln2 = Norm(_sub(w, "ln2"))
-        self.mlp = MLP(cfg, _sub(w, "mlp"))
+        self.mlp = self.moe = None
+        if cfg.is_moe:
+            self.moe = moe.MoE(cfg, _sub(w, "moe"))
+        else:
+            self.mlp = MLP(cfg, _sub(w, "mlp"))
 
 
 def attn_block_apply(p: Block, x: torch.Tensor, cfg: ArchConfig, *,
                      positions: torch.Tensor, cache=None, cache_pos=None):
-    """Pre-norm attention + MLP block -> (x, new_cache, aux); aux is 0 for
-    a dense block (the reference's MoE load-balancing term)."""
+    """Pre-norm attention + MLP (or MoE) block -> (x, new_cache, aux); aux
+    is the MoE router's load-balancing term, 0 for a dense block."""
     h = norm_apply(p.ln1, x, cfg)
     y, new_cache = attention_apply(p.attn, h, cfg, positions=positions,
                                    cache=cache, cache_pos=cache_pos)
     x = x + y
     h = norm_apply(p.ln2, x, cfg)
+    if p.moe is not None:
+        y, aux = moe.moe_apply(p.moe, h, cfg)
+        return x + y, new_cache, aux
     return x + mlp_apply(p.mlp, h, cfg), new_cache, 0.0
 
 
@@ -107,7 +106,6 @@ class Transformer(nn.Module):
         (``"embed"``, ``"ln_f/scale"``, ``"blocks/attn/wq"``, ...), blocks
         stacked on a leading ``layers`` axis, in the parameter dtype."""
         super().__init__()
-        require_ported(cfg)
         cd = dtype(cfg.compute_dtype)
         self.embed = (None if cfg.embedding_inputs
                       else _param(flat["embed"], cd))
@@ -159,7 +157,14 @@ def hidden(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
     (shift states cast to float32, as the reference's forward casts them
     when it collects them), or the Mamba2 states after position S-1 with
     the shared block's (A, B, S, K, D) key/value caches."""
-    require_ported(cfg)
+    x, _, caches = _blocks(p, inputs, cfg, collect_cache=collect_cache)
+    return x, caches
+
+
+def _blocks(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
+            collect_cache: bool):
+    """:func:`hidden`'s activations and caches, with the sum of the
+    blocks' aux losses between them (0 but for MoE)."""
     if cfg.embedding_inputs:
         x = inputs.to(dtype(cfg.compute_dtype))
         b, s = x.shape[:2]
@@ -174,7 +179,7 @@ def hidden(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
             if caches is not None:
                 for key, val in st.items():
                     caches[key][i].copy_(val)
-        return x, caches
+        return x, 0.0, caches
     positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
     if is_mamba_stack(cfg):
         caches = (init_decode_caches(cfg, b, s, device=x.device)
@@ -194,25 +199,25 @@ def hidden(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
             if collect_cache:
                 caches["conv"][i].copy_(st["conv"])
                 caches["ssm"][i].copy_(st["ssm"])
-        return x, caches
-    if not collect_cache:
-        for blk in p.blocks:
-            x, _, _ = attn_block_apply(blk, x, cfg, positions=positions)
-        return x, None
-    caches = init_decode_caches(cfg, b, s, device=x.device)
+        return x, 0.0, caches
+    caches = (init_decode_caches(cfg, b, s, device=x.device)
+              if collect_cache else None)
+    aux = 0.0
     for i, blk in enumerate(p.blocks):
-        x, _, _ = attn_block_apply(
-            blk, x, cfg, positions=positions,
-            cache=(caches["k"][i], caches["v"][i]), cache_pos=0)
-    return x, caches
+        kv = (caches["k"][i], caches["v"][i]) if collect_cache else None
+        x, _, a = attn_block_apply(blk, x, cfg, positions=positions,
+                                   cache=kv,
+                                   cache_pos=0 if collect_cache else None)
+        aux = aux + a
+    return x, aux, caches
 
 
 def forward(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
             collect_cache: bool = False):
     """inputs: tokens (B, S) or embeddings (B, S, d) -> (logits (B, S, V)
     float32, aux, caches)."""
-    x, caches = hidden(p, inputs, cfg, collect_cache=collect_cache)
-    return lm_head(p, x, cfg), 0.0, caches
+    x, aux, caches = _blocks(p, inputs, cfg, collect_cache=collect_cache)
+    return lm_head(p, x, cfg), aux, caches
 
 
 # --------------------------------------------------------------------------- #
@@ -224,7 +229,6 @@ def init_decode_caches(cfg: ArchConfig, batch: int, max_len: int, *,
     """Zero caches for ``batch`` sequences of up to ``max_len`` positions
     (RWKV6's and Mamba2's states do not grow: ``max_len`` sizes only the
     shared block's key/value caches)."""
-    require_ported(cfg)
     if cfg.rwkv or is_mamba_stack(cfg):
         init = rwkv.rwkv_init_state if cfg.rwkv else ssm.mamba2_init_state
         st = init(cfg, cfg.n_layers * batch, device=device)
@@ -251,7 +255,6 @@ def decode_step(p: Transformer, caches: Caches, token: torch.Tensor,
     caches are updated in place (at ``pos`` for the attention family and
     the shared block; RWKV6's and Mamba2's states do not read ``pos``) and
     returned."""
-    require_ported(cfg)
     if is_mamba_stack(cfg):
         pos = int(pos)
         x = embed_tokens(p, token, cfg)                  # (B, d)

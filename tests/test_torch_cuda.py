@@ -970,3 +970,157 @@ def test_serve_cli_on_card_equals_cpu(dev):
     # past the first line (load time, device): every line the same
     card, cpu = (o.split("\n", 1)[1] for o in out.values())
     assert card == cpu and "[exp1]" in card and "SERVICE" in card
+
+
+# --------------------------------------------------------------------------- #
+# mixture-of-experts serving
+# --------------------------------------------------------------------------- #
+
+def _moe_routes(moe_mod, calls):
+    """Wrap ``moe_mod._router`` to append each call's sorted top-k ids (on
+    the host) to ``calls``; returns the original."""
+    router = moe_mod._router
+
+    def recording(p, x2d, cfg):
+        out = router(p, x2d, cfg)
+        calls.append(torch.sort(out[1], -1).values.cpu())
+        return out
+    moe_mod._router = recording
+    return router
+
+
+@pytest.mark.parametrize("experts", [(8, 2), (16, 8)], ids=str)
+def test_moe_layer_on_card_matches_cpu(dev, experts):
+    """The MoE layer in float32: the same routes, values within 1e-5 of the
+    CPU's; migrated twice on the card, bit for bit its unplaced output."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.core import placement
+    from repro_torch.models import lm, moe
+
+    e, k = experts
+    cfg = dataclasses.replace(configs.get("olmoe-1b-7b").reduced(),
+                              n_experts=e, top_k=k)
+    layer = lm.init_params(cfg, device="cpu").blocks[0].moe
+    x = torch.randn((3, 40, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    out, routes = {}, {}
+    for device in ("cpu", "cuda"):
+        calls = []
+        router = _moe_routes(moe, calls)
+        try:
+            out[device] = moe.moe_apply(layer.to(device), x.to(device), cfg)
+        finally:
+            moe._router = router
+        routes[device] = calls
+    assert torch.equal(routes["cuda"][0], routes["cpu"][0])
+    assert torch.allclose(out["cuda"][0].cpu(), out["cpu"][0], atol=1e-5,
+                          rtol=0)
+    assert abs(float(out["cuda"][1]) - float(out["cpu"][1])) <= 1e-6
+    rng = np.random.default_rng(2)
+    for _ in range(2):
+        perm = rng.permutation(np.repeat(np.arange(2), e // 2))
+        layer.load_state_dict(placement.apply_expert_placement(
+            layer.state_dict(), perm.astype(np.int32)))
+        y, aux = moe.moe_apply(layer, x.to(dev), cfg)
+        assert torch.equal(y, out["cuda"][0])
+        assert torch.equal(aux, out["cuda"][1])
+
+
+@pytest.mark.parametrize("experts", [64, 128])
+def test_placement_with_the_jaccard_kernel_equals_the_cpu_plan(dev, experts):
+    """``plan_expert_placement`` with its Jaccard matrix on the card: one
+    launch, and the CPU's map and report exactly."""
+    from repro_torch.core import placement
+
+    rng = np.random.default_rng(experts)
+    topics = rng.permutation(experts).reshape(-1, 8)
+    routing = np.stack([rng.permutation(topics[rng.integers(len(topics))])
+                        for _ in range(2048)])
+    noise = rng.random(routing.shape) < 0.1
+    routing[noise] = rng.integers(0, experts, int(noise.sum()))
+    got = placement.plan_expert_placement(routing, experts, 16, None, 4096,
+                                          device=dev)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"jaccard": 1}
+    want = placement.plan_expert_placement(routing, experts, 16, None, 4096,
+                                           device="cpu")
+    assert np.array_equal(got[0], want[0]) and got[1] == want[1]
+    assert got[1].accepted
+
+
+def test_moe_lm_on_card_matches_cpu_and_launches_once_per_layer(dev):
+    """Reduced qwen3-moe-30b-a3b in float32, prefill and 4 decode steps:
+    flash once a layer in each, the same routes and logits within 1e-4 of
+    the CPU's."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import lm, moe, transformer
+
+    cfg = dataclasses.replace(configs.get("qwen3-moe-30b-a3b").reduced(),
+                              use_flash=True)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 16)).astype(np.int32))
+    out, routes = {}, {}
+    for device in ("cpu", "cuda"):
+        model = lm.init_params(cfg, device="cpu").to(device)
+        calls = []
+        router = _moe_routes(moe, calls)
+        try:
+            _build.reset_launches()
+            logits, caches = lm.prefill_step(
+                model, {"tokens": toks[:, :12].to(device)}, cfg)
+            n_prefill = _build.launches["flash_attention_fwd"]
+            big = transformer.init_decode_caches(cfg, 2, 16, device=device)
+            for key in "kv":
+                big[key][:, :, :12] = caches[key]
+            steps = [logits]
+            for pos in range(12, 16):
+                logits, big = lm.decode_step(
+                    model, big, {"token": toks[:, pos].to(device),
+                                 "pos": pos}, cfg)
+                steps.append(logits)
+        finally:
+            moe._router = router
+        out[device] = torch.stack(steps).cpu()
+        routes[device] = calls
+        if device == "cuda":
+            assert n_prefill == cfg.n_layers
+            assert _build.launches["flash_attention_fwd"] == \
+                cfg.n_layers * 5
+    assert len(routes["cuda"]) == cfg.n_layers * 5
+    for got, want in zip(routes["cuda"], routes["cpu"]):
+        assert torch.equal(got, want)
+    assert torch.allclose(out["cuda"], out["cpu"], atol=1e-4, rtol=0)
+
+
+# qwen3-moe-30b-a3b's attention: 32 query heads on 4 kv heads, a GQA group
+# of 8: its prefill through "tc" (S and T off the 64-key tile too), its
+# decode step through "dec" (8 rows a kv head) in each dtype
+GQA8_CASES = [
+    (2, 256, 256, 32, 4, 128, True, 0, None, torch.bfloat16, "tc"),
+    (1, 100, 130, 32, 4, 128, True, 30, None, torch.bfloat16, "tc"),
+    (4, 1, 2080, 32, 4, 128, True, 2079, 2080, torch.bfloat16, "dec"),
+    (2, 1, 700, 32, 4, 128, True, 650, 651, torch.float32, "dec"),
+    (2, 2, 300, 32, 4, 128, True, 290, 292, torch.float16, "dec"),
+]
+
+
+@pytest.mark.parametrize("case", GQA8_CASES, ids=str)
+def test_flash_at_gqa_8_matches_plain(dev, case):
+    b, s, t, h, kh, d, causal, off, valid, dt, var = case
+    g = torch.Generator(device=dev).manual_seed(sum(case[:6]))
+    q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
+               for shape in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d)))
+    kw = dict(causal=causal, q_offset=off, kv_valid_len=valid)
+    got = FA.flash_attention(q, k, v, **kw)
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.variant(dt, s, h // kh, d) == var
+    assert _build.launches[f"flash_attention_fwd.{var}"] == 1
+    got, want = got.float(), want.float()
+    step = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}.get(dt, 0)
+    assert bool(((got - want).abs() <= want.abs() * step + 1e-5).all()), \
+        float((got - want).abs().max())

@@ -61,29 +61,47 @@ def _path(path):
 
 def _random_tree(rcfg, seed=0):
     """The reference's parameter tree filled from numpy: matrices normal
-    over sqrt(fan_in), norm scales near 1, biases small and nonzero."""
+    over sqrt(fan_in) (``moe_init``'s fan-ins for MoE experts), norm
+    scales near 1, biases small and nonzero, an MoE layer's slot map the
+    identity (int32)."""
     rng = np.random.default_rng(seed)
-    shapes = jax.eval_shape(
-        lambda: rtr.init_params(jax.random.PRNGKey(0), rcfg)[0])
+    shapes = _shapes(rcfg)
     flat = {}
     for path, sd in jax.tree_util.tree_flatten_with_path(shapes)[0]:
         key, shape = _path(path), sd.shape
         leaf = key.rsplit("/", 1)[-1]
+        if leaf == "inv_perm":
+            flat[key] = np.broadcast_to(np.arange(shape[-1], dtype=np.int32),
+                                        shape).copy()
+            continue
         if leaf in ("scale", "q_norm", "k_norm"):
             a = 1.0 + 0.1 * rng.normal(size=shape)
         elif leaf.startswith("b"):
             a = 0.1 * rng.normal(size=shape)
+        elif key in ("blocks/moe/wg", "blocks/moe/wi", "blocks/moe/wo"):
+            a = rng.normal(size=shape) / np.sqrt(shape[2])
         else:
             fan_in = shape[1] if key.startswith("blocks/") else shape[0]
             if key == "blocks/attn/wo":
                 fan_in = shape[1] * shape[2]
             a = rng.normal(size=shape) / np.sqrt(fan_in)
         flat[key] = a.astype(np.float32)
-    tree = jax.tree_util.tree_unflatten(
+    return flat, _tree(shapes, flat)
+
+
+def _shapes(rcfg):
+    """The reference's parameter tree of ``rcfg`` as shapes."""
+    return jax.eval_shape(
+        lambda: rtr.init_params(jax.random.PRNGKey(0), rcfg)[0])
+
+
+def _tree(shapes, flat):
+    """The reference's tree of ``shapes`` holding the arrays of ``flat``
+    (keyed by path)."""
+    return jax.tree_util.tree_unflatten(
         jax.tree_util.tree_structure(shapes),
         [jnp.asarray(flat[_path(p)]) for p, _ in
          jax.tree_util.tree_flatten_with_path(shapes)[0]])
-    return flat, tree
 
 
 def _inputs(cfg, rng, b=B, s=S):
@@ -351,16 +369,6 @@ def test_make_batch_draws_what_the_reference_draws(arch, shape):
         g = got[key]
         g = float(g) if isinstance(g, int) else g.float().numpy()
         assert np.array_equal(g, np.asarray(want[key], np.float32)), key
-
-
-@pytest.mark.parametrize("arch, item", [
-    ("olmoe-1b-7b", "item 4"), ("qwen3-moe-30b-a3b", "item 4")])
-def test_other_stacks_raise_naming_their_roadmap_item(arch, item):
-    _, cfg = _cfgs(arch)
-    with pytest.raises(NotImplementedError, match=item):
-        tlm.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        ttr.init_decode_caches(cfg, 1, 4, device="cpu")
 
 
 def test_lm_params_refuses_a_tree_of_another_config():
