@@ -28,7 +28,9 @@ Phases (any failure raises and ends the run with a nonzero exit):
    the five join and Jaccard kernels by name);
 4. the kernels: each against its plain PyTorch version on the card, at the
    largest shapes the main path gave it and at edge cases, exactly (the
-   Jaccard kernel bitwise), with the device time per call (profiler) of
+   Jaccard kernel bitwise, both its variants, "row" and "tile", through
+   ``ops._run`` and the routed op at 12 edges, and a row of the kernels'
+   line per variant), with the device time per call (profiler) of
    the kernel, the plain version and, where one exists, the PyTorch
    library call computing the same function, beside the bound from bytes
    and operations, and the per-call time with launch overhead (CUDA
@@ -68,9 +70,15 @@ Phases (any failure raises and ends the run with a nonzero exit):
 8. HAC and Jaccard at the new shapes: ``core.hac.hac_torch`` on the card
    against ``hac_numpy`` (Z columns 0, 1 and 3 exactly, distances within
    1e-5) at every Jaccard matrix of phases 6 and 7 and a seeded 512 x 512
-   matrix, for the three linkages, with its device time per call; the
-   Jaccard kernel bitwise against its plain version at the largest
-   bitmaps of phases 6 and 7, timed beside the launch floor and its bound;
+   matrix, for the three linkages, with its device time per call; both
+   Jaccard variants bitwise against the plain version at the largest
+   bitmaps of phases 6 and 7, timed beside the launch floor and the bound
+   (bytes over 3.35 TB/s, popcounts over 16 a clock an SM x 132 SMs x
+   the maximum SM clock); then the sweep: Q in 6, 24, 64, 128, 512, 1024
+   (a = b) and (40, 300) at W in 1, 2, 3, 8, 16, 32, 64, 65, 256, both
+   variants bitwise and timed in turns (row, tile, tile, row), whether
+   ``ops.variant`` picks the faster within the spread, the crossover of
+   each W;
 9. LM serving, the port's second path: qwen3-0.6b at full width and depth
    (random weights from a seeded generator, bf16 compute, flash attention)
    serves 4 prompts of 2048 tokens with one ``lm.prefill_step`` and 32
@@ -162,7 +170,7 @@ Phases (any failure raises and ends the run with a nonzero exit):
    sets) token by token: a differing route passes where the oracle's gap
    between its k-th and (k+1)-th router logits is under 2^-10, and the
    rows whose routes agree are held to the limits; then the flash kernel
-   at the prefill and decode shapes and the Jaccard kernel at the
+   at the prefill and decode shapes and both Jaccard variants at the
    placement shape against their plain versions, timed as in phase 10;
 16. the same for qwen3-moe-30b-a3b (48 layers, 128 experts top-8, GQA
    32/4) in bfloat16 parameters (61 GB), its float32 checks (b) and (c)
@@ -199,6 +207,10 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12         # H100 SXM float32 rate outside tensor cores
 TENSOR_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 TF32_OPS_PER_S = 495e12          # H100 SXM dense TF32 tensor-core rate
+# 32-bit population counts a clock an SM at compute capability 9.0 (CUDA C++
+# Programming Guide, "Arithmetic Instructions" throughput table); times the
+# card's SM count and its maximum SM clock (nvidia-smi) for the rate
+POPC_PER_CLOCK_SM = 16
 MIGRATION_BUDGET = 4 << 20       # bytes per window: LUBM(10)/8 drains in 4
 # windows served before the adaptation round: the guard amortizes the
 # migration over the observed TM window, and one window of LUBM(10)/8 is
@@ -216,6 +228,21 @@ def card() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip().splitlines()[0]
+
+
+@functools.lru_cache(maxsize=None)
+def popc_rate() -> tuple:
+    """The card's popcount rate (per second) and how it was formed: 16 a
+    clock an SM x the SM count x the maximum SM clock."""
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rate = POPC_PER_CLOCK_SM * n_sms * mhz * 1e6
+    return rate, (f"{rate / 1e12:.3f} Tpopc/s = {POPC_PER_CLOCK_SM} a clock "
+                  f"an SM (CUDA C++ Programming Guide, cc 9.0) x {n_sms} SMs "
+                  f"x {mhz:.0f} MHz")
 
 
 def call_ms(fn, reps: int = 20, runs: int = 7) -> float:
@@ -366,7 +393,7 @@ def main_path(rec):
 
 # the join and Jaccard kernels, by the names the profiler gives them
 JOIN_KERNELS = ("pack2_kernel", "probe_kernel", "expand_kernel",
-                "gather_kernel", "jaccard_kernel")
+                "gather_kernel", "jaccard_kernel", "jaccard_tile_kernel")
 
 
 def profile_window(svc, window, tag="profile") -> None:
@@ -480,7 +507,6 @@ def kernel_row(rows, launches, name, source, replaces, err, fn, plain,
 
 
 def kernels(rec, launches):
-    from repro_torch.kernels.jaccard import ops as jac
     from repro_torch.kernels.join import ops as J
 
     dev = torch.device("cuda")
@@ -545,12 +571,7 @@ def kernels(rec, launches):
             assert cols.data_ptr() % 16 == 8 * offset
             _exact(f"pack edge N={pn_}, offset {offset}", J.pack_keys(cols),
                    J.pack_keys_plain(cols))
-    for q, w in ((1, 1), (13, 1), (130, 7), (33, 64)):
-        a = torch.from_numpy(rng.integers(-2**31, 2**31, (q, w))
-                             .astype(np.int32)).to(dev)
-        a[::4] = 0                                  # empty sets
-        got, want = jac.distance(a, a), jac.distance_plain(a, a)
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    jaccard_edges(rng)
     torch.cuda.synchronize()
     log("[kernels] edge cases: all five kernels match their plain versions")
 
@@ -742,21 +763,11 @@ def kernels(rec, launches):
            8 * min(m, total) + 16 * total, 2 * total,
            f"M={m}, N={total}; library = order[pos]")
 
-    # jaccard, on the adaptation round's workload bitmaps
-    bm = rec["bitmaps"]
-    a = torch.from_numpy(np.ascontiguousarray(bm, np.uint32)
+    # jaccard, on the adaptation round's workload bitmaps, per variant
+    a = torch.from_numpy(np.ascontiguousarray(rec["bitmaps"], np.uint32)
                          .view(np.int32)).to(dev)
-    q, w = a.shape
-    got, want = jac.distance(a, a), jac.distance_plain(a, a)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
-        "jaccard: kernel not bitwise equal to its plain version"
-    report("jaccard", "src/repro_torch/csrc/jaccard.cu",
-           "src/repro/kernels/jaccard/kernel.py:45",
-           float((got - want).abs().max()),
-           lambda: jac.distance(a, a),
-           lambda: jac.distance_plain(a, a), None,
-           4 * 2 * q * w + 4 * q * q, 4 * q * q * w + 2 * q * q,
-           f"Q={q}, W={w}")
+    jaccard_rows(rows, launches, a, "the main path's adaptation round",
+                 floor_ms)
     return rows
 
 
@@ -859,6 +870,7 @@ def paper_experiments(bitmaps) -> None:
         got, lines, wall, rounds = _experiment(serve, exp, "torch", "cuda")
         launches = dict(_build.launches)
         bitmaps.phase = None
+        bitmaps.launches["6"].update(launches)
         want, want_lines, want_wall, want_rounds = _experiment(
             serve, exp, "numpy", "cpu")
         _same_experiment(exp, got, want)
@@ -966,6 +978,7 @@ def watdiv_drift(bitmaps) -> None:
         wall = time.perf_counter() - t
         launches = dict(_build.launches)
         bitmaps.phase = None
+        bitmaps.launches["7"].update(launches)
         nsvc, _ = service("numpy", "cpu")
         t = time.perf_counter()
         want = drift.run_scenario(nsvc, scn, ds, adapt=adapt, mode=mode)
@@ -1031,12 +1044,12 @@ def _digest(bindings) -> tuple:
 # phase 8: HAC on the card, and Jaccard at the new paths' shapes
 # --------------------------------------------------------------------------- #
 
-def hac_and_jaccard(bitmaps) -> None:
+def hac_and_jaccard(rows, bitmaps) -> None:
     """``hac_torch`` on the card against ``hac_numpy`` at the Jaccard
     distances of phases 6 and 7 and at a seeded 512 x 512 matrix, for
-    every linkage; the Jaccard kernel bitwise against its plain version at
-    the largest bitmaps phases 6 and 7 gave it, timed beside the launch
-    floor and its bound."""
+    every linkage; both Jaccard variants bitwise against the plain version
+    at the largest bitmaps phases 6 and 7 gave it, each a row of ``rows``
+    timed beside the launch floor and its bound; then the sweep."""
     from repro_torch.core import hac
     from repro_torch.kernels.jaccard import ops as jac
 
@@ -1084,19 +1097,155 @@ def hac_and_jaccard(bitmaps) -> None:
     for tag in ("6", "7"):
         phase, a = max(((p, w) for (t, _, _), (p, w) in mats.items()
                         if t == tag), key=lambda pw: pw[1].numel())
-        got, want = jac.distance(a, a), jac.distance_plain(a, a)
-        assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
-            "jaccard: kernel not bitwise equal to its plain version"
-        q, w = a.shape
-        n_bytes, n_ops = 4 * 2 * q * w + 4 * q * q, 4 * q * q * w + 2 * q * q
-        bound = max(n_bytes / HBM_BYTES_PER_S, n_ops / SCALAR_OPS_PER_S) * 1e3
-        ms = device_ms(lambda: jac.distance(a, a))
-        log(f"[jaccard] largest bitmaps of phase {phase} (Q={q}, W={w}): "
-            f"bitwise equal to the plain version; device time per call "
-            f"{ms:.5f} ms, launch floor {floor_ms:.5f} ms (a one-element "
-            f"fill_), bound {bound:.7f} ms ({n_bytes} B / 3.35 TB/s, {n_ops}"
-            f" ops / 67 TOP/s); the floor is {floor_ms / ms:.2f} of the "
-            f"kernel's time; {card()}")
+        jaccard_rows(rows, bitmaps.launches[tag], a,
+                     f"largest bitmaps of phase {phase}", floor_ms)
+    jaccard_sweep(floor_ms)
+
+
+# the Jaccard kernel's two variants, and the sweep that sets the rule
+JACCARD_SRC = "src/repro_torch/csrc/jaccard.cu"
+JACCARD_REPLACES = "src/repro/kernels/jaccard/kernel.py:45"
+JACCARD_VARIANTS = ("row", "tile")
+# edges: (Q, K, W, a view's offset in words); Q off the tile, K != Q, W
+# around the 64-word chunk and off a multiple of 4, an operand whose rows
+# are not 16-byte aligned though W is a multiple of 4
+JACCARD_EDGES = [(1, 1, 1, 0), (13, 13, 1, 0), (130, 130, 7, 0),
+                 (33, 33, 64, 0), (9, 17, 2, 0), (21, 37, 3, 0),
+                 (17, 5, 63, 0), (24, 24, 65, 0), (130, 9, 129, 0),
+                 (64, 64, 64, 1), (40, 33, 8, 3), (5, 7, 0, 0)]
+JACCARD_SWEEP_Q = (6, 24, 64, 128, 512, 1024)
+JACCARD_SWEEP_W = (1, 2, 3, 8, 16, 32, 64, 65, 256)
+JACCARD_RECT = (40, 300)        # the rectangular point at every W
+
+
+def _bitmap_words(gen, q, w, offset=0):
+    """(q, w) int32 bitmap words on the card (half the bits set), every
+    fifth row empty and row 1 all ones, as a view ``offset`` words into its
+    storage."""
+    base = torch.randint(-2**31, 2**31, (q * w + offset,), dtype=torch.int32,
+                         device="cuda", generator=gen)
+    a = base[offset:].view(q, w)
+    a[::5] = 0
+    if q > 1:
+        a[1] = -1
+    return a
+
+
+def _jaccard_bitwise(what, got, want) -> None:
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
+        f"jaccard {what}: kernel not bitwise equal to its plain version"
+
+
+def jaccard_edges(rng) -> None:
+    """Both Jaccard variants (through ``ops._run``) and the routed op,
+    bitwise against the plain version at the edges, each launch counted
+    under its variant."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.jaccard import ops as jac
+
+    gen = torch.Generator(device="cuda").manual_seed(int(rng.integers(99)))
+    for q, k, w, off in JACCARD_EDGES:
+        a = _bitmap_words(gen, q, w, off)
+        b = a if k == q else _bitmap_words(gen, k, w)
+        assert a.data_ptr() % 16 == 4 * (off % 4)
+        want = jac.distance_plain(a, b)
+        for var in JACCARD_VARIANTS + (None,):
+            before = dict(_build.launches)
+            got = (jac.distance(a, b) if var is None
+                   else jac._run(var, a, b))
+            _jaccard_bitwise(f"{var or 'routed'} at {(q, k, w, off)}", got,
+                             want)
+            ran = var or jac.variant(q, k, w)
+            assert _build.launches[f"jaccard.{ran}"] == \
+                before.get(f"jaccard.{ran}", 0) + 1, (q, k, w, var)
+    torch.cuda.synchronize()
+    log(f"[kernels] Jaccard edges: row, tile and the routed op bitwise equal "
+        f"to the plain version at {len(JACCARD_EDGES)} edges (Q, K, W, view "
+        f"offset) {JACCARD_EDGES}")
+
+
+def jaccard_cost(q, k, w):
+    """Bytes (each word read once, each output written once) and popcounts
+    (popc(a & b) per pair and word, and each row's count once)."""
+    return 4 * (q + k) * w + 4 * q * k, q * k * w + (q + k) * w
+
+
+def jaccard_rows(rows, launches, a, what, floor_ms) -> None:
+    """Both Jaccard variants at the bitmaps ``a`` (against themselves, as
+    every caller does) bitwise against the plain version, each timed as in
+    phase 4 (``kernel_row``, its ``launches`` those of the run that met the
+    shape) beside the launch floor and the bound from bytes and the
+    card's popcount rate."""
+    from repro_torch.kernels.jaccard import ops as jac
+
+    q, w = a.shape
+    want = jac.distance_plain(a, a)
+    rate, rate_note = popc_rate()
+    for var in JACCARD_VARIANTS:
+        got = jac._run(var, a, a)
+        _jaccard_bitwise(f"{var} at {what}", got, want)
+        kernel_row(rows, launches, "jaccard", JACCARD_SRC, JACCARD_REPLACES,
+                   float((got - want).abs().max()),
+                   lambda: jac._run(var, a, a),
+                   lambda: jac.distance_plain(a, a), None,
+                   *jaccard_cost(q, q, w),
+                   f"{var}, {what}, Q={q}, W={w}; the rule gives "
+                   f"{jac.variant(q, q, w)}", ops_per_s=rate,
+                   ops_rate=rate_note, variant=var)
+        log(f"[jaccard] {var} at {what} (Q={q}, W={w}): {rows[-1]['ms']:.5f}"
+            f" ms, {rows[-1]['ms'] / floor_ms:.2f} launch floors of "
+            f"{floor_ms:.5f} ms (a one-element fill_); {card()}")
+
+
+def jaccard_sweep(floor_ms) -> None:
+    """Both variants at Q in ``JACCARD_SWEEP_Q`` (a = b) and at
+    ``JACCARD_RECT`` for every W in ``JACCARD_SWEEP_W``, each bitwise
+    against the plain version and timed in turns (row, tile, tile, row);
+    whether ``ops.variant`` picks the faster within the spread of the two
+    runs, and, for each W, the crossover."""
+    from repro_torch.kernels.jaccard import ops as jac
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rate, rate_note = popc_rate()
+    t0 = time.perf_counter()
+    misses = []
+    for w in JACCARD_SWEEP_W:
+        faster = {}
+        for q, k in [(q, q) for q in JACCARD_SWEEP_Q] + [JACCARD_RECT]:
+            a = _bitmap_words(gen, q, w)
+            b = a if k == q else _bitmap_words(gen, k, w)
+            want = jac.distance_plain(a, b)
+            for var in JACCARD_VARIANTS:
+                _jaccard_bitwise(f"{var} at {(q, k, w)}", jac._run(var, a, b),
+                                 want)
+            del want
+            got = collections.defaultdict(list)
+            for var in ("row", "tile", "tile", "row"):
+                got[var].append(device_ms(lambda: jac._run(var, a, b)))
+            pick = jac.variant(q, k, w)
+            other = "tile" if pick == "row" else "row"
+            ok = min(got[pick]) <= max(got[other])
+            best = min(JACCARD_VARIANTS, key=lambda v: min(got[v]))
+            faster[(q, k)] = best
+            if not ok:
+                misses.append((q, k, w))
+            n_bytes, n_popc = jaccard_cost(q, k, w)
+            bound = max(n_bytes / HBM_BYTES_PER_S, n_popc / rate) * 1e3
+            log(f"[jaccard-sweep] Q={q} K={k} W={w}: device ms per call in "
+                "turns row " + ", ".join(f"{x:.5f}" for x in got["row"])
+                + "; tile " + ", ".join(f"{x:.5f}" for x in got["tile"])
+                + f"; the rule gives {pick}, the faster is {best}"
+                f"{'' if ok else ' (MISS: beyond the spread)'}; bound "
+                f"{bound:.6f} ms ({n_bytes} B / 3.35 TB/s, {n_popc} popc), "
+                f"tile at {bound / min(got['tile']):.3f} of it; launch floor "
+                f"{floor_ms:.5f}; {card()}")
+        tiles = [q for (q, k), v in faster.items() if v == "tile" and q == k]
+        log(f"[jaccard-sweep] W={w}: tile faster at Q in {tiles} (a = b), "
+            f"at the rectangular {JACCARD_RECT}: {faster[JACCARD_RECT]}")
+    log(f"[jaccard-sweep] {len(JACCARD_SWEEP_W) * (len(JACCARD_SWEEP_Q) + 1)}"
+        f" points bitwise equal in both variants; the rule picks beyond the "
+        f"spread at {misses or 'none'}; popcount rate {rate_note}; "
+        f"{time.perf_counter() - t0:.1f} s; {card()}")
 
 
 class BitmapLog:
@@ -1106,6 +1255,8 @@ class BitmapLog:
     def __init__(self):
         self.phase = None
         self.calls = []
+        # phase ("6", "7") -> the kernel launches of its torch runs
+        self.launches = collections.defaultdict(collections.Counter)
 
     def install(self, jac_ops):
         jaccard = jac_ops.jaccard_distance
@@ -3024,7 +3175,6 @@ def moe_kernel_rows(rows, arch, launches, place_launches):
     against its plain version, timed as in phase 4."""
     from repro_torch import configs
     from repro_torch.core import placement
-    from repro_torch.kernels.jaccard import ops as jac
 
     cfg = configs.get(arch)
     rand = _flash_rand(torch.Generator(device="cuda").manual_seed(6))
@@ -3037,18 +3187,11 @@ def moe_kernel_rows(rows, arch, launches, place_launches):
     bm = placement.coactivation_bitmaps(routing, cfg.n_experts,
                                         MOE_PLACE_REQUESTS)
     a = torch.from_numpy(bm.view(np.int32)).to("cuda")
-    q, w = a.shape
-    got, want = jac.distance(a, a), jac.distance_plain(a, a)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32)), \
-        "jaccard: kernel not bitwise equal to its plain version"
-    kernel_row(rows, place_launches, "jaccard",
-               "src/repro_torch/csrc/jaccard.cu",
-               "src/repro/kernels/jaccard/kernel.py:45",
-               float((got - want).abs().max()),
-               lambda: jac.distance(a, a), lambda: jac.distance_plain(a, a),
-               None, 4 * 2 * q * w + 4 * q * q, 4 * q * q * w + 2 * q * q,
-               f"{arch} placement, Q={q} experts, W={w} words of 2048 "
-               "requests")
+    one = torch.empty(1, dtype=torch.int64, device="cuda")
+    floor_ms = device_ms(lambda: one.fill_(1))
+    jaccard_rows(rows, place_launches, a,
+                 f"{arch} placement ({a.shape[0]} experts, words of "
+                 f"{MOE_PLACE_REQUESTS} requests)", floor_ms)
 
 
 def main() -> int:
@@ -3119,7 +3262,7 @@ def main() -> int:
     paper_experiments(bitmaps)
     watdiv_drift(bitmaps)
     jac_ops.jaccard_distance = jaccard
-    hac_and_jaccard(bitmaps)
+    hac_and_jaccard(rows, bitmaps)
     del svc, window, bitmaps
     torch.cuda.empty_cache()       # the KG phases' services are gone
     lm_launches = lm_serving()

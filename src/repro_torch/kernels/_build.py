@@ -47,7 +47,9 @@ SIGNATURES = {
     # starts, lo, m, total, tile, li, pos, stream
     "rt_expand_pairs": (_P, _P, _I64, _I64, _I64, _P, _P, _P),
     "rt_gather_rows": (_P, _I64, _P, _I64, _I64, _P, _P),
+    # a, q, b, k, w, out, stream
     "rt_jaccard_distance": (_P, _I64, _P, _I64, _I64, _P, _P),
+    "rt_jaccard_tile": (_P, _I64, _P, _I64, _I64, _P, _P),
     # q, k, v, o, B, S, T, H, K, D, causal, q_offset, kv_valid_len, dtype,
     # kv_splits, scratch, stream
     "rt_flash_attention_fwd": (_P, _P, _P, _P) + (_I64,) * 11 + (_P, _P),

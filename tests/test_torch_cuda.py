@@ -114,6 +114,53 @@ def test_jaccard_kernel_bitwise(dev):
     assert _build.launches["jaccard"] == 1
 
 
+def _jaccard_words(q, w, seed, offset=0):
+    """(q, w) int32 bitmap words on the card, a view ``offset`` words into
+    its storage: every fifth row empty, row 1 all ones."""
+    rng = np.random.default_rng(seed)
+    base = torch.from_numpy(rng.integers(-2**31, 2**31, q * w + offset)
+                            .astype(np.int32)).cuda()
+    a = base[offset:].view(q, w)
+    a[::5] = 0
+    if q > 1:
+        a[1] = -1
+    return a
+
+
+# (Q, K, W, offset of a's view in words): W around the 64-word chunk and
+# off a multiple of 4, Q off the 8 x 8 tile, K != Q, rows of a not
+# 16-byte aligned though W is a multiple of 4, no words at all
+JACCARD_EDGES = [(1, 1, 1, 0), (13, 13, 2, 0), (21, 37, 3, 0),
+                 (17, 5, 63, 0), (33, 33, 64, 0), (24, 40, 65, 0),
+                 (64, 64, 64, 1), (9, 130, 64, 3), (128, 128, 64, 0),
+                 (130, 9, 129, 2), (5, 7, 0, 0)]
+
+
+@pytest.mark.parametrize("var", ["row", "tile"])
+@pytest.mark.parametrize("q,k,w,offset", JACCARD_EDGES)
+def test_jaccard_variants_bitwise_at_the_edges(dev, var, q, k, w, offset):
+    a = _jaccard_words(q, w, q * 100 + w, offset)
+    b = a if k == q else _jaccard_words(k, w, k * 100 + w + 1)
+    assert a.data_ptr() % 16 == 4 * offset % 16
+    got = jac._run(var, a, b)
+    want = jac.distance_plain(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert dict(_build.launches) == {"jaccard": 1, f"jaccard.{var}": 1}
+
+
+@pytest.mark.parametrize("q,w", [(24, 2), (6, 2), (64, 64), (128, 64),
+                                 (40, 65)])
+def test_jaccard_routes_by_the_shape_rule(dev, q, w):
+    a = _jaccard_words(q, w, q + w)
+    got = jac.distance(a, a)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32),
+                       jac.distance_plain(a, a).view(torch.int32))
+    assert dict(_build.launches) == {
+        "jaccard": 1, f"jaccard.{jac.variant(q, q, w)}": 1}
+
+
 # the probe kernel's edges: (build, probe) as numpy arrays
 def _probe_edges(rng):
     run = np.array([1] * 10 + [5] * 1000 + [9] * 10)
@@ -1043,7 +1090,7 @@ def test_placement_with_the_jaccard_kernel_equals_the_cpu_plan(dev, experts):
     got = placement.plan_expert_placement(routing, experts, 16, None, 4096,
                                           device=dev)
     torch.cuda.synchronize()
-    assert dict(_build.launches) == {"jaccard": 1}
+    assert dict(_build.launches) == {"jaccard": 1, "jaccard.tile": 1}
     want = placement.plan_expert_placement(routing, experts, 16, None, 4096,
                                            device="cpu")
     assert np.array_equal(got[0], want[0]) and got[1] == want[1]
