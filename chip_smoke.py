@@ -174,7 +174,31 @@ Phases (any failure raises and ends the run with a nonzero exit):
    placement shape against their plain versions, timed as in phase 10;
 16. the same for qwen3-moe-30b-a3b (48 layers, 128 experts top-8, GQA
    32/4) in bfloat16 parameters (61 GB), its float32 checks (b) and (c)
-   at full width and 12 of the 48 layers.
+   at full width and 12 of the 48 layers;
+17. training, the port's sixth path (``[train]`` lines): (k) the three
+   flash backward kernels (``csrc/flash_attention_bwd.cu``) against
+   ``flash_attention_bwd_plain`` (and the pre kernel's row statistics
+   against ``flash_attention_bwd_stats_plain``) at edge cases in every
+   dtype, 2^-14 (float32) or 2^-7 (bf16, f16) of each output's largest
+   magnitude; (f) float32 gradients of qwen3-0.6b at full width and 4 of
+   its 28 layers (1 x 1024 tokens, TF32 off) with ``use_flash`` (the
+   scalar forward and the backward kernels) against autograd through the
+   plain attention, every leaf within 1e-4 of its largest, loss and
+   grad_norm within 1e-5; (r) ``train_step`` on the card against the CPU
+   for four reduced configs (three float32 steps, AdamW eps 1e-3), then
+   the supervisor on the card with an async checkpoint and an injected
+   failure, the restored state bit for bit the checkpoint's; (t) the main
+   path: qwen3-0.6b at full width and depth through
+   ``launch.train.build`` and ``TrainSupervisor``, float32 parameters and
+   AdamW state, bf16 compute, ``remat="full"``, flash attention, a global
+   batch of 4 x 4096 tokens, 8 steps on the pipeline's first batch:
+   launch counts reset just before and read just after (flash tc 56 a
+   step, each backward kernel 28), step walls, tokens/s, peak memory, a
+   profiled step's idle share and top device operations; every loss
+   finite, the first within 0.5 of a random model's ln V + 1/2, the
+   last below the first; then the backward kernels at the main path's,
+   hubert-xlarge's and a float32 shape, timed per kernel and summed
+   beside the plain version, the SDPA backward and the bound.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -3194,6 +3218,536 @@ def moe_kernel_rows(rows, arch, launches, place_launches):
                  f"{MOE_PLACE_REQUESTS} requests)", floor_ms)
 
 
+# --------------------------------------------------------------------------- #
+# phase 17: LM training, qwen3-0.6b at full width and depth
+# --------------------------------------------------------------------------- #
+
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 8   # cut from train_4k's 256
+TRAIN_F32_LAYERS, TRAIN_F32_SEQ = 4, 1024          # check (f)
+TRAIN_REDUCED = ("qwen3-0.6b", "smollm-360m", "hubert-xlarge",
+                 "olmoe-1b-7b")                    # check (r)
+TRAIN_REDUCED_EPS = 1e-3    # AdamW eps of (r): see tests/test_torch_train.py
+FLASH_BWD_SRC = "src/repro_torch/csrc/flash_attention_bwd.cu"
+FLASH_BWD_REPLACES = "src/repro/kernels/flash_attention/ops.py:48"
+FLASH_BWD_LIMIT = {F32: 2.0 ** -14, BF16: 2.0 ** -7, F16: 2.0 ** -7}
+# (B, S, T, H, K, D, causal, q_offset, kv_valid_len): GQA g = 1 to 8, D 8
+# and 256, S = 1, q_offset > 0, kv_valid_len < T, non-causal, S and T off
+# the 32-row tiles; each in all three dtypes
+FLASH_BWD_EDGES = [
+    (2, 77, 77, 16, 8, 128, True, 0, None),
+    (1, 33, 70, 4, 4, 64, True, 37, None),
+    (2, 45, 45, 8, 1, 8, False, 0, 40),
+    (1, 1, 50, 6, 2, 256, True, 49, 50),
+    (1, 130, 200, 5, 1, 80, False, 0, 150),
+    (2, 64, 100, 4, 2, 32, True, 36, 90),
+    (1, 100, 100, 7, 1, 40, True, 0, None),
+    (1, 40, 40, 2, 1, 256, True, 0, 23),
+]
+# (what, B, S, H, K, D, dtype, causal) of the timed rows: the main path's
+# shape first (the kernels line's rows), hubert-xlarge's encoder, float32
+FLASH_BWD_SHAPES = [
+    ("qwen3-0.6b training", TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128, BF16, True),
+    ("hubert-xlarge", TRAIN_BATCH, TRAIN_SEQ, 16, 16, 80, BF16, False),
+    ("float32", 2, 1024, 16, 8, 128, F32, True),
+]
+
+
+def _bwd_err(got, want, what) -> float:
+    """Each output within FLASH_BWD_LIMIT of its own largest magnitude;
+    returns the largest abs difference."""
+    errs = []
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == y.dtype and x.shape == y.shape, (what, name)
+        y32 = y.float()
+        err = float((x.float() - y32).abs().max())
+        limit = FLASH_BWD_LIMIT[y.dtype] * float(y32.abs().max())
+        assert err <= limit, (what, name, err, limit)
+        errs.append(err)
+    return max(errs)
+
+
+def _stats_err(got, want, what) -> float:
+    """The pre kernel's m, l, D within 2^-14 of each one's largest."""
+    errs = []
+    for name, x, y in zip("mlD", got, want):
+        err = float((x - y).abs().max())
+        assert err <= 2.0 ** -14 * float(y.abs().max()), (what, name, err)
+        errs.append(err)
+    return max(errs)
+
+
+def _bwd_case(gen, b, s, t, h, kh, d, dt, causal, q_offset, kv_valid_len):
+    """Random q, k, v and dO, the flash forward's o, and the call's
+    keyword arguments."""
+    from repro_torch.kernels.flash_attention import ops as FA
+
+    q, k, v, do = (torch.randn(shape, generator=gen, device="cuda").to(dt)
+                   for shape in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d),
+                                 (b, s, h, d)))
+    kw = dict(causal=causal, q_offset=q_offset, kv_valid_len=kv_valid_len)
+    return q, k, v, FA.flash_attention(q, k, v, **kw), do, kw
+
+
+def _bwd_pre(FA, q, k, v, o, do, kw):
+    """The pre kernel alone -> its statistics as (m, l, D), (B, K, S, g)."""
+    b, s, h, _ = q.shape
+    kh = k.shape[2]
+    out = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+           torch.empty(3 * b * s * h, dtype=torch.float32, device="cuda"))
+    FA._bwd_kernels(FA.BWD_KERNELS[:1], (q, k, v, o, do), out,
+                    kw["causal"], kw["q_offset"], kw["kv_valid_len"])
+    return out[3].view(3, b, kh, s, h // kh)
+
+
+def flash_bwd_edges() -> None:
+    """(k) at the edges: each kernel once a call, every output and the
+    pre kernel's statistics against their plain versions."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    worst = collections.defaultdict(float)
+    for case in FLASH_BWD_EDGES:
+        for dt in (F32, BF16, F16):
+            q, k, v, o, do, kw = _bwd_case(gen, *case[:6], dt, *case[6:])
+            before = {n: _build.launches[n] for n in FA.BWD_KERNELS}
+            got = FA.flash_attention_bwd(q, k, v, o, do, **kw)
+            ran = {n: _build.launches[n] - before[n] for n in FA.BWD_KERNELS}
+            assert ran == {n: 1 for n in FA.BWD_KERNELS}, (case, dt, ran)
+            want = FA.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+            worst[dt] = max(worst[dt], _bwd_err(got, want, (case, dt)))
+            _stats_err(_bwd_pre(FA, q, k, v, o, do, kw),
+                       FA.flash_attention_bwd_stats_plain(q, k, o, do, **kw),
+                       (case, dt))
+    torch.cuda.synchronize()
+    log(f"[train] check (k): the backward kernels match the plain version "
+        f"at {len(FLASH_BWD_EDGES)} edges x 3 dtypes (largest abs diff "
+        + ", ".join(f"{str(dt)[6:]} {e:.3e}" for dt, e in worst.items())
+        + "; limits 2^-14 float32, 2^-7 bf16 and f16 of each output's "
+        "largest), the pre kernel's statistics within 2^-14")
+
+
+def device_ms_parts(fn, parts, reps: int = 5) -> dict:
+    """As :func:`device_ms`, split by operation name: the device time per
+    call of the operations whose names hold each of ``parts``, and
+    ``"total"``, every operation's."""
+    fn()
+    torch.cuda.synchronize()
+    prof = torch.profiler
+    for attempt in range(4):
+        with prof.profile(activities=[prof.ProfilerActivity.CUDA]) as p:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        by_name = collections.defaultdict(list)
+        for e in p.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name].append(e.device_time_total)
+        if by_name:
+            break
+        log(f"[profile] empty device trace (attempt {attempt + 1})")
+    per = {name: max(1, round(len(us) / reps)) * statistics.fmean(us) / 1e3
+           for name, us in by_name.items()}
+    out = {part: sum(ms for name, ms in per.items() if part in name)
+           for part in parts}
+    out["total"] = sum(per.values())
+    return out
+
+
+def flash_bwd_rows(rows, launches) -> None:
+    """(k) timed: each backward kernel at each of FLASH_BWD_SHAPES (device
+    time per call from the profiler and per call with launch overhead from
+    CUDA events), their sum, the plain version (the pre kernel beside
+    ``flash_attention_bwd_stats_plain``, dq and dkv beside the whole plain
+    backward), the backward of ``scaled_dot_product_attention``
+    (``enable_gqa``) and the bounds. The main path's shape gives the
+    kernels line's three rows, with the main path's ``launches``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as FA
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    parts = ("flash_bwd_pre_kernel", "flash_bwd_dq_kernel",
+             "flash_bwd_dkv_kernel")
+    for i, (what, b, s, h, kh, d, dt, causal) in enumerate(FLASH_BWD_SHAPES):
+        q, k, v, o, do, kw = _bwd_case(gen, b, s, s, h, kh, d, dt, causal,
+                                       0, None)
+        got = FA.flash_attention_bwd(q, k, v, o, do, **kw)
+        want = FA.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+        err = _bwd_err(got, want, what)
+        del got, want
+        stats_want = FA.flash_attention_bwd_stats_plain(q, k, o, do, **kw)
+        stats_err = _stats_err(_bwd_pre(FA, q, k, v, o, do, kw), stats_want,
+                               what)
+        del stats_want
+        out = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+               torch.empty(3 * b * s * h, dtype=torch.float32,
+                           device="cuda"))
+
+        def one(name, out=out, ins=(q, k, v, o, do), kw=kw):
+            return lambda: FA._bwd_kernels((name,), ins, out, kw["causal"],
+                                           kw["q_offset"],
+                                           kw["kv_valid_len"])
+        full = lambda: FA.flash_attention_bwd(q, k, v, o, do, **kw)  # noqa
+        dev = device_ms_parts(full, parts)
+        events = {n: call_ms(one(n), reps=3, runs=3) for n in FA.BWD_KERNELS}
+        events["sum"] = call_ms(full, reps=3, runs=3)
+        plain = lambda: FA.flash_attention_bwd_plain(q, k, v, o, do, **kw)  # noqa
+        stats_plain = lambda: FA.flash_attention_bwd_stats_plain(  # noqa
+            q, k, o, do, **kw)
+        plain_ms = device_ms(plain, reps=3)
+        stats_plain_ms = device_ms(stats_plain, reps=3)
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt,
+                                                 is_causal=causal,
+                                                 enable_gqa=True)
+        dot = do.transpose(1, 2)
+        lib = lambda: torch.autograd.grad(  # noqa: E731
+            lib_out, (qt, kt, vt), dot, retain_graph=True)
+        lib_ms = device_ms(lib, reps=5)
+        pairs = b * h * (s * (s + 1) // 2 if causal else s * s)
+        el = q.element_size()
+        qo = q.numel() * el                      # q, o, dO, dq: each
+        kvb = k.numel() * el                     # k, v, dk, dv: each
+        row_stats = 3 * 4 * b * s * h
+        # (ops a valid pair, bytes read and written) of each kernel's own
+        # function: pre forms the scores; dq the scores, dO.V^T and dS.K;
+        # dkv the scores, dO.V^T, P^T.dO and dS^T.Q
+        work = {FA.BWD_KERNELS[0]: (2 * d, 3 * qo + kvb + row_stats),
+                FA.BWD_KERNELS[1]: (6 * d, 3 * qo + 2 * kvb + row_stats),
+                FA.BWD_KERNELS[2]: (8 * d, 2 * qo + 4 * kvb + row_stats)}
+        rate = TENSOR_OPS_PER_S if dt != F32 else SCALAR_OPS_PER_S
+        rate_name = ("989 TFLOP/s bf16" if dt != F32
+                     else "67 TFLOP/s float32")
+        for n, part in zip(FA.BWD_KERNELS, parts):
+            ops_pp, n_bytes = work[n]
+            bound = max(n_bytes / HBM_BYTES_PER_S, ops_pp * pairs / rate)
+            bound_by = ("bytes" if n_bytes / HBM_BYTES_PER_S >=
+                        ops_pp * pairs / rate else "operations")
+            row_plain = stats_plain_ms if n == FA.BWD_KERNELS[0] else plain_ms
+            row_err = stats_err if n == FA.BWD_KERNELS[0] else err
+            log(f"[train] (k) {n} at {what} (B={b}, S=T={s}, H={h}, K={kh}, "
+                f"D={d}, {str(dt)[6:]}, {'causal' if causal else 'non-causal'}"
+                f"): device time per call {dev[part]:.4f} ms (profiler), "
+                f"{events[n]:.4f} ms with launch overhead (CUDA events); "
+                f"plain {row_plain:.4f} ms "
+                f"({'row statistics' if n == FA.BWD_KERNELS[0] else 'the whole backward'}); "
+                f"SDPA backward {lib_ms:.4f} ms; bound {bound * 1e3:.4f} ms "
+                f"({bound_by}: {ops_pp} operations a pair x {pairs} "
+                f"pairs / {rate_name}, {n_bytes} B / 3.35 TB/s); main-path "
+                f"launches "
+                f"{launches.get(n, 0) if i == 0 else '-'}; max_abs_err "
+                f"{row_err:.3e}; {card()}")
+            if i == 0:
+                rows.append(dict(
+                    name=n, route="cuda", source=FLASH_BWD_SRC,
+                    replaces=FLASH_BWD_REPLACES, variant=None,
+                    launches=launches.get(n, 0), max_abs_err=row_err,
+                    ms=dev[part], plain_ms=row_plain,
+                    bound_ms=bound * 1e3, bound_by=bound_by,
+                    library_ms=lib_ms))
+        n_bytes = 4 * qo + 4 * kvb
+        bound = max(n_bytes / HBM_BYTES_PER_S, 10 * d * pairs / rate)
+        log(f"[train] (k) the backward at {what}: three kernels "
+            f"{dev['total']:.4f} ms device time a call "
+            f"({' + '.join(f'{dev[p]:.4f}' for p in parts)}), "
+            f"{events['sum']:.4f} ms with launch overhead; plain "
+            f"{plain_ms:.4f} ms; SDPA backward {lib_ms:.4f} ms; bound "
+            f"{bound * 1e3:.4f} ms (10·B·H·D = {10 * d * pairs} operations "
+            f"over {rate_name}, or {n_bytes} B of q, k, v, o, dO, dq, dk, "
+            f"dv over 3.35 TB/s); kernels / bound "
+            f"{dev['total'] / (bound * 1e3):.1f}, kernels / SDPA "
+            f"{dev['total'] / lib_ms:.1f}; {card()}")
+        del q, k, v, o, do, out, qt, kt, vt, lib_out
+        torch.cuda.empty_cache()
+
+
+def _train_close(what, got, want, tol) -> float:
+    """Trees keyed alike, each leaf within ``tol`` of its own largest
+    magnitude; returns the largest such ratio."""
+    assert set(got) == set(want), (what, set(got) ^ set(want))
+    worst = 0.0
+    for key in want:
+        g = torch.as_tensor(got[key]).double().cpu()
+        w = torch.as_tensor(want[key]).double().cpu()
+        assert g.shape == w.shape, (what, key)
+        ratio = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        assert ratio <= tol, (what, key, ratio)
+        worst = max(worst, ratio)
+    return worst
+
+
+def train_f32_grads() -> None:
+    """(f) qwen3-0.6b at full width, TRAIN_F32_LAYERS layers, float32: the
+    gradients with flash attention (the scalar forward, the backward
+    kernels) against autograd through the plain attention."""
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.models import lm, transformer
+    from repro_torch.optim import global_norm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    base = dataclasses.replace(configs.get(TRAIN_ARCH),
+                               n_layers=TRAIN_F32_LAYERS,
+                               compute_dtype="float32")
+    flat = lm.init_flat(base, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(11))
+    tokens = torch.from_numpy(np.random.default_rng(11).integers(
+        0, base.vocab_size, (1, TRAIN_F32_SEQ)).astype(np.int32)).to(dev)
+    res = {}
+    for flash in (True, False):
+        cfg = dataclasses.replace(base, use_flash=flash)
+        model = lm.make_trainable(transformer.Transformer(cfg, flat), cfg,
+                                  flat)
+        _build.reset_launches()
+        _, met, grads = lm.loss_and_grads(model, {"tokens": tokens}, cfg)
+        torch.cuda.synchronize()
+        res[flash] = (float(met["loss"]), float(global_norm(grads)), grads,
+                      dict(_build.launches))
+        del model
+    (loss_f, gn_f, g_f, ran), (loss_p, gn_p, g_p, ran_p) = res[True], res[False]
+    var = FA.variant(F32, TRAIN_F32_SEQ, 2, 128)
+    n = TRAIN_F32_LAYERS
+    assert ran.get(f"flash_attention_fwd.{var}") == 2 * n, ran   # + remat
+    assert all(ran.get(k) == n for k in FA.BWD_KERNELS), ran
+    assert not any(k.startswith("flash") for k in ran_p), ran_p
+    worst = _train_close("(f) gradients", g_f, g_p, 1e-4)
+    rel_loss = abs(loss_f - loss_p) / abs(loss_p)
+    rel_gn = abs(gn_f - gn_p) / gn_p
+    log(f"[train] check (f) {TRAIN_ARCH} at full width, {n} of 28 layers, "
+        f"1 x {TRAIN_F32_SEQ} tokens, float32, TF32 off, remat full: flash "
+        f"({2 * n} forward launches on '{var}', {n} of each backward kernel) "
+        f"against autograd through the plain attention: every gradient leaf "
+        f"within {worst:.3e} of its largest (limit 1e-4), loss {loss_f:.6f} "
+        f"vs {loss_p:.6f} (rel {rel_loss:.2e}), grad_norm {gn_f:.6f} vs "
+        f"{gn_p:.6f} (rel {rel_gn:.2e}; limits 1e-5)")
+    assert rel_loss <= 1e-5 and rel_gn <= 1e-5
+    del g_f, g_p, res, flat
+    torch.cuda.empty_cache()
+
+
+def _spread_zeros(flat, seed):
+    """Every all-zero floating leaf drawn from 0.1 * N(0, 1) instead: a
+    leaf that starts at zero is all update after a step, and relative
+    comparisons would compare Adam's normalised steps alone."""
+    gen = torch.Generator().manual_seed(seed)
+    for key, t in flat.items():
+        if t.dtype.is_floating_point and not bool(t.any()):
+            flat[key] = 0.1 * torch.randn(t.shape, generator=gen)
+    return flat
+
+
+def train_reduced() -> None:
+    """(r) train_step on the card against the CPU for TRAIN_REDUCED, three
+    float32 steps from the same weights; then the supervisor on the card
+    with an async checkpoint and an injected failure."""
+    import tempfile
+
+    from repro_torch import configs, interop
+    from repro_torch.data.pipeline import DataConfig, make_stream
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.launch import train
+    from repro_torch.models import lm, transformer
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    opt_cfg = AdamWConfig(total_steps=10, warmup_steps=2,
+                          eps=TRAIN_REDUCED_EPS)
+    for arch in TRAIN_REDUCED:
+        cfg = dataclasses.replace(configs.get(arch).reduced(), use_flash=True)
+        flat = _spread_zeros(lm.init_flat(cfg, device="cpu"), 3)
+        stream = make_stream(cfg, DataConfig(seed=3, global_batch=2,
+                                             seq_len=32))
+        # hubert-xlarge's key bias has a zero gradient in exact arithmetic
+        # (no RoPE, no qk-norm: a row's softmax ignores the shift q.bk)
+        skip = ("attn/bk" if cfg.qkv_bias and not (cfg.rope or cfg.qk_norm)
+                else None)
+        out = {}
+        for device in ("cuda", "cpu"):
+            f = {k: v.to(device) for k, v in flat.items()}
+            model = lm.make_trainable(transformer.Transformer(cfg, f), cfg, f)
+            opt = adamw_init(lm.trainable(model))
+            mets = []
+            for step in range(3):
+                batch = train.to_device(stream.host_batch(step), device)
+                model, opt, met = lm.train_step(model, opt, batch, cfg,
+                                                opt_cfg)
+                mets.append({k: float(v) for k, v in met.items()})
+            out[device] = (mets, interop.lm_tree(model, cfg),
+                           interop.adamw_tree(opt, cfg))
+        (m_c, p_c, o_c), (m_h, p_h, o_h) = out["cuda"], out["cpu"]
+        for a, b_ in zip(m_c, m_h):
+            for key in ("loss", "grad_norm", "aux"):
+                assert abs(a[key] - b_[key]) <= 1e-4 * max(abs(b_[key]),
+                                                           1e-6), (arch, key)
+        keep = lambda t: {k: v for k, v in t.items()  # noqa: E731
+                          if skip is None or not k.endswith(skip)}
+        worst = max(_train_close(f"(r) {arch} {name}", keep(g), keep(w),
+                                 1e-4)
+                    for name, g, w in (("params", p_c, p_h),
+                                       ("mu", o_c["mu"], o_h["mu"]),
+                                       ("nu", o_c["nu"], o_h["nu"])))
+        inv = [k for k in p_h if k.endswith("inv_perm")]
+        for k in inv:
+            assert np.array_equal(p_c[k], flat[k].numpy()), (arch, k)
+        log(f"[train] check (r) reduced {arch}, 3 float32 steps (flash "
+            f"forward and backward kernels on the card), card vs CPU: loss "
+            f"{m_c[-1]['loss']:.6f} vs {m_h[-1]['loss']:.6f}, grad_norm "
+            f"{m_c[-1]['grad_norm']:.6f} vs {m_h[-1]['grad_norm']:.6f}; "
+            f"params, mu, nu within {worst:.3e} of each leaf's largest "
+            f"(limit 1e-4{'; ' + skip + ' left out, a zero gradient' if skip else ''})"
+            f"{'; inv_perm untouched' if inv else ''}")
+
+    # the supervisor on the card: checkpoint after step 2 (async), a failure
+    # at step 4, a restore, steps 3 to 5 again
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.runtime.resilience import (SupervisorConfig,
+                                                TrainSupervisor)
+
+    cfg, model, opt, stream, step_fn = train.build(
+        TRAIN_ARCH, reduced=True, batch=2, seq=32, steps=6, use_flash=True)
+    failed, after = [], []
+
+    def one_step(state, step):
+        if step == 4 and not failed:
+            failed.append(step)
+            raise RuntimeError("injected node failure")
+        m, o, met = step_fn(state.model, state.opt_state,
+                            train.to_device(stream.host_batch(step), "cuda"))
+        return train.TrainState(m, o, {k: float(v) for k, v in met.items()})
+
+    def load(tree, state):
+        state = train.load_state(tree, state)
+        after.append({k: v.clone() for k, v in ckpt._flatten(
+            train.state_tree(state)).items()})
+        return state
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sup = TrainSupervisor(SupervisorConfig(ckpt_dir=tmp, ckpt_every=3),
+                              one_step, train.state_tree, load,
+                              device=torch.device("cuda"))
+        state = sup.run(train.TrainState(model, opt, {}), 6)
+        disk = ckpt._flatten(ckpt.restore(tmp, 2, train.state_tree(state)))
+        (back,) = after
+        assert sup.failures == sup.restores == 1
+        assert int(state.opt_state["step"]) == 6 and int(back["opt__step"]) == 3
+        assert set(back) == set(disk)
+        for key in disk:
+            assert back[key].device.type == "cuda", key
+            assert torch.equal(back[key], disk[key]), key
+    log(f"[train] supervisor on the card (reduced {TRAIN_ARCH}, async "
+        f"checkpoint every 3 steps, a failure injected at step 4): "
+        f"failures {sup.failures}, restores {sup.restores}, the restored "
+        f"state ({len(disk)} leaves) bit for bit the checkpoint of step 2, "
+        f"6 optimizer steps in all")
+
+
+def training_run():
+    """(t) the main path: qwen3-0.6b at full width and depth trained for
+    TRAIN_STEPS steps through ``launch.train.build`` and
+    ``TrainSupervisor``. Returns the run's kernel launches."""
+    import tempfile
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.launch import train
+    from repro_torch.runtime.resilience import (SupervisorConfig,
+                                                TrainSupervisor)
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, opt, stream, step_fn = train.build(
+        TRAIN_ARCH, reduced=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=TRAIN_STEPS, use_flash=True)
+    assert (cfg.remat, cfg.param_dtype, cfg.compute_dtype, cfg.use_flash) \
+        == ("full", "float32", "bfloat16", True)
+    n_params = sum(p.numel() for p in model.parameters())
+    first = train.to_device(stream.host_batch(0), dev)
+    torch.cuda.synchronize()
+    log(f"[train] (t) {TRAIN_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.resolved_head_dim}, "
+        f"vocab {cfg.vocab_size}, {n_params} parameters (float32 masters, "
+        f"bf16 compute, AdamW float32), remat full, flash; global batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}; built in "
+        f"{time.perf_counter() - t0:.2f} s; every step takes the pipeline's "
+        "first batch again, so that the loss on one batch must fall")
+    _mem("(t) after the build", "train")
+    walls, losses = [], []
+
+    def one_step(state, step):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m, o, met = step_fn(state.model, state.opt_state, first)
+        metrics = {k: float(v) for k, v in met.items()}   # synchronizes
+        walls.append(time.perf_counter() - t)
+        return train.TrainState(m, o, metrics)
+
+    def on_metrics(step, state, dt):
+        losses.append(state.metrics["loss"])
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        log(f"[train] (t) step {step}: loss {state.metrics['loss']:.5f}, "
+            f"grad_norm {state.metrics['grad_norm']:.4f}, lr "
+            f"{state.metrics['lr']:.3e}, wall {walls[-1] * 1e3:.1f} ms, "
+            f"{tokens / walls[-1]:.1f} tokens/s")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sup = TrainSupervisor(
+            SupervisorConfig(ckpt_dir=tmp, ckpt_every=TRAIN_STEPS + 1),
+            one_step, train.state_tree, train.load_state, device=dev)
+        _build.reset_launches()
+        state = sup.run(train.TrainState(model, opt, {}), TRAIN_STEPS,
+                        on_metrics=on_metrics)
+        launches = dict(_build.launches)
+    assert sup.failures == 0
+    _mem("(t) 8 steps", "train")
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    log(f"[train] (t) launches a step: {per_step}")
+    n = cfg.n_layers
+    assert launches.get("flash_attention_fwd.tc") == 2 * n * TRAIN_STEPS
+    assert launches.get("flash_attention_fwd") == 2 * n * TRAIN_STEPS
+    for k in FA.BWD_KERNELS:
+        assert launches.get(k) == n * TRAIN_STEPS, (k, launches)
+    steady = statistics.median(walls[1:])
+    log(f"[train] (t) step wall: first {walls[0] * 1e3:.1f} ms, median of "
+        f"steps 2-{TRAIN_STEPS} {steady * 1e3:.1f} ms "
+        f"(min {min(walls[1:]) * 1e3:.1f}, max {max(walls[1:]) * 1e3:.1f}), "
+        f"{TRAIN_BATCH * TRAIN_SEQ / steady:.1f} tokens/s; {card()}")
+    random_loss = math.log(cfg.vocab_size) + 0.5
+    assert all(math.isfinite(x) for x in losses), losses
+    assert abs(losses[0] - random_loss) <= 0.5, losses[0]
+    assert losses[-1] < losses[0], losses
+    log(f"[train] (t) check: every loss finite; step-1 loss {losses[0]:.4f} "
+        f"within 0.5 of a random model's ln V + 1/2 = {random_loss:.4f} "
+        f"(ln V = {math.log(cfg.vocab_size):.4f}; unit-RMS hidden states "
+        f"against N(0, 1/d) head columns give logits of variance 1); loss "
+        f"falls over the {TRAIN_STEPS} steps on one batch: "
+        + " -> ".join(f"{x:.4f}" for x in losses))
+    _profile_idle("one training step (forward, remat recompute, backward, "
+                  "AdamW)", lambda: step_fn(state.model, state.opt_state,
+                                           first), steady, "train",
+                  share_of="flash_bwd")
+    _mem("(t) after the profiled step", "train")
+    del state, model, opt, first, sup
+    torch.cuda.empty_cache()
+    return launches
+
+
+def training(rows) -> None:
+    """Phase 17: (k) at the edges, (f), (r), the main path (t), then (k)
+    timed at the main path's shapes."""
+    t0 = time.perf_counter()
+    flash_bwd_edges()
+    train_f32_grads()
+    train_reduced()
+    launches = training_run()
+    flash_bwd_rows(rows, launches)
+    log(f"[train] phase wall {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this smoke run needs the card",
@@ -3285,6 +3839,8 @@ def main() -> int:
         moe_launches, place_launches = moe_serving(arch, prefix, param_dtype,
                                                    f32_layers)
         moe_kernel_rows(rows, arch, moe_launches, place_launches)
+    torch.cuda.empty_cache()       # the MoE phases' models are gone
+    training(rows)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card())
     print(json.dumps({"kernels": rows}))

@@ -7,6 +7,7 @@ PyTorch, with its kernels hand-written in CUDA for NVIDIA Hopper.
 kernels and every adaptation round's Jaccard matrix through the Jaccard
 kernel (``repro_torch/csrc/``, built with ``nvcc`` at first use).
 ``device="cpu"`` runs the same loop through each kernel's plain PyTorch
-version. ``repro_torch.interop`` builds the port's objects from plain
-numpy state.
+version. The language models serve and train on the card as well
+(``repro_torch.models.lm``, ``repro_torch.launch.train``).
+``repro_torch.interop`` builds the port's objects from plain numpy state.
 """

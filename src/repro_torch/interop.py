@@ -7,7 +7,9 @@ state is their parameter tree. Each function here takes that state as
 plain numpy arrays and Python values — as any other implementation of the
 system can export it — and returns the ``repro_torch`` object that holds
 it, so one dataset, layout or set of weights can be served by this package
-and compared with another's.
+and compared with another's. A language model's training state goes both
+ways: ``lm_params`` and ``adamw_state`` build it, ``lm_tree`` and
+``adamw_tree`` export it as plain numpy, keyed by the same leaf paths.
 """
 from __future__ import annotations
 
@@ -123,3 +125,69 @@ def lm_params(tree: Mapping[str, np.ndarray], cfg: ArchConfig, *,
         dt = np.int32 if path.endswith("/inv_perm") else np.float32
         flat[path] = torch.from_numpy(np.array(a, dtype=dt)).to(dev)
     return transformer.Transformer(cfg, flat)
+
+
+def adamw_state(ref_state: Mapping, model) -> Dict:
+    """An AdamW state ``{"mu", "nu", "step"}`` whose moments are parameter
+    trees keyed by leaf path as :func:`lm_params` takes them (a leaf the
+    optimizer does not train, such as ``inv_perm``, may be absent or None)
+    -> the port's state for ``model``: float32 moments keyed by the model's
+    trainable parameter names, in the parameters' shapes, and an int32
+    ``step``, on the model's device."""
+    from repro_torch.models import lm
+    dev = model.device
+    out: Dict = {"mu": {}, "nu": {}}
+    for name, p in lm.trainable(model).items():
+        path, layer = lm.leaf_path(name)
+        for key in ("mu", "nu"):
+            a = np.asarray(ref_state[key][path])
+            a = a if layer is None else a[layer]
+            out[key][name] = torch.from_numpy(
+                np.array(a, dtype=np.float32).reshape(p.shape)).to(dev)
+    out["step"] = torch.tensor(int(np.asarray(ref_state["step"])),
+                               dtype=torch.int32, device=dev)
+    return out
+
+
+def _by_path(tensors: Mapping[str, torch.Tensor], cfg: ArchConfig
+             ) -> Dict[str, np.ndarray]:
+    """Tensors keyed by the model's names -> numpy arrays keyed by leaf
+    path, layers stacked, in ``param_shapes``' shapes."""
+    from repro_torch.models import lm
+    shapes = lm.param_shapes(cfg)
+    parts: Dict[str, Dict] = {}
+    for name, t in tensors.items():
+        path, layer = lm.leaf_path(name)
+        if path in shapes:
+            parts.setdefault(path, {})[layer] = (
+                t.detach().to("cpu", torch.float32 if t.dtype.is_floating_point
+                              else t.dtype).numpy())
+    out = {}
+    for path, by_layer in parts.items():
+        if None in by_layer:
+            a = by_layer[None]
+        else:
+            a = np.stack([by_layer[i] for i in range(len(by_layer))])
+        out[path] = a.reshape(shapes[path])
+    return out
+
+
+def lm_tree(model, cfg: ArchConfig) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`lm_params`: the model's parameter tree keyed
+    by leaf path, layers stacked, as float32 numpy arrays (the trained
+    values: the master copies where the model has them) and the int32
+    ``inv_perm``."""
+    from repro_torch.models import lm
+    tensors = dict(model.named_parameters())
+    tensors.update(lm.trainable(model))
+    tensors.update((n, b) for n, b in model.named_buffers()
+                   if n.endswith("inv_perm"))
+    return _by_path(tensors, cfg)
+
+
+def adamw_tree(state: Mapping, cfg: ArchConfig) -> Dict:
+    """The inverse of :func:`adamw_state`: ``{"mu", "nu"}`` keyed by leaf
+    path (trained leaves only), ``"step"`` a numpy int32."""
+    return {"mu": _by_path(state["mu"], cfg),
+            "nu": _by_path(state["nu"], cfg),
+            "step": np.int32(int(state["step"]))}

@@ -1,4 +1,4 @@
-"""Grouped-query flash attention (forward).
+"""Grouped-query flash attention, forward and backward.
 
 Counterpart of ``repro/kernels/flash_attention/ops.py``. On a CUDA tensor
 :func:`flash_attention` launches one of the three Hopper kernels of
@@ -35,7 +35,18 @@ a decode step against a cache of T slots neither recompiles nor reads the
 slots past ``kv_valid_len``. Every row has at least one valid key (key 0):
 ``q_offset >= 0`` and ``kv_valid_len >= 1`` are required.
 
-No backward: the training slice adds it as a ``torch.autograd.Function``.
+The backward. :func:`flash_attention` goes through ``_FlashAttention``, a
+``torch.autograd.Function``, when grad is enabled and q, k or v requires
+it; otherwise it runs the forward alone, as serving does. The Function's
+forward is the one above and saves q, k, v and o, as the reference's
+``_fwd`` does; its backward, :func:`flash_attention_bwd`, launches the
+three kernels of ``repro_torch/csrc/flash_attention_bwd.cu`` on a CUDA
+tensor (row statistics, dQ, dK and dV) and runs
+:func:`flash_attention_bwd_plain`, the reference's ``_bwd`` in torch ops,
+on a CPU tensor. Both recompute the softmax in float32 from q and k:
+``P = exp(s - m) / max(l, 1e-30)``, ``D = rowsum(dO∘O)``, ``dS = P∘(dO·Vᵀ -
+D)``, ``dQ = dS·K·scale``, ``dK = dSᵀ·Q·scale`` and ``dV = Pᵀ·dO``, dK and
+dV summed over the GQA group, every output in the inputs' dtype.
 """
 from __future__ import annotations
 
@@ -164,20 +175,11 @@ def dec_splits(b: int, kh: int, kv_len: int, n_sms: int) -> tuple:
     return -(-kv_len // chunk), chunk
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, q_offset: int = 0,
-                    kv_valid_len: Optional[int] = None) -> torch.Tensor:
-    """q (B, S, H, D), k/v (B, T, K, D) -> (B, S, H, D) in q's dtype.
-    Replaces ``flash_attention_fwd``."""
-    q_offset = int(q_offset)
-    kv_valid_len = None if kv_valid_len is None else int(kv_valid_len)
-    _check(q, k, v, q_offset, kv_valid_len)
-    t = dispatch.tier(q)
-    dispatch.note_tier("flash_attention.fwd", t)
-    if t == "torch":
-        return flash_attention_plain(q, k, v, causal=causal,
-                                     q_offset=q_offset,
-                                     kv_valid_len=kv_valid_len)
+def _check_cuda(*named) -> None:
+    """The limits every CUDA kernel of this op shares: float32, bfloat16 or
+    float16, D a multiple of 8 up to ``MAX_HEAD_DIM``, 16-byte aligned
+    storage."""
+    q = named[0][1]
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"{q.dtype}: the CUDA kernels take float32, "
                         "bfloat16 and float16")
@@ -185,10 +187,61 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if d % 8 or d > MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d}: the CUDA kernels take a multiple "
                          f"of 8 up to {MAX_HEAD_DIM}")
-    for name, x in (("q", q), ("k", k), ("v", v)):
+    for name, x in named:
         if x.data_ptr() % 16:
             raise ValueError(f"{name}: the kernel reads 16-byte rows; the "
                              "tensor's storage is not 16-byte aligned")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0,
+                    kv_valid_len: Optional[int] = None) -> torch.Tensor:
+    """q (B, S, H, D), k/v (B, T, K, D) -> (B, S, H, D) in q's dtype.
+    Replaces ``flash_attention_fwd``; differentiable (through
+    ``_FlashAttention``) when grad is enabled and q, k or v requires it."""
+    q_offset = int(q_offset)
+    kv_valid_len = None if kv_valid_len is None else int(kv_valid_len)
+    _check(q, k, v, q_offset, kv_valid_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, q_offset,
+                                     kv_valid_len)
+    return _forward(q, k, v, causal, q_offset, kv_valid_len)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward saves q, k, v and o; the backward is
+    :func:`flash_attention_bwd` (the reference's ``custom_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, kv_valid_len):
+        o = _forward(q, k, v, causal, q_offset, kv_valid_len)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.args = (causal, q_offset, kv_valid_len)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        causal, q_offset, kv_valid_len = ctx.args
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, o, do.contiguous(), causal=causal, q_offset=q_offset,
+            kv_valid_len=kv_valid_len)
+        return dq, dk, dv, None, None, None
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, q_offset: int,
+             kv_valid_len: Optional[int]) -> torch.Tensor:
+    """The forward of a checked call: a kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    t = dispatch.tier(q)
+    dispatch.note_tier("flash_attention.fwd", t)
+    if t == "torch":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     q_offset=q_offset,
+                                     kv_valid_len=kv_valid_len)
+    _check_cuda(("q", q), ("k", k), ("v", v))
     b, s, h, d = q.shape
     tk, kh = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -223,3 +276,169 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   None if scratch is None else scratch.data_ptr(),
                   variant=var)
     return out
+
+
+# --------------------------------------------------------------------------- #
+# backward
+# --------------------------------------------------------------------------- #
+
+BWD_CHUNK = 128          # queries a chunk of the plain backward
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              do: torch.Tensor, *, causal: bool = True,
+                              q_offset: int = 0,
+                              kv_valid_len: Optional[int] = None):
+    """The reference's ``_bwd`` in torch ops: chunks of ``BWD_CHUNK``
+    queries, each recomputing its masked float32 scores (-1e30 where
+    masked), ``p = exp(s - max) / max(sum, 1e-30)``, ``D = rowsum(dO∘O)``,
+    ``dS = p∘(dO·Vᵀ - D)``; dq in q's dtype, dk and dv summed over the GQA
+    group in k's and v's. Materialises (B, K, g, 128, T) scores a chunk."""
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = 1.0 / math.sqrt(d)
+    kf = k.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]  # (B,K,1,T,D)
+    vf = v.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
+    dk = torch.zeros((b, kh, t, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    dq = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
+    kpos = torch.arange(t, device=q.device)
+
+    def rows(x, lo, hi):                               # -> (B, K, g, c, D)
+        return x[:, lo:hi].to(torch.float32).reshape(
+            b, hi - lo, kh, g, d).permute(0, 2, 3, 1, 4)
+
+    for lo in range(0, s, BWD_CHUNK):
+        hi = min(lo + BWD_CHUNK, s)
+        qc, doc, oc = rows(q, lo, hi), rows(do, lo, hi), rows(o, lo, hi)
+        drow = (doc * oc).sum(-1, keepdim=True)        # (B, K, g, c, 1)
+        scores = torch.matmul(qc, kf.transpose(-1, -2)) * scale
+        ok = torch.ones((hi - lo, t), dtype=torch.bool, device=q.device)
+        if causal:
+            qpos = torch.arange(lo, hi, device=q.device)[:, None] + q_offset
+            ok = qpos >= kpos[None, :]
+        if kv_valid_len is not None:
+            ok = ok & (kpos < kv_valid_len)[None, :]
+        scores = torch.where(ok, scores, torch.full((), NEG_INF,
+                                                    device=q.device))
+        p = torch.exp(scores - scores.amax(-1, keepdim=True))
+        p = p / torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+        dp = torch.matmul(doc, vf.transpose(-1, -2))
+        ds = p * (dp - drow)
+        dq[:, lo:hi] = (torch.matmul(ds, kf) * scale).permute(
+            0, 3, 1, 2, 4).reshape(b, hi - lo, h, d)
+        dk += torch.matmul(ds.transpose(-1, -2), qc).sum(2) * scale
+        dv += torch.matmul(p.transpose(-1, -2), doc).sum(2)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
+
+
+def flash_attention_bwd_stats_plain(q: torch.Tensor, k: torch.Tensor,
+                                    o: torch.Tensor, do: torch.Tensor, *,
+                                    causal: bool = True, q_offset: int = 0,
+                                    kv_valid_len: Optional[int] = None):
+    """What ``flash_bwd_pre_kernel`` writes, in torch ops: (m, l, D), each
+    float32 (B, K, S, g) (row ``(i, head)`` at ``[b, head // g, i, head %
+    g]``), the row max and the row sum of ``exp(s - m)`` of the masked
+    float32 scores, and ``rowsum(dO∘O)``; in chunks of ``BWD_CHUNK``
+    queries."""
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    kf = k.to(torch.float32).permute(0, 2, 1, 3)[:, :, None]
+    kpos = torch.arange(t, device=q.device)
+    m = torch.empty((b, kh, g, s), dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    for lo in range(0, s, BWD_CHUNK):
+        hi = min(lo + BWD_CHUNK, s)
+        qc = q[:, lo:hi].to(torch.float32).reshape(
+            b, hi - lo, kh, g, d).permute(0, 2, 3, 1, 4)
+        scores = torch.matmul(qc, kf.transpose(-1, -2)) * (1.0 / math.sqrt(d))
+        ok = torch.ones((hi - lo, t), dtype=torch.bool, device=q.device)
+        if causal:
+            qpos = torch.arange(lo, hi, device=q.device)[:, None] + q_offset
+            ok = qpos >= kpos[None, :]
+        if kv_valid_len is not None:
+            ok = ok & (kpos < kv_valid_len)[None, :]
+        scores = torch.where(ok, scores, torch.full((), NEG_INF,
+                                                    device=q.device))
+        m[..., lo:hi] = scores.amax(-1)
+        l[..., lo:hi] = torch.exp(scores - m[..., lo:hi, None]).sum(-1)
+    dsum = (do.to(torch.float32) * o.to(torch.float32)).sum(-1)  # (B, S, H)
+    return (m.permute(0, 1, 3, 2), l.permute(0, 1, 3, 2),
+            dsum.reshape(b, s, kh, g).permute(0, 2, 1, 3))
+
+
+BWD_KERNELS = ("flash_attention_bwd_pre", "flash_attention_bwd_dq",
+               "flash_attention_bwd_dkv")
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, *,
+                        causal: bool = True, q_offset: int = 0,
+                        kv_valid_len: Optional[int] = None):
+    """(dq, dk, dv) of :func:`flash_attention` at (q, k, v), from its
+    output ``o`` and the output's gradient ``do`` (B, S, H, D), each in the
+    inputs' dtype. Replaces the reference's ``_bwd``. On a CUDA tensor
+    three kernels run in turn: ``flash_bwd_pre_kernel`` (each row's max,
+    sum and ``D`` into a float32 scratch), ``flash_bwd_dq_kernel`` and
+    ``flash_bwd_dkv_kernel``; on a CPU tensor,
+    :func:`flash_attention_bwd_plain`."""
+    q_offset = int(q_offset)
+    kv_valid_len = None if kv_valid_len is None else int(kv_valid_len)
+    _check(q, k, v, q_offset, kv_valid_len)
+    for name, x in (("o", o), ("do", do)):
+        if x.shape != q.shape or x.dtype != q.dtype or x.device != q.device:
+            raise ValueError(f"{name}: expected q's shape, dtype and device "
+                             f"{tuple(q.shape)}, {q.dtype}, {q.device}; got "
+                             f"{tuple(x.shape)}, {x.dtype}, {x.device}")
+    t = dispatch.tier(q)
+    dispatch.note_tier("flash_attention.bwd", t)
+    if t == "torch":
+        return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,
+                                         q_offset=q_offset,
+                                         kv_valid_len=kv_valid_len)
+    for name, x in (("o", o), ("do", do)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+    _check_cuda(("q", q), ("k", k), ("v", v), ("o", o), ("do", do))
+    b, s, h, d = q.shape
+    tk, kh = k.shape[1], k.shape[2]
+    if not (q.numel() and tk):
+        return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
+    out = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+           torch.empty(3 * b * s * h, dtype=torch.float32, device=q.device))
+    _bwd_kernels(BWD_KERNELS, (q, k, v, o, do), out, causal, q_offset,
+                 kv_valid_len)
+    return out[:3]
+
+
+def _bwd_kernels(which, inputs, outputs, causal: bool, q_offset: int,
+                 kv_valid_len: Optional[int]) -> None:
+    """Launch the backward kernels named in ``which`` (of
+    :data:`BWD_KERNELS`, in that order) on checked CUDA ``inputs`` (q, k,
+    v, o, dO) into ``outputs`` (dq, dk, dv and the float32 scratch of 3 *
+    B * S * H row statistics: m, l, D, each (B, K, S, g))."""
+    q, k, v, o, do = inputs
+    dq, dk, dv, stats = outputs
+    b, s, h, d = q.shape
+    tk, kh = k.shape[1], k.shape[2]
+    tail = (b, s, tk, h, kh, d, int(causal), q_offset,
+            -1 if kv_valid_len is None else kv_valid_len,
+            _DTYPE_CODES[q.dtype])
+    pre, dq_k, dkv = BWD_KERNELS
+    if pre in which:
+        _build.launch(pre, "rt_flash_attention_bwd_pre", q.device,
+                      q.data_ptr(), k.data_ptr(), o.data_ptr(),
+                      do.data_ptr(), stats.data_ptr(), *tail)
+    if dq_k in which:
+        _build.launch(dq_k, "rt_flash_attention_bwd_dq", q.device,
+                      q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      do.data_ptr(), stats.data_ptr(), dq.data_ptr(), *tail)
+    if dkv in which:
+        _build.launch(dkv, "rt_flash_attention_bwd_dkv", q.device,
+                      q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      do.data_ptr(), stats.data_ptr(), dk.data_ptr(),
+                      dv.data_ptr(), *tail)

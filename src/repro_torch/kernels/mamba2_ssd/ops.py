@@ -37,7 +37,11 @@ are free, so the model passes its views of the conv output without a copy.
 the final state is written there (it may be ``s0`` itself: a decode step
 updates its cache in place) and returned.
 
-No backward: the training slice adds it as a ``torch.autograd.Function``.
+No backward kernel yet (ROADMAP item 8): a CUDA call that needs a
+gradient (grad enabled and an input that requires it) raises
+``NotImplementedError``, so the card's path never returns a tensor cut
+from the autograd graph. A CPU call runs the plain version, which autograd
+differentiates.
 """
 from __future__ import annotations
 
@@ -157,6 +161,8 @@ def ssd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dt: torch.Tensor,
         if state_out is not None:
             state = state_out.copy_(state)
         return y, state
+    dispatch.refuse_grad("ssd", "the SSD backward kernel", x, b, c, dt, a,
+                         d, s0)
     hd, n = x.shape[3], b.shape[-1]
     if hd not in SIZES or n not in SIZES:
         raise ValueError(f"head_dim {hd}, state {n}: the CUDA kernels are "

@@ -34,7 +34,11 @@ any S in its range, ragged S included, and ``w = 0`` exactly. The
 kernels are compiled for the head sizes in :data:`HEAD_DIMS`; a CUDA call
 at another size raises, a CPU call computes it.
 
-No backward: the training slice adds it as a ``torch.autograd.Function``.
+No backward kernel yet (ROADMAP item 8): a CUDA call that needs a
+gradient (grad enabled and an input that requires it) raises
+``NotImplementedError``, so the card's path never returns a tensor cut
+from the autograd graph. A CPU call runs the plain version, which autograd
+differentiates.
 """
 from __future__ import annotations
 
@@ -163,6 +167,8 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
     dispatch.note_tier("wkv", t)
     if t == "torch":
         return wkv_plain(r, k, v, w, u, s0)
+    dispatch.refuse_grad("wkv", "the WKV backward kernel", r, k, v, w, u,
+                         s0)
     b, s, h, hd = r.shape
     if hd not in HEAD_DIMS:
         raise ValueError(f"head_dim {hd}: the CUDA kernels are compiled for "

@@ -1,2 +1,3 @@
-"""Language models of the attention family: layers, the layer stack and
-the serving steps (prefill, cached decode)."""
+"""Language models: layers, the layer stack (attention family, RWKV6,
+Mamba2), the serving steps (prefill, cached decode) and the training step
+(loss, gradients, AdamW)."""

@@ -1,13 +1,24 @@
-"""LM-level serving steps: prefill and cached decode, plus random weights
+"""LM-level steps: train, prefill and cached decode, plus random weights
 and input batches.
 
-Counterpart of ``repro/models/lm.py`` for serving; ``loss_fn`` and
-``train_step`` come with the training slice (ROADMAP Queue 1, item 3).
-Entry points run on the card unless the caller passes ``device="cpu"``.
+Counterpart of ``repro/models/lm.py``. Entry points run on the card unless
+the caller passes ``device="cpu"``.
+
+Serving (``prefill_step``, ``decode_step``) runs under ``torch.no_grad()``
+and builds no graph. Training (``loss_fn``, ``train_step``) needs a model
+made trainable (``init_all`` or :func:`make_trainable`): every floating
+parameter requires grad; the MoE slot map ``inv_perm`` is an int32 buffer
+that nothing updates (the reference's ``allow_int=True``). The modules
+hold their matrices in the compute dtype; where that differs from a
+leaf's parameter dtype (bf16 compute over float32 parameters, the full
+configs), the model carries float32 master copies in ``model.master``
+(keyed by parameter name): the optimizer updates the masters from the
+gradients cast to their dtype and copies them into the modules, as the
+reference updates its float32 parameters and casts them at every use.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -16,8 +27,11 @@ from repro_torch.configs.base import SHAPES, ArchConfig
 from repro_torch.kernels import dispatch
 from repro_torch.models import rwkv, ssm, transformer
 from repro_torch.models.layers import dtype
+from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
 Batch = Dict[str, torch.Tensor]
+
+AUX_WEIGHT = 0.01
 
 
 def _rwkv_block_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
@@ -155,6 +169,14 @@ MAMBA_CONV_SCALE = 0.1      # conv_w ~ N(0, 1) * 0.1, not 1/sqrt(fan_in)
 def init_params(cfg: ArchConfig, *, device="cuda",
                 generator: Optional[torch.Generator] = None
                 ) -> transformer.Transformer:
+    """The model of :func:`init_flat`'s weights."""
+    return transformer.Transformer(
+        cfg, init_flat(cfg, device=device, generator=generator))
+
+
+def init_flat(cfg: ArchConfig, *, device="cuda",
+              generator: Optional[torch.Generator] = None
+              ) -> Dict[str, torch.Tensor]:
     """Random weights in the reference's distribution (normal scaled by
     1/sqrt(fan_in) for matrices, ones for norm scales, zeros for biases;
     RWKV6's ``tm`` leaves as ``rwkv6_init`` draws them, Mamba2's as
@@ -163,7 +185,8 @@ def init_params(cfg: ArchConfig, *, device="cuda",
     int32), drawn on ``device`` from ``generator`` (a generator on that
     device; seed 0 when omitted). The stacked expert leaves are drawn one
     layer at a time in float32 and cast into the parameter dtype, so no
-    float32 copy of a whole leaf exists."""
+    float32 copy of a whole leaf exists. Returns the parameter tree keyed
+    by path (``param_shapes``), in the parameter dtype."""
     dev = dispatch.resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -186,8 +209,9 @@ def init_params(cfg: ArchConfig, *, device="cuda",
             flat[path] = torch.arange(shape[-1], dtype=torch.int32,
                                       device=dev).expand(shape).contiguous()
             continue
-        if mamba_leaf and leaf in mamba:
-            t = torch.from_numpy(mamba[leaf]).to(dev).expand(shape)
+        if mamba_leaf and leaf in mamba:     # one copy a layer
+            t = torch.from_numpy(mamba[leaf]).to(dev).expand(
+                shape).contiguous()
         elif mamba_leaf and leaf == "conv_w":
             t = torch.randn(shape, generator=generator, device=dev)
             t *= MAMBA_CONV_SCALE
@@ -204,9 +228,163 @@ def init_params(cfg: ArchConfig, *, device="cuda",
             t = torch.randn(shape, generator=generator, device=dev)
             t *= 1.0 / np.sqrt(max(_fan_in(path, shape, cfg), 1))
         flat[path] = t if path == "blocks/moe/wr" else t.to(pdt)
-    return transformer.Transformer(cfg, flat)
+    return flat
 
 
+# --------------------------------------------------------------------------- #
+# training
+# --------------------------------------------------------------------------- #
+
+def leaf_path(name: str) -> Tuple[str, Optional[int]]:
+    """A parameter's (or buffer's) name in the model -> (the reference's
+    leaf path, its layer on the stacked axis or None): ``blocks.3.attn.wq``
+    -> (``blocks/attn/wq``, 3); RWKV6's channel-mix leaves, kept in the
+    ``cm`` module, sit under ``tm`` there."""
+    parts = name.split(".")
+    if parts[0] != "blocks":
+        return "/".join(parts), None
+    rest = parts[2:]
+    if rest[0] == "cm":
+        rest = ["tm"] + rest[1:]
+    return "/".join(["blocks"] + rest), int(parts[1])
+
+
+def _master_dtype(path: str, cfg: ArchConfig) -> torch.dtype:
+    """The dtype the reference keeps a leaf in: the parameter dtype, but
+    float32 for the MoE router."""
+    return (torch.float32 if path == "blocks/moe/wr"
+            else dtype(cfg.param_dtype))
+
+
+def make_trainable(model: transformer.Transformer, cfg: ArchConfig,
+                   flat: Optional[Mapping[str, torch.Tensor]] = None
+                   ) -> transformer.Transformer:
+    """Turn on ``requires_grad`` for every floating parameter and, for each
+    whose module dtype differs from the dtype the reference keeps it in,
+    set a master copy in ``model.master`` (taken from ``flat``, the
+    parameter tree the model was built from, where given; else upcast from
+    the module). Returns the model."""
+    master = {}
+    for name, p in model.named_parameters():
+        if not p.dtype.is_floating_point:
+            continue
+        p.requires_grad_(True)
+        path, layer = leaf_path(name)
+        mdt = _master_dtype(path, cfg)
+        if p.dtype == mdt:
+            continue
+        if flat is not None:
+            src = flat[path] if layer is None else flat[path][layer]
+            master[name] = src.reshape(p.shape).to(mdt)
+        else:
+            master[name] = p.detach().to(mdt)
+    model.master = master
+    return model
+
+
+def trainable(model: transformer.Transformer) -> Dict[str, torch.Tensor]:
+    """The tensors the optimizer updates, by parameter name: the master
+    copy where the model has one, else the parameter itself."""
+    master = getattr(model, "master", None) or {}
+    return {name: master.get(name, p)
+            for name, p in model.named_parameters() if p.requires_grad}
+
+
+def init_all(cfg: ArchConfig, *, seed: int = 0, device="cuda",
+             opt: bool = True):
+    """Random weights (:func:`init_flat`, drawn from ``seed`` on
+    ``device``) as a trainable model, and zero AdamW state (or None)."""
+    dev = dispatch.resolve_device(device)
+    flat = init_flat(cfg, device=dev,
+                     generator=torch.Generator(device=dev).manual_seed(seed))
+    model = make_trainable(transformer.Transformer(cfg, flat), cfg, flat)
+    return model, (adamw_init(trainable(model)) if opt else None)
+
+
+def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor
+                   ) -> torch.Tensor:
+    """Per-position CE, float32: ``logsumexp`` minus the target's logit.
+    The logit is picked with ``gather``; the reference contracts with a
+    (B, S, V) one-hot, whose other terms are exact zeros, so the values are
+    identical, and at full width the one-hot would cost as much as the
+    logits (about 10 GB at 4 x 4095 x 151,936)."""
+    lf = logits.to(torch.float32)
+    picked = lf.gather(-1, targets[..., None].to(torch.int64))[..., 0]
+    return torch.logsumexp(lf, dim=-1) - picked
+
+
+def loss_fn(model: transformer.Transformer, batch: Batch, cfg: ArchConfig
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """-> (total, {"loss", "aux"}): next-token CE, the mean over B x
+    (S - 1) positions (the head runs on positions :-1 only: the reference
+    computes all S and drops the last, the same numbers), or for
+    ``embedding_inputs`` HuBERT's masked CE, ``sum(nll * mask) /
+    max(mask.sum(), 1)``; ``total = loss + AUX_WEIGHT * aux`` with aux the
+    MoE router's load-balancing term (0 otherwise)."""
+    if cfg.embedding_inputs:
+        x, aux, _ = transformer._blocks(model, batch["embeddings"], cfg,
+                                        collect_cache=False)
+        nll = _cross_entropy(transformer.lm_head(model, x, cfg),
+                             batch["labels"])
+        mask = batch["mask"].to(torch.float32)
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+    else:
+        tokens = batch["tokens"]
+        x, aux, _ = transformer._blocks(model, tokens, cfg,
+                                        collect_cache=False)
+        nll = _cross_entropy(transformer.lm_head(model, x[:, :-1], cfg),
+                             tokens[:, 1:])
+        loss = nll.mean()
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
+    return loss + AUX_WEIGHT * aux, {"loss": loss, "aux": aux}
+
+
+def loss_and_grads(model: transformer.Transformer, batch: Batch,
+                   cfg: ArchConfig):
+    """-> (total, {"loss", "aux"}, grads): :func:`loss_fn` and its
+    gradients (flash attention's hand-written backward where
+    ``cfg.use_flash``), keyed by parameter name, each in the dtype of the
+    tensor the optimizer updates (:func:`trainable`); None for a parameter
+    the loss does not reach. The parameters' ``.grad`` are left None."""
+    params = {name: p for name, p in model.named_parameters()
+              if p.requires_grad}
+    if not params:
+        raise ValueError("the model has no trainable parameter: build it "
+                         "with init_all or make_trainable")
+    for p in params.values():
+        p.grad = None
+    with torch.enable_grad():
+        total, metrics = loss_fn(model, batch, cfg)
+        total.backward()
+    opt = trainable(model)
+    grads = {name: None if p.grad is None else p.grad.to(opt[name].dtype)
+             for name, p in params.items()}
+    for p in params.values():
+        p.grad = None
+    return (total.detach(), {k: v.detach() for k, v in metrics.items()},
+            grads)
+
+
+def train_step(model: transformer.Transformer, opt_state: Dict,
+               batch: Batch, cfg: ArchConfig, opt_cfg: AdamWConfig):
+    """One step: :func:`loss_and_grads`, then AdamW. Updates the model's
+    parameters (and masters) and ``opt_state`` IN PLACE and returns
+    ``(model, opt_state, metrics)``, metrics ``loss``, ``aux``, ``total``,
+    ``lr`` and ``grad_norm`` as float32 tensors on the model's device."""
+    total, metrics, grads = loss_and_grads(model, batch, cfg)
+    params = dict(model.named_parameters())
+    _, opt_state, opt_metrics = adamw_update(trainable(model), grads,
+                                             opt_state, opt_cfg)
+    with torch.no_grad():
+        for name, master in (getattr(model, "master", None) or {}).items():
+            params[name].copy_(master)
+        for m in model.modules():
+            if isinstance(m, ssm.Mamba2):
+                m.refresh()
+    return model, opt_state, dict(metrics, total=total, **opt_metrics)
+
+
+@torch.no_grad()
 def prefill_step(model: transformer.Transformer, batch: Batch,
                  cfg: ArchConfig):
     """Full-sequence forward -> (float32 logits of the last position (B, V),
@@ -219,6 +397,7 @@ def prefill_step(model: transformer.Transformer, batch: Batch,
     return transformer.lm_head(model, x[:, -1:], cfg)[:, 0], caches
 
 
+@torch.no_grad()
 def decode_step(model: transformer.Transformer, caches, batch: Batch,
                 cfg: ArchConfig):
     """One new token per sequence against caches of ``seq_len`` slots;

@@ -56,7 +56,8 @@ class Mamba2(nn.Module):
     """One layer's ``mamba`` leaves: ``in_proj`` (d, 2 d_in + 2 N + H),
     ``conv_w`` (K, conv_dim), ``conv_b``, ``out_proj`` (d_in, d) in the
     compute dtype; ``dt_bias``, ``A_log``, ``D`` (H,) and ``norm`` (d_in,)
-    in float32. ``a = -exp(A_log)`` is kept beside them."""
+    in float32. ``a = -exp(A_log)`` is kept beside them (``refresh``
+    recomputes it after a training step changes ``A_log``)."""
 
     def __init__(self, cfg: ArchConfig, w: Mapping[str, torch.Tensor]):
         super().__init__()
@@ -67,6 +68,19 @@ class Mamba2(nn.Module):
             setattr(self, name, _param(w[name], torch.float32))
         self.register_buffer("a", -torch.exp(self.A_log.detach()),
                              persistent=False)
+
+    def refresh(self) -> None:
+        """Recompute ``a`` from ``A_log`` (after a training step)."""
+        with torch.no_grad():
+            self.a.copy_(-torch.exp(self.A_log))
+
+
+def _a(p: Mamba2) -> torch.Tensor:
+    """``a = -exp(A_log)``: the kept buffer, or, while autograd records a
+    trainable ``A_log``, computed from it so that its gradient flows."""
+    if torch.is_grad_enabled() and p.A_log.requires_grad:
+        return -torch.exp(p.A_log)
+    return p.a
 
 
 def _split_proj(zxbcdt: torch.Tensor, cfg: ArchConfig
@@ -129,7 +143,7 @@ def mamba2_apply(p: Mamba2, x: torch.Tensor, cfg: ArchConfig,
     xh, bmat, cmat, dt = _scan_inputs(p, xbc, dtr, cfg)
     s0 = torch.zeros((b, dm["n_heads"], cfg.ssm_state, cfg.ssm_head_dim),
                      dtype=torch.float32, device=x.device)
-    y, s_final = ssd_ops.ssd(xh, bmat, cmat, dt, p.a, p.D, s0)
+    y, s_final = ssd_ops.ssd(xh, bmat, cmat, dt, _a(p), p.D, s0)
     y = _gated_norm(y.reshape(b, s, dm["d_in"]).to(cd), z, p.norm)
     out = (y @ p.out_proj).to(x.dtype)
     if not return_state:
@@ -169,7 +183,7 @@ def mamba2_decode(p: Mamba2, x: torch.Tensor, state: State,
     xbc = F.silu(xbc + p.conv_b)
     state["conv"].copy_(conv_in[:, 1:])
     xh, bmat, cmat, dt = _scan_inputs(p, xbc[:, None], dtr[:, None], cfg)
-    y, _ = ssd_ops.ssd(xh, bmat, cmat, dt, p.a, p.D, state["ssm"],
+    y, _ = ssd_ops.ssd(xh, bmat, cmat, dt, _a(p), p.D, state["ssm"],
                        state_out=state["ssm"])
     y = _gated_norm(y.reshape(b, dm["d_in"]).to(cd), z, p.norm)
     return (y @ p.out_proj).to(x.dtype), state

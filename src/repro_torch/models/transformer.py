@@ -20,14 +20,25 @@ residual, before every ``attn_every``-th Mamba2 layer (layers 0,
 A mixture-of-experts config (``cfg.is_moe``) puts a one-device
 ``models.moe.MoE`` layer where the dense block has its MLP; the forward
 sums the layers' router aux losses, as the reference's does.
+
+Rematerialization (``cfg.remat``), while autograd records: ``"full"`` runs
+each block (and each application of the hybrid's shared block) under
+``torch.utils.checkpoint`` (non-reentrant), so only the blocks' inputs are
+kept and each block's forward runs again in the backward, as the
+reference's ``jax.checkpoint`` does; ``"none"`` keeps every activation.
+``"dots"`` (keep the matrix products' outputs) is not ported (ROADMAP
+item 3) and raises. Without autograd (serving) every setting runs the
+blocks plainly.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as torch_checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import moe, rwkv, ssm
@@ -161,10 +172,34 @@ def hidden(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
     return x, caches
 
 
+def _remat(cfg: ArchConfig):
+    """How a block runs under ``cfg.remat``: a wrapper ``run(fn, *args)``,
+    or None to call it plainly (``"none"``, or autograd not recording)."""
+    if not torch.is_grad_enabled() or cfg.remat == "none":
+        return None
+    if cfg.remat == "full":
+        return functools.partial(torch_checkpoint.checkpoint,
+                                 use_reentrant=False)
+    if cfg.remat == "dots":
+        raise ValueError("remat='dots' (keep the matrix products' outputs) "
+                         "is not ported: ROADMAP item 3; use 'full' or "
+                         "'none'")
+    raise ValueError(f"unknown remat {cfg.remat!r}: expected full, dots or "
+                     "none")
+
+
+def _run(remat, fn, *args, **kw):
+    if remat is None:
+        return fn(*args, **kw)
+    return remat(functools.partial(fn, **kw), *args)
+
+
 def _blocks(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
             collect_cache: bool):
     """:func:`hidden`'s activations and caches, with the sum of the
-    blocks' aux losses between them (0 but for MoE)."""
+    blocks' aux losses between them (0 but for MoE); each block run as
+    ``cfg.remat`` says."""
+    remat = None if collect_cache else _remat(cfg)
     if cfg.embedding_inputs:
         x = inputs.to(dtype(cfg.compute_dtype))
         b, s = x.shape[:2]
@@ -175,7 +210,7 @@ def _blocks(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
         caches = (init_decode_caches(cfg, b, s, device=x.device)
                   if collect_cache else None)
         for i, blk in enumerate(p.blocks):
-            x, st = rwkv.rwkv_block_apply(blk, x, cfg)
+            x, st = _run(remat, rwkv.rwkv_block_apply, blk, x, cfg)
             if caches is not None:
                 for key, val in st.items():
                     caches[key][i].copy_(val)
@@ -189,13 +224,11 @@ def _blocks(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
                 app = i // cfg.attn_every
                 kv = ((caches["k"][app], caches["v"][app]) if collect_cache
                       else None)
-                x, _, _ = attn_block_apply(
-                    p.shared, x, cfg, positions=positions, cache=kv,
-                    cache_pos=0 if collect_cache else None)
-            h = norm_apply(blk.ln, x, cfg)
-            y, st = ssm.mamba2_apply(blk.mamba, h, cfg,
-                                     return_state=collect_cache)
-            x = x + y
+                x, _, _ = _run(remat, attn_block_apply, p.shared, x, cfg,
+                               positions=positions, cache=kv,
+                               cache_pos=0 if collect_cache else None)
+            x, st = _run(remat, _mamba_layer, blk, x, cfg,
+                         return_state=collect_cache)
             if collect_cache:
                 caches["conv"][i].copy_(st["conv"])
                 caches["ssm"][i].copy_(st["ssm"])
@@ -205,11 +238,19 @@ def _blocks(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
     aux = 0.0
     for i, blk in enumerate(p.blocks):
         kv = (caches["k"][i], caches["v"][i]) if collect_cache else None
-        x, _, a = attn_block_apply(blk, x, cfg, positions=positions,
-                                   cache=kv,
-                                   cache_pos=0 if collect_cache else None)
+        x, _, a = _run(remat, attn_block_apply, blk, x, cfg,
+                       positions=positions, cache=kv,
+                       cache_pos=0 if collect_cache else None)
         aux = aux + a
     return x, aux, caches
+
+
+def _mamba_layer(blk: MambaBlock, x: torch.Tensor, cfg: ArchConfig, *,
+                 return_state: bool):
+    """One pre-norm Mamba2 layer with its residual -> (x, state or None)."""
+    y, st = ssm.mamba2_apply(blk.mamba, norm_apply(blk.ln, x, cfg), cfg,
+                             return_state=return_state)
+    return x + y, st
 
 
 def forward(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,

@@ -1171,3 +1171,121 @@ def test_flash_at_gqa_8_matches_plain(dev, case):
     step = {torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}.get(dt, 0)
     assert bool(((got - want).abs() <= want.abs() * step + 1e-5).all()), \
         float((got - want).abs().max())
+
+
+# the flash backward's edges: GQA groups g = 1 to 8, D 8 and 256, S = 1,
+# q_offset > 0, kv_valid_len < T, non-causal, S and T off the 32-row tiles;
+# each in float32, bfloat16 and float16
+FLASH_BWD_EDGES = [
+    (2, 77, 77, 16, 8, 128, True, 0, None),
+    (1, 33, 70, 4, 4, 64, True, 37, None),
+    (2, 45, 45, 8, 1, 8, False, 0, 40),
+    (1, 1, 50, 6, 2, 256, True, 49, 50),
+    (1, 130, 200, 5, 1, 80, False, 0, 150),
+    (2, 64, 100, 4, 2, 32, True, 36, 90),
+    (1, 100, 100, 7, 1, 40, True, 0, None),
+    (1, 40, 40, 2, 1, 256, True, 0, 23),
+]
+FLASH_BWD_LIMIT = {torch.float32: 2.0 ** -14, torch.bfloat16: 2.0 ** -7,
+                   torch.float16: 2.0 ** -7}
+
+
+def _flash_bwd_inputs(case, dt, dev):
+    b, s, t, h, kh, d, causal, off, valid = case
+    g = torch.Generator(device=dev).manual_seed(sum(case[:6]))
+    q, k, v, do = (torch.randn(shape, generator=g, device=dev).to(dt)
+                   for shape in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d),
+                                 (b, s, h, d)))
+    kw = dict(causal=causal, q_offset=off, kv_valid_len=valid)
+    return q, k, v, FA.flash_attention(q, k, v, **kw), do, kw
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
+                                torch.float16], ids=str)
+@pytest.mark.parametrize("case", FLASH_BWD_EDGES, ids=str)
+def test_flash_bwd_kernels_match_plain(dev, case, dt):
+    """dq, dk and dv of the three backward kernels against
+    ``flash_attention_bwd_plain`` on the same inputs, each within 2^-14
+    (float32) or 2^-7 (bf16, f16: the outputs round to the dtype) of that
+    output's largest magnitude; one launch of each kernel."""
+    q, k, v, o, do, kw = _flash_bwd_inputs(case, dt, dev)
+    _build.reset_launches()
+    got = FA.flash_attention_bwd(q, k, v, o, do, **kw)
+    want = FA.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    assert {n: _build.launches[n] for n in FA.BWD_KERNELS} == \
+        {n: 1 for n in FA.BWD_KERNELS}
+    for name, x, y in zip(("dq", "dk", "dv"), got, want):
+        assert x.dtype == dt and x.shape == y.shape, name
+        y32 = y.float()
+        limit = FLASH_BWD_LIMIT[dt] * float(y32.abs().max())
+        err = float((x.float() - y32).abs().max())
+        assert err <= limit, (name, err, limit)
+
+
+def test_flash_autograd_on_card_runs_the_backward_kernels(dev):
+    """A flash call that needs a gradient returns a tensor in the graph,
+    and its backward launches the three kernels, once each."""
+    q, k, v, _, do, kw = _flash_bwd_inputs(FLASH_BWD_EDGES[0],
+                                           torch.bfloat16, dev)
+    q, k, v = (x.clone().requires_grad_() for x in (q, k, v))
+    o = FA.flash_attention(q, k, v, **kw)
+    assert o.grad_fn is not None
+    _build.reset_launches()
+    o.backward(do)
+    torch.cuda.synchronize()
+    assert {n: _build.launches[n] for n in FA.BWD_KERNELS} == \
+        {n: 1 for n in FA.BWD_KERNELS}
+    want = FA.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
+                                        o.detach(), do, **kw)
+    for x, y in zip((q.grad, k.grad, v.grad), want):
+        y32 = y.float()
+        assert float((x.float() - y32).abs().max()) <= \
+            2.0 ** -7 * float(y32.abs().max())
+
+
+def test_wkv_and_ssd_refuse_a_call_that_needs_a_gradient(dev):
+    """No backward kernel yet: a CUDA call with grad enabled and an input
+    that requires it raises, rather than return a tensor cut from the
+    graph; under no_grad it runs."""
+    g = torch.Generator(device=dev).manual_seed(3)
+    b, s, h, hd = 1, 8, 2, 16
+    r, k, vv = (torch.randn((b, s, h, hd), generator=g, device=dev)
+                for _ in range(3))
+    w = torch.rand((b, s, h, hd), generator=g, device=dev)
+    u = torch.randn((h, hd), generator=g, device=dev)
+    s0 = torch.zeros((b, h, hd, hd), device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        W.wkv(r.clone().requires_grad_(), k, vv, w, u, s0)
+    with torch.no_grad():
+        W.wkv(r.clone().requires_grad_(), k, vv, w, u, s0)
+    n = 16
+    x = torch.randn((b, s, h, hd), generator=g, device=dev)
+    bm, cm = (torch.randn((b, s, n), generator=g, device=dev)
+              for _ in range(2))
+    dt = torch.rand((b, s, h), generator=g, device=dev)
+    a, d = -torch.rand(h, device=dev), torch.ones(h, device=dev)
+    st = torch.zeros((b, h, n, hd), device=dev)
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
+        SSD.ssd(x, bm, cm, dt, a.clone().requires_grad_(), d, st)
+    with torch.no_grad():
+        SSD.ssd(x, bm, cm, dt, a.clone().requires_grad_(), d, st)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", FLASH_BWD_EDGES, ids=str)
+def test_flash_bwd_pre_kernel_matches_stats_plain(dev, case, dt):
+    """The row statistics the pre kernel writes (m, l, D) against
+    ``flash_attention_bwd_stats_plain``, each within 2^-14 of its largest
+    magnitude (float32 sums in another order, from the same values)."""
+    q, k, v, o, do, kw = _flash_bwd_inputs(case, dt, dev)
+    b, s, t, h, kh, d = case[:6]
+    out = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+           torch.empty(3 * b * s * h, dtype=torch.float32, device=dev))
+    FA._bwd_kernels(FA.BWD_KERNELS[:1], (q, k, v, o, do), out,
+                    kw["causal"], kw["q_offset"], kw["kv_valid_len"])
+    got = out[3].view(3, b, kh, s, h // kh)
+    want = FA.flash_attention_bwd_stats_plain(q, k, o, do, **kw)
+    for name, x, y in zip("mlD", got, want):
+        err = float((x - y).abs().max())
+        assert err <= 2.0 ** -14 * float(y.abs().max()), (name, err)

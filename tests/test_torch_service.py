@@ -183,12 +183,20 @@ sds, ssvc = serve.build_system(1, 4, device="cpu")
 exp2 = serve.experiment2(sds, ssvc, verbose=False)
 fed = rewrite.federated_sparql(sds.queries["Q9"], ssvc.space, ssvc.kg.state)
 z = hac.hac_torch(np.eye(3, dtype=np.float32), device="cpu")
+from repro_torch.launch import train
+tcfg, tmodel, topt, tstream, tstep = train.build(
+    "qwen3-0.6b", reduced=True, batch=2, seq=16, steps=2, use_flash=True,
+    device="cpu")
+tmodel, topt, tmet = tstep(tmodel, topt, train.to_device(
+    tstream.host_batch(0), "cpu"))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"accepted": rep.accepted, "bad": bad,
                   "windows": len(wrep.windows),
                   "exp2": exp2["t_adaptive"] > 0, "fed": "SELECT" in fed,
                   "z": list(z.shape),
+                  "trained": int(topt["step"]) == 1
+                  and bool(np.isfinite(float(tmet["loss"]))),
                   "logits": list(logits.shape),
                   "rwkv_logits": list(rlogits.shape),
                   "zamba_logits": list(zlogits.shape)}))
@@ -203,7 +211,8 @@ def test_port_loop_loads_neither_jax_nor_reference():
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert got == {"accepted": True, "bad": [], "logits": [2, 128],
                    "rwkv_logits": [2, 128], "zamba_logits": [2, 128],
-                   "windows": 1, "exp2": True, "fed": True, "z": [2, 4]}
+                   "windows": 1, "exp2": True, "fed": True, "z": [2, 4],
+                   "trained": True}
 
 
 def test_default_device_is_the_card(small_lubm):
