@@ -1,4 +1,4 @@
-"""End-to-end training driver.
+"""End-to-end trainer.
 
 Counterpart of ``repro/launch/train.py``. Wires together: config ->
 random weights as a trainable model (float32 parameters and AdamW state)

@@ -67,7 +67,7 @@ class SupervisorConfig:
 
 
 class TrainSupervisor:
-    """Checkpoint/restart driver around a step function.
+    """Checkpoint/restart loop around a step function.
 
     step_fn(state, step) -> state           (may raise on injected failure)
     save_tree(state) / load_tree(tree, state) adapt state <-> checkpointable

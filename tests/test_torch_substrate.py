@@ -1,6 +1,6 @@
 """repro_torch's training substrate against the reference on the CPU:
 optimizer, gradient compression, data pipeline, checkpointing,
-resilience and the training driver.
+resilience and the trainer.
 
 The counterparts of ``tests/test_substrate.py``, on the port, and beside
 them the same functions of both packages on the same numpy inputs: AdamW
@@ -374,7 +374,7 @@ def test_supervisor_gives_up_after_max_failures(tmp_path):
 
 
 # --------------------------------------------------------------------------- #
-# the training driver
+# the trainer
 # --------------------------------------------------------------------------- #
 
 def test_build_refuses_a_mesh_and_a_missing_card():
@@ -388,7 +388,7 @@ def test_build_refuses_a_mesh_and_a_missing_card():
 
 
 def test_supervised_training_restores_the_checkpoint_exactly(tmp_path):
-    """The driver's state through an async checkpoint and a failure: the
+    """The trainer's state through an async checkpoint and a failure: the
     supervisor puts back, bit for bit, the model and AdamW state saved at
     the last checkpoint, and the run goes on to its end."""
     cfg, model, opt, stream, step_fn = train.build(
