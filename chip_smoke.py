@@ -179,9 +179,11 @@ Phases (any failure raises and ends the run with a nonzero exit):
    flash backward kernels (``csrc/flash_attention_bwd.cu``) against
    ``flash_attention_bwd_plain`` (and the pre kernel's row statistics
    against ``flash_attention_bwd_stats_plain``) at edge cases in every
-   dtype, 2^-14 (float32) or 2^-7 (bf16, f16) of each output's largest
-   magnitude; (f) float32 gradients of qwen3-0.6b at full width and 4 of
-   its 28 layers (1 x 1024 tokens, TF32 off) with ``use_flash`` (the
+   dtype, each element within 2^-7 (bf16) or 2^-10 (f16) of itself plus
+   2^-14 of its output's largest magnitude (float32: the latter alone),
+   and five planted faults failing that check at the timed shapes; (f)
+   float32 gradients of qwen3-0.6b at full width and 4 of its 28 layers
+   (1 x 1024 tokens, TF32 off) with ``use_flash`` (the
    scalar forward and the backward kernels) against autograd through the
    plain attention, every leaf within 1e-4 of its largest, loss and
    grad_norm within 1e-5; (r) ``train_step`` on the card against the CPU
@@ -3230,7 +3232,12 @@ TRAIN_REDUCED = ("qwen3-0.6b", "smollm-360m", "hubert-xlarge",
 TRAIN_REDUCED_EPS = 1e-3    # AdamW eps of (r): see tests/test_torch_train.py
 FLASH_BWD_SRC = "src/repro_torch/csrc/flash_attention_bwd.cu"
 FLASH_BWD_REPLACES = "src/repro/kernels/flash_attention/ops.py:48"
-FLASH_BWD_LIMIT = {F32: 2.0 ** -14, BF16: 2.0 ** -7, F16: 2.0 ** -7}
+# each element of dq, dk, dv within FLASH_BWD_REL of itself plus
+# FLASH_BWD_ABS of its output's largest magnitude: both sides sum in
+# float32 from the same inputs, in another order (2^-14 of the largest),
+# and round each element to the dtype (one bf16 or f16 step)
+FLASH_BWD_REL = {F32: 0.0, BF16: 2.0 ** -7, F16: 2.0 ** -10}
+FLASH_BWD_ABS = 2.0 ** -14
 # (B, S, T, H, K, D, causal, q_offset, kv_valid_len): GQA g = 1 to 8, D 8
 # and 256, S = 1, q_offset > 0, kv_valid_len < T, non-causal, S and T off
 # the 32-row tiles; each in all three dtypes
@@ -3253,18 +3260,59 @@ FLASH_BWD_SHAPES = [
 ]
 
 
-def _bwd_err(got, want, what) -> float:
-    """Each output within FLASH_BWD_LIMIT of its own largest magnitude;
-    returns the largest abs difference."""
-    errs = []
+def _bwd_err(got, want, what) -> tuple:
+    """dq, dk and dv each within its limit at every element; returns the
+    largest abs difference and the largest share of an element's limit
+    that its difference takes."""
+    errs, uses = [], []
     for name, x, y in zip(("dq", "dk", "dv"), got, want):
         assert x.dtype == y.dtype and x.shape == y.shape, (what, name)
         y32 = y.float()
-        err = float((x.float() - y32).abs().max())
-        limit = FLASH_BWD_LIMIT[y.dtype] * float(y32.abs().max())
-        assert err <= limit, (what, name, err, limit)
-        errs.append(err)
-    return max(errs)
+        diff = (x.float() - y32).abs()
+        limit = (FLASH_BWD_REL[y.dtype] * y32.abs()
+                 + FLASH_BWD_ABS * float(y32.abs().max()))
+        use = float(torch.where(diff == 0, 0.0, diff / limit).max())
+        assert use <= 1.0, (what, name, float(diff.max()), use)
+        errs.append(float(diff.max()))
+        uses.append(use)
+    return max(errs), max(uses)
+
+
+def _bwd_limit_text(dt) -> str:
+    rel = FLASH_BWD_REL[dt]
+    return ((f"2^{math.log2(rel):.0f}·|want| + " if rel else "")
+            + "2^-14·max|want| an element")
+
+
+def _bwd_faults_caught(FA, q, k, v, o, do, kw, got, want, what) -> int:
+    """The check's power at ``what``: five planted faults in the kernels'
+    outputs, each of which must fail :func:`_bwd_err` — dv, or dk, zeroed
+    for the keys past T/2; dq zeroed for the rows past S/2; dv off by
+    2^-5 past T/2; and D = rowsum(dO∘O) left out of dS (the kernels run
+    with o = 0). Returns how many were caught."""
+    dq, dk, dv = got
+
+    def past(x, f):
+        y = x.clone()
+        y[:, x.shape[1] // 2:] = f(y[:, x.shape[1] // 2:])
+        return y
+    faults = {
+        "dv zeroed past T/2": (dq, dk, past(dv, torch.zeros_like)),
+        "dk zeroed past T/2": (dq, past(dk, torch.zeros_like), dv),
+        "dq zeroed past S/2": (past(dq, torch.zeros_like), dk, dv),
+        "dv x (1 + 2^-5) past T/2": (dq, dk,
+                                     past(dv, lambda z: z * (1 + 2 ** -5))),
+        "D left out of dS": FA.flash_attention_bwd(
+            q, k, v, torch.zeros_like(o), do, **kw),
+    }
+    for name, bad in faults.items():
+        try:
+            _bwd_err(bad, want, what)
+        except AssertionError:
+            continue
+        raise AssertionError(f"check (k) at {what} passes a planted fault: "
+                             f"{name}")
+    return len(faults)
 
 
 def _stats_err(got, want, what) -> float:
@@ -3307,7 +3355,7 @@ def flash_bwd_edges() -> None:
     from repro_torch.kernels.flash_attention import ops as FA
 
     gen = torch.Generator(device="cuda").manual_seed(17)
-    worst = collections.defaultdict(float)
+    worst = collections.defaultdict(lambda: (0.0, 0.0))
     for case in FLASH_BWD_EDGES:
         for dt in (F32, BF16, F16):
             q, k, v, o, do, kw = _bwd_case(gen, *case[:6], dt, *case[6:])
@@ -3316,16 +3364,19 @@ def flash_bwd_edges() -> None:
             ran = {n: _build.launches[n] - before[n] for n in FA.BWD_KERNELS}
             assert ran == {n: 1 for n in FA.BWD_KERNELS}, (case, dt, ran)
             want = FA.flash_attention_bwd_plain(q, k, v, o, do, **kw)
-            worst[dt] = max(worst[dt], _bwd_err(got, want, (case, dt)))
+            err, use = _bwd_err(got, want, (case, dt))
+            worst[dt] = (max(worst[dt][0], err), max(worst[dt][1], use))
             _stats_err(_bwd_pre(FA, q, k, v, o, do, kw),
                        FA.flash_attention_bwd_stats_plain(q, k, o, do, **kw),
                        (case, dt))
     torch.cuda.synchronize()
     log(f"[train] check (k): the backward kernels match the plain version "
-        f"at {len(FLASH_BWD_EDGES)} edges x 3 dtypes (largest abs diff "
-        + ", ".join(f"{str(dt)[6:]} {e:.3e}" for dt, e in worst.items())
-        + "; limits 2^-14 float32, 2^-7 bf16 and f16 of each output's "
-        "largest), the pre kernel's statistics within 2^-14")
+        f"at {len(FLASH_BWD_EDGES)} edges x 3 dtypes ("
+        + ", ".join(f"{str(dt)[6:]}: largest abs diff {e:.3e}, worst "
+                    f"element at {u:.3f} of its limit "
+                    f"{_bwd_limit_text(dt)}"
+                    for dt, (e, u) in worst.items())
+        + "), the pre kernel's statistics within 2^-14")
 
 
 def device_ms_parts(fn, parts, reps: int = 5) -> dict:
@@ -3374,7 +3425,12 @@ def flash_bwd_rows(rows, launches) -> None:
                                        0, None)
         got = FA.flash_attention_bwd(q, k, v, o, do, **kw)
         want = FA.flash_attention_bwd_plain(q, k, v, o, do, **kw)
-        err = _bwd_err(got, want, what)
+        err, use = _bwd_err(got, want, what)
+        caught = _bwd_faults_caught(FA, q, k, v, o, do, kw, got, want, what)
+        log(f"[train] (k) check at {what}: largest abs diff {err:.3e}, "
+            f"worst element at {use:.3f} of its limit "
+            f"{_bwd_limit_text(dt)}; {caught} of {caught} planted faults "
+            f"fail it")
         del got, want
         stats_want = FA.flash_attention_bwd_stats_plain(q, k, o, do, **kw)
         stats_err = _stats_err(_bwd_pre(FA, q, k, v, o, do, kw), stats_want,

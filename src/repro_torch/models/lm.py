@@ -261,9 +261,11 @@ def make_trainable(model: transformer.Transformer, cfg: ArchConfig,
                    ) -> transformer.Transformer:
     """Turn on ``requires_grad`` for every floating parameter and, for each
     whose module dtype differs from the dtype the reference keeps it in,
-    set a master copy in ``model.master`` (taken from ``flat``, the
-    parameter tree the model was built from, where given; else upcast from
-    the module). Returns the model."""
+    set a master copy in ``model.master``, taken from ``flat``, the
+    parameter tree the model was built from. ``flat`` may be omitted only
+    where no parameter needs a master: one upcast from the module's
+    rounded weights would lose the master's precision. Returns the
+    model."""
     master = {}
     for name, p in model.named_parameters():
         if not p.dtype.is_floating_point:
@@ -273,11 +275,12 @@ def make_trainable(model: transformer.Transformer, cfg: ArchConfig,
         mdt = _master_dtype(path, cfg)
         if p.dtype == mdt:
             continue
-        if flat is not None:
-            src = flat[path] if layer is None else flat[path][layer]
-            master[name] = src.reshape(p.shape).to(mdt)
-        else:
-            master[name] = p.detach().to(mdt)
+        if flat is None:
+            raise ValueError(f"{name} is kept in {mdt} beside a {p.dtype} "
+                             f"module: pass the tree the model was built "
+                             f"from as flat")
+        src = flat[path] if layer is None else flat[path][layer]
+        master[name] = src.reshape(p.shape).to(mdt)
     model.master = master
     return model
 
@@ -290,15 +293,14 @@ def trainable(model: transformer.Transformer) -> Dict[str, torch.Tensor]:
             for name, p in model.named_parameters() if p.requires_grad}
 
 
-def init_all(cfg: ArchConfig, *, seed: int = 0, device="cuda",
-             opt: bool = True):
+def init_all(cfg: ArchConfig, *, seed: int = 0, device="cuda"):
     """Random weights (:func:`init_flat`, drawn from ``seed`` on
-    ``device``) as a trainable model, and zero AdamW state (or None)."""
+    ``device``) as a trainable model, and zero AdamW state."""
     dev = dispatch.resolve_device(device)
     flat = init_flat(cfg, device=dev,
                      generator=torch.Generator(device=dev).manual_seed(seed))
     model = make_trainable(transformer.Transformer(cfg, flat), cfg, flat)
-    return model, (adamw_init(trainable(model)) if opt else None)
+    return model, adamw_init(trainable(model))
 
 
 def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor

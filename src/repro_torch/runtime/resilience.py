@@ -7,6 +7,11 @@ the recovery policy is the standard one:
   checkpoint every K steps (async)  ->  on failure: restore the latest
   checkpoint onto the device        ->  resume from the restored step.
 
+The port's step updates the model and optimizer state in place, so a step
+that fails partway leaves a mix of updated and old leaves: with no
+checkpoint to restore, the failure is raised (the reference, whose state is
+immutable, would go on from the last good state).
+
 ``TrainSupervisor.run`` drives that loop; failures are injectable for tests.
 ``StragglerMonitor`` keeps an EWMA of step times and flags outliers. On one
 card there is no mesh to rebuild over surviving hosts: the restore puts
@@ -89,10 +94,13 @@ class TrainSupervisor:
         self.failures = 0
         self.restores = 0
 
-    def _restore(self, state):
+    def _restore(self, state, failed_step: int, exc: Exception):
         step = ckpt.latest_step(self.cfg.ckpt_dir)
         if step is None:
-            return 0, state
+            raise RuntimeError(
+                f"step {failed_step} failed before the first checkpoint: the "
+                f"step updates the state in place, so no valid state is "
+                f"left to resume from") from exc
         tree = self.state_to_tree(state)
         restored = ckpt.restore(self.cfg.ckpt_dir, step, tree,
                                 device=self.device)
@@ -113,11 +121,11 @@ class TrainSupervisor:
                 if (step + 1) % self.cfg.ckpt_every == 0:
                     self.checkpointer.save(step, self.state_to_tree(state))
                 step += 1
-            except Exception:  # noqa: BLE001 — any step failure is recoverable
+            except Exception as exc:  # noqa: BLE001 — any step failure
                 self.failures += 1
                 if self.failures > self.cfg.max_failures:
                     raise
                 self.checkpointer.wait()
-                step, state = self._restore(state)
+                step, state = self._restore(state, step, exc)
         self.checkpointer.wait()
         return state

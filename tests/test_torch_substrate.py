@@ -364,13 +364,54 @@ def test_supervisor_recovers_from_failure(tmp_path):
 
 def test_supervisor_gives_up_after_max_failures(tmp_path):
     def step_fn(state, step):
-        raise RuntimeError("always broken")
+        if step > 0:
+            raise RuntimeError("always broken")
+        return dict(state, value=state["value"] + 1)
 
     sup = TrainSupervisor(
-        SupervisorConfig(ckpt_dir=str(tmp_path), max_failures=2),
-        step_fn, state_to_tree=lambda s: {}, tree_to_state=lambda t, s: s)
-    with pytest.raises(RuntimeError):
-        sup.run({}, 5)
+        SupervisorConfig(ckpt_dir=str(tmp_path), ckpt_every=1,
+                         max_failures=2),
+        step_fn,
+        state_to_tree=lambda s: {"value": torch.tensor(float(s["value"]))},
+        tree_to_state=lambda tree, s: dict(s, value=float(tree["value"])),
+        device="cpu")
+    with pytest.raises(RuntimeError, match="always broken"):
+        sup.run({"value": 0.0}, 5)
+    # restored from step 0's checkpoint after each of the first two
+    assert (sup.failures, sup.restores) == (3, 2)
+
+
+def test_supervisor_raises_a_failure_before_the_first_checkpoint(
+        tmp_path, monkeypatch):
+    """The step updates the state in place: a failure partway through
+    AdamW's update, with no checkpoint yet, leaves no valid state to go
+    on from, and the supervisor raises it rather than restart there."""
+    from repro_torch.models import lm
+    cfg, model, opt, stream, step_fn = train.build(
+        "qwen3-0.6b", reduced=True, batch=2, seq=16, steps=6, device="cpu")
+
+    def torn(params, grads, state, cfg):
+        first = next(iter(state["mu"]))
+        adamw_update(params, grads,
+                     dict(state, mu={first: state["mu"][first]}), cfg)
+        raise RuntimeError("out of memory")
+
+    def one_step(state, step):
+        if step == 1:
+            monkeypatch.setattr(lm, "adamw_update", torn)
+        m, o, met = step_fn(state.model, state.opt_state,
+                            train.to_device(stream.host_batch(step), "cpu"))
+        return train.TrainState(m, o, {k: float(v) for k, v in met.items()})
+
+    sup = TrainSupervisor(
+        SupervisorConfig(ckpt_dir=str(tmp_path), ckpt_every=3), one_step,
+        train.state_tree, train.load_state, device="cpu")
+    with pytest.raises(RuntimeError, match="before the first checkpoint") \
+            as info:
+        sup.run(train.TrainState(model, opt, {}), 6)
+    assert "out of memory" in str(info.value.__cause__)
+    assert (sup.failures, sup.restores) == (1, 0)
+    assert ckpt.available_steps(tmp_path) == []
 
 
 # --------------------------------------------------------------------------- #

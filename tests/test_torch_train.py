@@ -64,6 +64,7 @@ from repro.optim import adamw_init as radamw_init
 import repro_torch.configs as tconfigs
 from repro_torch import interop
 from repro_torch.models import lm as tlm
+from repro_torch.models import transformer as ttr
 from repro_torch.optim import AdamWConfig
 
 TOL = 1e-5
@@ -239,7 +240,7 @@ def test_cross_entropy_equals_the_reference_one_hot():
 
 
 def _grads(cfg, seed=0):
-    model, _ = tlm.init_all(cfg, seed=seed, device="cpu", opt=False)
+    model, _ = tlm.init_all(cfg, seed=seed, device="cpu")
     batch = {k: torch.from_numpy(v) for k, v in _batches(cfg, 1, seed)[0]
              .items()}
     total, _ = tlm.loss_fn(model, batch, cfg)
@@ -293,6 +294,9 @@ def test_bf16_compute_trains_float32_masters():
     assert not torch.equal(model.master["blocks.0.attn.wq"], before)
     for name, m in model.master.items():
         assert torch.equal(params[name], m.to(params[name].dtype)), name
+    # a master is never upcast from the module's bf16-rounded weights
+    with pytest.raises(ValueError, match="pass the tree"):
+        tlm.make_trainable(ttr.Transformer(cfg, flat), cfg)
 
 
 def test_leaf_paths_cover_the_reference_tree():
@@ -317,7 +321,7 @@ def test_leaf_paths_cover_the_reference_tree():
 
 def test_serving_steps_build_no_graph_on_a_trainable_model():
     cfg = tconfigs.get("qwen3-0.6b").reduced()
-    model, _ = tlm.init_all(cfg, device="cpu", opt=False)
+    model, _ = tlm.init_all(cfg, device="cpu")
     assert all(p.requires_grad for p in model.parameters())
     toks = torch.from_numpy(_batches(cfg, 1)[0]["tokens"])
     logits, caches = tlm.prefill_step(model, {"tokens": toks}, cfg)
