@@ -8,7 +8,9 @@ end on the card, and report.
 Phases (any failure raises and ends the run with a nonzero exit):
 
 1. the card (``nvidia-smi`` name and power limit) and the kernel build
-   (``nvcc`` over ``src/repro_torch/csrc/``, into ``build/repro_torch/``);
+   (``nvcc`` over ``src/repro_torch/csrc/``, into ``build/repro_torch/``;
+   ``-Xptxas -v`` per kernel; ``cuobjdump -sass``'s HGMMA count of each
+   tensor-core flash kernel);
 2. the main path: ``repro_torch.api.KGService.from_dataset(lubm.load(10),
    n_shards=8)`` on the card — ``bootstrap``, three windows of the
    extended workload (the first executes, the repeats are result-cache
@@ -176,15 +178,18 @@ Phases (any failure raises and ends the run with a nonzero exit):
    32/4) in bfloat16 parameters (61 GB), its float32 checks (b) and (c)
    at full width and 12 of the 48 layers;
 17. training, the port's sixth path (``[train]`` lines): (k) the three
-   flash backward kernels (``csrc/flash_attention_bwd.cu``) against
-   ``flash_attention_bwd_plain`` (and the pre kernel's row statistics
-   against ``flash_attention_bwd_stats_plain``) at edge cases in every
-   dtype, each element within 2^-7 (bf16) or 2^-10 (f16) of itself plus
-   2^-14 of its output's largest magnitude (float32: the latter alone),
-   and five planted faults failing that check at the timed shapes; (f)
+   flash backward kernels (``csrc/flash_attention_bwd.cu``) of each route
+   (``ops.bwd_variant``: "tc", bf16 on the tensor cores; "scalar", the
+   rest) against ``flash_attention_bwd_plain`` (and the pre kernel's row
+   statistics against ``flash_attention_bwd_stats_plain``) at edge cases,
+   the scalar route's in every dtype and the tc route's in bf16, each call
+   on its route's kernels alone, each element within 2^-7 (bf16) or
+   2^-10 (f16) of itself plus 2^-14 of its output's largest magnitude
+   (float32: the latter alone), two tc calls bit for bit, and five
+   planted faults failing that check at the timed shapes; (f)
    float32 gradients of qwen3-0.6b at full width and 4 of its 28 layers
-   (1 x 1024 tokens, TF32 off) with ``use_flash`` (the
-   scalar forward and the backward kernels) against autograd through the
+   (1 x 1024 tokens, TF32 off) with ``use_flash`` (the scalar forward
+   and the scalar backward kernels) against autograd through the
    plain attention, every leaf within 1e-4 of its largest, loss and
    grad_norm within 1e-5; (r) ``train_step`` on the card against the CPU
    for four reduced configs (three float32 steps, AdamW eps 1e-3), then
@@ -195,12 +200,13 @@ Phases (any failure raises and ends the run with a nonzero exit):
    AdamW state, bf16 compute, ``remat="full"``, flash attention, a global
    batch of 4 x 4096 tokens, 8 steps on the pipeline's first batch:
    launch counts reset just before and read just after (flash tc 56 a
-   step, each backward kernel 28), step walls, tokens/s, peak memory, a
-   profiled step's idle share and top device operations; every loss
-   finite, the first within 0.5 of a random model's ln V + 1/2, the
-   last below the first; then the backward kernels at the main path's,
-   hubert-xlarge's and a float32 shape, timed per kernel and summed
-   beside the plain version, the SDPA backward and the bound.
+   step, each backward kernel 28 on tc), step walls, tokens/s, peak
+   memory, a profiled step's idle share and top device operations; every
+   loss finite, the first within 0.5 of a random model's ln V + 1/2, the
+   last below the first; then the backward kernels at the main path's
+   and hubert-xlarge's shapes (tc, beside the scalar route on the same
+   call) and a float32 shape (scalar), timed per kernel and summed beside
+   the plain version, the SDPA backward and the bounds.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -242,6 +248,8 @@ MIGRATION_BUDGET = 4 << 20       # bytes per window: LUBM(10)/8 drains in 4
 # migration over the observed TM window, and one window of LUBM(10)/8 is
 # too few to pay for this round's 11.9 MB plan
 WARM_WINDOWS = 3
+PROFILE_TRIES = 12               # profiles of a call before its trace counts
+                                 # as empty (see device_ms)
 
 
 def log(*args) -> None:
@@ -290,14 +298,15 @@ def call_ms(fn, reps: int = 20, runs: int = 7) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int = 20, tries: int = 4) -> float:
+def device_ms(fn, reps: int = 20, tries: int = PROFILE_TRIES) -> float:
     """Device time per call: the summed durations of every CUDA kernel and
     memory operation ``fn`` puts on the card, from a ``torch.profiler``
     trace of ``reps`` calls after a warm-up call. Excludes host launch
     overhead and the idle gaps between launches; 0 for a call that puts no
     work on the card (the plain one-column pack returns its input). On the
     H100 machines the profiler now and then returns an empty trace for
-    calls that do launch kernels (taken again, up to ``tries`` times), or
+    calls that do launch kernels (taken again, up to ``tries`` times: a
+    run has seen hundreds of empty traces and four in a row), or
     leaves some operations out of a trace (16 of 20 launches of the flash
     kernel at zamba2-7b's prefill shape once): so each operation name
     counts ``round(n / reps)`` times per call, at least once, at the mean
@@ -1248,6 +1257,7 @@ def jaccard_sweep(floor_ms) -> None:
             got = collections.defaultdict(list)
             for var in ("row", "tile", "tile", "row"):
                 got[var].append(device_ms(lambda: jac._run(var, a, b)))
+                assert got[var][-1] > 0, (var, (q, k, w), "no device time")
             pick = jac.variant(q, k, w)
             other = "tile" if pick == "row" else "row"
             ok = min(got[pick]) <= max(got[other])
@@ -1363,7 +1373,7 @@ def _profile_idle(label, run, ref_wall, prefix, share_of=None) -> None:
     it. Returns the number of device operations."""
     prof = torch.profiler
     acts = [prof.ProfilerActivity.CPU, prof.ProfilerActivity.CUDA]
-    for attempt in range(4):           # an empty trace is taken again
+    for attempt in range(PROFILE_TRIES):   # an empty trace is taken again
         torch.cuda.synchronize()
         with prof.profile(activities=acts) as p:
             t = time.perf_counter()
@@ -3251,8 +3261,40 @@ FLASH_BWD_EDGES = [
     (1, 100, 100, 7, 1, 40, True, 0, None),
     (1, 40, 40, 2, 1, 256, True, 0, 23),
 ]
+# bf16 edges the tc route takes (bwd_variant: D % 16 == 0 up to 128,
+# S * g >= 64): GQA g = 1, 2, 8 and 64, D 16 to 128 (80 and 112 off the
+# 64-column boxes), S * g = 64, S = 1, T = 3, q_offset > 0, kv_valid_len < T
+# (inside a 64-key warpgroup, and leaving the second warpgroup of a 128-key
+# dkv block without keys), non-causal, S and T off the 64- and 128-row
+# tiles; in bf16 alone (the edges above keep the scalar route in float32
+# and float16)
+FLASH_BWD_TC_EDGES = [
+    (2, 77, 77, 16, 8, 128, True, 0, None),
+    (1, 32, 32, 4, 2, 64, True, 0, None),
+    (1, 1, 40, 64, 1, 16, True, 39, None),
+    (2, 65, 3, 4, 4, 32, False, 0, None),
+    (1, 130, 200, 5, 1, 80, False, 0, 150),
+    (2, 100, 170, 16, 2, 112, True, 70, 160),
+    (1, 300, 300, 8, 1, 48, True, 0, 60),
+    (1, 129, 257, 4, 2, 96, True, 128, None),
+    (2, 64, 100, 4, 2, 32, True, 36, 90),
+]
+# each route's kernels by the names the profiler gives them
+FLASH_BWD_PARTS = {
+    "tc": ("flash_bwd_tc_pre_kernel", "flash_bwd_tc_dq_kernel",
+           "flash_bwd_tc_dkv_kernel"),
+    "scalar": ("flash_bwd_pre_kernel", "flash_bwd_dq_kernel",
+               "flash_bwd_dkv_kernel"),
+}
+# operations a valid (query, head, key) pair, each kernel: its part of the
+# function (pre the scores; dq the scores, dO.V^T and dS.K; dkv the scores,
+# dO.V^T, P^T.dO and dS^T.Q), and each route's own count (the recomputed
+# products, and on tc the second bf16 term of P and dS)
+FLASH_BWD_OPS = {"function": (2, 6, 8), "tc": (2, 8, 12),
+                 "scalar": (2, 6, 8)}
 # (what, B, S, H, K, D, dtype, causal) of the timed rows: the main path's
-# shape first (the kernels line's rows), hubert-xlarge's encoder, float32
+# shape first (the kernels line's tc rows), hubert-xlarge's encoder,
+# float32 (the kernels line's scalar rows)
 FLASH_BWD_SHAPES = [
     ("qwen3-0.6b training", TRAIN_BATCH, TRAIN_SEQ, 16, 8, 128, BF16, True),
     ("hubert-xlarge", TRAIN_BATCH, TRAIN_SEQ, 16, 16, 80, BF16, False),
@@ -3348,35 +3390,59 @@ def _bwd_pre(FA, q, k, v, o, do, kw):
     return out[3].view(3, b, kh, s, h // kh)
 
 
+def _bwd_route_counts(FA, route, n=1) -> dict:
+    """The launch counts ``n`` backward calls on ``route`` add: each kernel
+    and its ``<kernel>.<route>`` n times, the other route's none."""
+    want = {k: n for k in FA.BWD_KERNELS}
+    for var in FA.BWD_VARIANTS:
+        want.update({f"{k}.{var}": n * (var == route)
+                     for k in FA.BWD_KERNELS})
+    return want
+
+
 def flash_bwd_edges() -> None:
-    """(k) at the edges: each kernel once a call, every output and the
-    pre kernel's statistics against their plain versions."""
+    """(k) at the edges: each kernel of the call's route once, every
+    output and the pre kernel's statistics against their plain versions;
+    on the tc route two calls give equal bits."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as FA
 
     gen = torch.Generator(device="cuda").manual_seed(17)
     worst = collections.defaultdict(lambda: (0.0, 0.0))
-    for case in FLASH_BWD_EDGES:
-        for dt in (F32, BF16, F16):
+    calls = collections.Counter()
+    for case, dts in ([(c, (F32, BF16, F16)) for c in FLASH_BWD_EDGES]
+                      + [(c, (BF16,)) for c in FLASH_BWD_TC_EDGES]):
+        for dt in dts:
             q, k, v, o, do, kw = _bwd_case(gen, *case[:6], dt, *case[6:])
-            before = {n: _build.launches[n] for n in FA.BWD_KERNELS}
+            route = FA.bwd_variant(dt, case[1], case[3] // case[4], case[5])
+            want_ran = _bwd_route_counts(FA, route)
+            before = {n: _build.launches[n] for n in want_ran}
             got = FA.flash_attention_bwd(q, k, v, o, do, **kw)
-            ran = {n: _build.launches[n] - before[n] for n in FA.BWD_KERNELS}
-            assert ran == {n: 1 for n in FA.BWD_KERNELS}, (case, dt, ran)
+            ran = {n: _build.launches[n] - before[n] for n in want_ran}
+            assert ran == want_ran, (case, dt, ran)
             want = FA.flash_attention_bwd_plain(q, k, v, o, do, **kw)
             err, use = _bwd_err(got, want, (case, dt))
-            worst[dt] = (max(worst[dt][0], err), max(worst[dt][1], use))
+            key = (str(dt)[6:], route)
+            worst[key] = (max(worst[key][0], err), max(worst[key][1], use))
+            calls[key] += 1
+            if route == "tc":
+                again = FA.flash_attention_bwd(q, k, v, o, do, **kw)
+                assert all(torch.equal(x, y) for x, y in zip(got, again)), \
+                    (case, "two calls differ")
             _stats_err(_bwd_pre(FA, q, k, v, o, do, kw),
                        FA.flash_attention_bwd_stats_plain(q, k, o, do, **kw),
                        (case, dt))
     torch.cuda.synchronize()
     log(f"[train] check (k): the backward kernels match the plain version "
-        f"at {len(FLASH_BWD_EDGES)} edges x 3 dtypes ("
-        + ", ".join(f"{str(dt)[6:]}: largest abs diff {e:.3e}, worst "
-                    f"element at {u:.3f} of its limit "
-                    f"{_bwd_limit_text(dt)}"
-                    for dt, (e, u) in worst.items())
-        + "), the pre kernel's statistics within 2^-14")
+        f"at {len(FLASH_BWD_EDGES)} edges x 3 dtypes and "
+        f"{len(FLASH_BWD_TC_EDGES)} bf16 tc edges, each call on its route's "
+        "kernels alone ("
+        + ", ".join(f"{dt} on {route} ({calls[(dt, route)]} calls): largest "
+                    f"abs diff {e:.3e}, worst element at {u:.3f} of its "
+                    f"limit {_bwd_limit_text(getattr(torch, dt))}"
+                    for (dt, route), (e, u) in sorted(worst.items()))
+        + "), the pre kernel's statistics within 2^-14; on tc two calls "
+        "give equal bits")
 
 
 def device_ms_parts(fn, parts, reps: int = 5) -> dict:
@@ -3386,7 +3452,7 @@ def device_ms_parts(fn, parts, reps: int = 5) -> dict:
     fn()
     torch.cuda.synchronize()
     prof = torch.profiler
-    for attempt in range(4):
+    for attempt in range(PROFILE_TRIES):
         with prof.profile(activities=[prof.ProfilerActivity.CUDA]) as p:
             for _ in range(reps):
                 fn()
@@ -3398,6 +3464,7 @@ def device_ms_parts(fn, parts, reps: int = 5) -> dict:
         if by_name:
             break
         log(f"[profile] empty device trace (attempt {attempt + 1})")
+    assert by_name, "the profiler recorded no device work"
     per = {name: max(1, round(len(us) / reps)) * statistics.fmean(us) / 1e3
            for name, us in by_name.items()}
     out = {part: sum(ms for name, ms in per.items() if part in name)
@@ -3406,31 +3473,38 @@ def device_ms_parts(fn, parts, reps: int = 5) -> dict:
     return out
 
 
-def flash_bwd_rows(rows, launches) -> None:
-    """(k) timed: each backward kernel at each of FLASH_BWD_SHAPES (device
-    time per call from the profiler and per call with launch overhead from
-    CUDA events), their sum, the plain version (the pre kernel beside
-    ``flash_attention_bwd_stats_plain``, dq and dkv beside the whole plain
-    backward), the backward of ``scaled_dot_product_attention``
-    (``enable_gqa``) and the bounds. The main path's shape gives the
-    kernels line's three rows, with the main path's ``launches``."""
+def flash_bwd_rows(rows, launches, f32_launches) -> None:
+    """(k) timed: the backward kernels of each shape's route at each of
+    FLASH_BWD_SHAPES (device time per call from the profiler and per call
+    with launch overhead from CUDA events), their sum, at the bf16 shapes
+    the scalar route's beside them, the plain version (the pre kernel
+    beside ``flash_attention_bwd_stats_plain``, dq and dkv beside the
+    whole plain backward), the backward of
+    ``scaled_dot_product_attention`` (``enable_gqa``) and the bounds. The
+    main path's shape gives the kernels line's tc rows with the main
+    path's ``launches``, the float32 shape its scalar rows with the
+    launches of check (f)'s float32 training (``f32_launches``)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as FA
 
     gen = torch.Generator(device="cuda").manual_seed(18)
-    parts = ("flash_bwd_pre_kernel", "flash_bwd_dq_kernel",
-             "flash_bwd_dkv_kernel")
     for i, (what, b, s, h, kh, d, dt, causal) in enumerate(FLASH_BWD_SHAPES):
         q, k, v, o, do, kw = _bwd_case(gen, b, s, s, h, kh, d, dt, causal,
                                        0, None)
+        route = FA.bwd_variant(dt, s, h // kh, d)
+        parts = FLASH_BWD_PARTS[route]
         got = FA.flash_attention_bwd(q, k, v, o, do, **kw)
+        again = FA.flash_attention_bwd(q, k, v, o, do, **kw)
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
+        assert same, (what, "two calls differ")
+        del again
         want = FA.flash_attention_bwd_plain(q, k, v, o, do, **kw)
         err, use = _bwd_err(got, want, what)
         caught = _bwd_faults_caught(FA, q, k, v, o, do, kw, got, want, what)
-        log(f"[train] (k) check at {what}: largest abs diff {err:.3e}, "
-            f"worst element at {use:.3f} of its limit "
+        log(f"[train] (k) check at {what} on {route}: largest abs diff "
+            f"{err:.3e}, worst element at {use:.3f} of its limit "
             f"{_bwd_limit_text(dt)}; {caught} of {caught} planted faults "
-            f"fail it")
+            f"fail it; two calls give equal bits")
         del got, want
         stats_want = FA.flash_attention_bwd_stats_plain(q, k, o, do, **kw)
         stats_err = _stats_err(_bwd_pre(FA, q, k, v, o, do, kw), stats_want,
@@ -3439,15 +3513,22 @@ def flash_bwd_rows(rows, launches) -> None:
         out = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
                torch.empty(3 * b * s * h, dtype=torch.float32,
                            device="cuda"))
+        ins = (q, k, v, o, do)
 
-        def one(name, out=out, ins=(q, k, v, o, do), kw=kw):
-            return lambda: FA._bwd_kernels((name,), ins, out, kw["causal"],
+        def on(names, route_=None):
+            return lambda: FA._bwd_kernels(names, ins, out, kw["causal"],
                                            kw["q_offset"],
-                                           kw["kv_valid_len"])
+                                           kw["kv_valid_len"], route_)
         full = lambda: FA.flash_attention_bwd(q, k, v, o, do, **kw)  # noqa
         dev = device_ms_parts(full, parts)
-        events = {n: call_ms(one(n), reps=3, runs=3) for n in FA.BWD_KERNELS}
+        assert all(dev[p_] > 0 for p_ in parts), (what, dev)
+        events = {n: call_ms(on((n,)), reps=3, runs=3)
+                  for n in FA.BWD_KERNELS}
         events["sum"] = call_ms(full, reps=3, runs=3)
+        scalar = None
+        if route != "scalar":       # the same call on the earlier design
+            scalar = device_ms_parts(on(FA.BWD_KERNELS, "scalar"),
+                                     FLASH_BWD_PARTS["scalar"], reps=2)
         plain = lambda: FA.flash_attention_bwd_plain(q, k, v, o, do, **kw)  # noqa
         stats_plain = lambda: FA.flash_attention_bwd_stats_plain(  # noqa
             q, k, o, do, **kw)
@@ -3467,54 +3548,68 @@ def flash_bwd_rows(rows, launches) -> None:
         qo = q.numel() * el                      # q, o, dO, dq: each
         kvb = k.numel() * el                     # k, v, dk, dv: each
         row_stats = 3 * 4 * b * s * h
-        # (ops a valid pair, bytes read and written) of each kernel's own
-        # function: pre forms the scores; dq the scores, dO.V^T and dS.K;
-        # dkv the scores, dO.V^T, P^T.dO and dS^T.Q
-        work = {FA.BWD_KERNELS[0]: (2 * d, 3 * qo + kvb + row_stats),
-                FA.BWD_KERNELS[1]: (6 * d, 3 * qo + 2 * kvb + row_stats),
-                FA.BWD_KERNELS[2]: (8 * d, 2 * qo + 4 * kvb + row_stats)}
+        # bytes read and written by each kernel's own function
+        n_bytes = (3 * qo + kvb + row_stats, 3 * qo + 2 * kvb + row_stats,
+                   2 * qo + 4 * kvb + row_stats)
         rate = TENSOR_OPS_PER_S if dt != F32 else SCALAR_OPS_PER_S
         rate_name = ("989 TFLOP/s bf16" if dt != F32
                      else "67 TFLOP/s float32")
-        for n, part in zip(FA.BWD_KERNELS, parts):
-            ops_pp, n_bytes = work[n]
-            bound = max(n_bytes / HBM_BYTES_PER_S, ops_pp * pairs / rate)
-            bound_by = ("bytes" if n_bytes / HBM_BYTES_PER_S >=
+        for j, (n, part) in enumerate(zip(FA.BWD_KERNELS, parts)):
+            ops_pp, own_pp = FLASH_BWD_OPS["function"][j] * d, \
+                FLASH_BWD_OPS[route][j] * d
+            bound = max(n_bytes[j] / HBM_BYTES_PER_S, ops_pp * pairs / rate)
+            bound_by = ("bytes" if n_bytes[j] / HBM_BYTES_PER_S >=
                         ops_pp * pairs / rate else "operations")
-            row_plain = stats_plain_ms if n == FA.BWD_KERNELS[0] else plain_ms
-            row_err = stats_err if n == FA.BWD_KERNELS[0] else err
-            log(f"[train] (k) {n} at {what} (B={b}, S=T={s}, H={h}, K={kh}, "
-                f"D={d}, {str(dt)[6:]}, {'causal' if causal else 'non-causal'}"
-                f"): device time per call {dev[part]:.4f} ms (profiler), "
-                f"{events[n]:.4f} ms with launch overhead (CUDA events); "
-                f"plain {row_plain:.4f} ms "
-                f"({'row statistics' if n == FA.BWD_KERNELS[0] else 'the whole backward'}); "
+            row_plain = stats_plain_ms if j == 0 else plain_ms
+            row_err = stats_err if j == 0 else err
+            run = "main path" if i == 0 else "check (f)" if dt == F32 else "-"
+            main = {"main path": launches, "check (f)": f32_launches}.get(
+                run, {})
+            n_launch = main.get(f"{n}.{route}", 0)
+            earlier = ("" if scalar is None else
+                       f"; the scalar route at this shape "
+                       f"{scalar[FLASH_BWD_PARTS['scalar'][j]]:.4f} ms")
+            log(f"[train] (k) {n} on {route} at {what} (B={b}, S=T={s}, "
+                f"H={h}, K={kh}, D={d}, {str(dt)[6:]}, "
+                f"{'causal' if causal else 'non-causal'}): device time per "
+                f"call {dev[part]:.4f} ms (profiler), {events[n]:.4f} ms "
+                f"with launch overhead (CUDA events){earlier}; plain "
+                f"{row_plain:.4f} ms ("
+                f"{'row statistics' if j == 0 else 'the whole backward'}); "
                 f"SDPA backward {lib_ms:.4f} ms; bound {bound * 1e3:.4f} ms "
-                f"({bound_by}: {ops_pp} operations a pair x {pairs} "
-                f"pairs / {rate_name}, {n_bytes} B / 3.35 TB/s); main-path "
-                f"launches "
-                f"{launches.get(n, 0) if i == 0 else '-'}; max_abs_err "
-                f"{row_err:.3e}; {card()}")
-            if i == 0:
+                f"({bound_by}: {ops_pp} operations a pair x {pairs} pairs / "
+                f"{rate_name}, {n_bytes[j]} B / 3.35 TB/s); the route's own "
+                f"{own_pp} operations a pair take "
+                f"{own_pp * pairs / rate * 1e3:.4f} ms at that rate; "
+                f"launches {n_launch} ({run}); max_abs_err {row_err:.3e}; "
+                f"{card()}")
+            if i == 0 or dt == F32:
                 rows.append(dict(
                     name=n, route="cuda", source=FLASH_BWD_SRC,
-                    replaces=FLASH_BWD_REPLACES, variant=None,
-                    launches=launches.get(n, 0), max_abs_err=row_err,
+                    replaces=FLASH_BWD_REPLACES, variant=route,
+                    launches=n_launch, max_abs_err=row_err,
                     ms=dev[part], plain_ms=row_plain,
                     bound_ms=bound * 1e3, bound_by=bound_by,
                     library_ms=lib_ms))
-        n_bytes = 4 * qo + 4 * kvb
-        bound = max(n_bytes / HBM_BYTES_PER_S, 10 * d * pairs / rate)
-        log(f"[train] (k) the backward at {what}: three kernels "
+        all_bytes = 4 * qo + 4 * kvb
+        bound = max(all_bytes / HBM_BYTES_PER_S, 10 * d * pairs / rate)
+        own = sum(FLASH_BWD_OPS[route]) * d * pairs / rate
+        earlier = ("" if scalar is None else
+                   f"; the scalar route {scalar['total']:.4f} ms ("
+                   + " + ".join(f"{scalar[p_]:.4f}"
+                                for p_ in FLASH_BWD_PARTS["scalar"])
+                   + f"), {scalar['total'] / dev['total']:.1f}x")
+        log(f"[train] (k) the backward at {what} on {route}: three kernels "
             f"{dev['total']:.4f} ms device time a call "
-            f"({' + '.join(f'{dev[p]:.4f}' for p in parts)}), "
-            f"{events['sum']:.4f} ms with launch overhead; plain "
+            f"({' + '.join(f'{dev[p_]:.4f}' for p_ in parts)}), "
+            f"{events['sum']:.4f} ms with launch overhead{earlier}; plain "
             f"{plain_ms:.4f} ms; SDPA backward {lib_ms:.4f} ms; bound "
             f"{bound * 1e3:.4f} ms (10·B·H·D = {10 * d * pairs} operations "
-            f"over {rate_name}, or {n_bytes} B of q, k, v, o, dO, dq, dk, "
-            f"dv over 3.35 TB/s); kernels / bound "
-            f"{dev['total'] / (bound * 1e3):.1f}, kernels / SDPA "
-            f"{dev['total'] / lib_ms:.1f}; {card()}")
+            f"over {rate_name}, or {all_bytes} B of q, k, v, o, dO, dq, dk, "
+            f"dv over 3.35 TB/s), the route's own "
+            f"{sum(FLASH_BWD_OPS[route])}·D a pair {own * 1e3:.4f} ms; "
+            f"kernels / bound {dev['total'] / (bound * 1e3):.1f}, kernels / "
+            f"SDPA {dev['total'] / lib_ms:.1f}; {card()}")
         del q, k, v, o, do, out, qt, kt, vt, lib_out
         torch.cuda.empty_cache()
 
@@ -3534,10 +3629,11 @@ def _train_close(what, got, want, tol) -> float:
     return worst
 
 
-def train_f32_grads() -> None:
+def train_f32_grads() -> dict:
     """(f) qwen3-0.6b at full width, TRAIN_F32_LAYERS layers, float32: the
-    gradients with flash attention (the scalar forward, the backward
-    kernels) against autograd through the plain attention."""
+    gradients with flash attention (the scalar forward, the scalar
+    backward kernels) against autograd through the plain attention.
+    Returns the flash run's kernel launches."""
     from repro_torch import configs
     from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import ops as FA
@@ -3568,14 +3664,16 @@ def train_f32_grads() -> None:
     var = FA.variant(F32, TRAIN_F32_SEQ, 2, 128)
     n = TRAIN_F32_LAYERS
     assert ran.get(f"flash_attention_fwd.{var}") == 2 * n, ran   # + remat
-    assert all(ran.get(k) == n for k in FA.BWD_KERNELS), ran
+    assert all(ran.get(k, 0) == c for k, c in _bwd_route_counts(
+        FA, "scalar", n).items()), ran
     assert not any(k.startswith("flash") for k in ran_p), ran_p
     worst = _train_close("(f) gradients", g_f, g_p, 1e-4)
     rel_loss = abs(loss_f - loss_p) / abs(loss_p)
     rel_gn = abs(gn_f - gn_p) / gn_p
     log(f"[train] check (f) {TRAIN_ARCH} at full width, {n} of 28 layers, "
         f"1 x {TRAIN_F32_SEQ} tokens, float32, TF32 off, remat full: flash "
-        f"({2 * n} forward launches on '{var}', {n} of each backward kernel) "
+        f"({2 * n} forward launches on '{var}', {n} of each backward kernel "
+        f"on scalar) "
         f"against autograd through the plain attention: every gradient leaf "
         f"within {worst:.3e} of its largest (limit 1e-4), loss {loss_f:.6f} "
         f"vs {loss_p:.6f} (rel {rel_loss:.2e}), grad_norm {gn_f:.6f} vs "
@@ -3583,6 +3681,7 @@ def train_f32_grads() -> None:
     assert rel_loss <= 1e-5 and rel_gn <= 1e-5
     del g_f, g_p, res, flat
     torch.cuda.empty_cache()
+    return ran
 
 
 def _spread_zeros(flat, seed):
@@ -3765,10 +3864,11 @@ def training_run():
     n = cfg.n_layers
     assert launches.get("flash_attention_fwd.tc") == 2 * n * TRAIN_STEPS
     assert launches.get("flash_attention_fwd") == 2 * n * TRAIN_STEPS
-    for k in FA.BWD_KERNELS:
-        assert launches.get(k) == n * TRAIN_STEPS, (k, launches)
+    for k, c in _bwd_route_counts(FA, "tc", n * TRAIN_STEPS).items():
+        assert launches.get(k, 0) == c, (k, launches)
     steady = statistics.median(walls[1:])
-    log(f"[train] (t) step wall: first {walls[0] * 1e3:.1f} ms, median of "
+    log(f"[train] (t) step wall (backward kernels on tc): first "
+        f"{walls[0] * 1e3:.1f} ms, median of "
         f"steps 2-{TRAIN_STEPS} {steady * 1e3:.1f} ms "
         f"(min {min(walls[1:]) * 1e3:.1f}, max {max(walls[1:]) * 1e3:.1f}), "
         f"{TRAIN_BATCH * TRAIN_SEQ / steady:.1f} tokens/s; {card()}")
@@ -3797,11 +3897,36 @@ def training(rows) -> None:
     timed at the main path's shapes."""
     t0 = time.perf_counter()
     flash_bwd_edges()
-    train_f32_grads()
+    f32_launches = train_f32_grads()
     train_reduced()
     launches = training_run()
-    flash_bwd_rows(rows, launches)
+    flash_bwd_rows(rows, launches, f32_launches)
     log(f"[train] phase wall {time.perf_counter() - t0:.1f} s")
+
+
+def tensor_core_kernels(lib) -> None:
+    """``cuobjdump -sass`` of the built library: the HGMMA (wgmma)
+    instructions of each tensor-core flash kernel, forward and backward;
+    fails when a tc kernel of the backward has none."""
+    from repro_torch.kernels import _build
+
+    tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(tool), "-sass", str(lib)], check=True,
+                          capture_output=True, text=True).stdout
+    counts, name = collections.Counter(), None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            name = line.split("Function : ")[1].strip()
+        elif name and "HGMMA" in line:
+            counts[name] += 1
+    for kernel in ("flash_tc_kernel", "flash_bwd_tc_pre_kernel",
+                   "flash_bwd_tc_dq_kernel", "flash_bwd_tc_dkv_kernel"):
+        # template instances by the head size's k-steps, D / 16 = 1 to 8
+        found = {int(n.split(kernel + "ILi")[1].split("E")[0]): c
+                 for n, c in counts.items() if kernel + "ILi" in n}
+        assert len(found) == 8 and all(found.values()), (kernel, found)
+        log(f"[build] cuobjdump -sass: {kernel} HGMMA instructions by D/16 "
+            f"(1 to 8): {[found[ks] for ks in sorted(found)]}")
 
 
 def main() -> int:
@@ -3823,6 +3948,7 @@ def main() -> int:
     log(f"[build] {lib.relative_to(ROOT) if lib.is_relative_to(ROOT) else lib}"
         f" in {time.perf_counter() - t0:.2f} s")
     log((lib.parent / "build.log").read_text().strip())
+    tensor_core_kernels(lib)
     _build.library()
 
     # record what the main path hands the kernels (the largest join's key

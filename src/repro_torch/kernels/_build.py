@@ -71,10 +71,13 @@ SIGNATURES = {
     "rt_ssd_tc": (_P,) * 9 + (_I64,) * 13 + (_P, _P),
     # q, k, o, dO, stats (pre); q, k, v, dO, stats, dq (dq); q, k, v, dO,
     # stats, dk, dv (dkv); then B, S, T, H, K, D, causal, q_offset,
-    # kv_valid_len, dtype, stream
+    # kv_valid_len, dtype, stream (the tc route's three alike)
     "rt_flash_attention_bwd_pre": (_P,) * 5 + (_I64,) * 10 + (_P,),
     "rt_flash_attention_bwd_dq": (_P,) * 6 + (_I64,) * 10 + (_P,),
     "rt_flash_attention_bwd_dkv": (_P,) * 7 + (_I64,) * 10 + (_P,),
+    "rt_flash_attention_bwd_tc_pre": (_P,) * 5 + (_I64,) * 10 + (_P,),
+    "rt_flash_attention_bwd_tc_dq": (_P,) * 6 + (_I64,) * 10 + (_P,),
+    "rt_flash_attention_bwd_tc_dkv": (_P,) * 7 + (_I64,) * 10 + (_P,),
 }
 
 # kernel name -> launches since the last reset_launches()

@@ -46,7 +46,13 @@ tensor (row statistics, dQ, dK and dV) and runs
 on a CPU tensor. Both recompute the softmax in float32 from q and k:
 ``P = exp(s - m) / max(l, 1e-30)``, ``D = rowsum(dO∘O)``, ``dS = P∘(dO·Vᵀ -
 D)``, ``dQ = dS·K·scale``, ``dK = dSᵀ·Q·scale`` and ``dV = Pᵀ·dO``, dK and
-dV summed over the GQA group, every output in the inputs' dtype.
+dV summed over the GQA group, every output in the inputs' dtype. The three
+kernels come in two designs, chosen by :func:`bwd_variant` from the call's
+dtype and shape alone: ``"tc"`` (bfloat16 on the tensor cores, the
+forward's tc rule; Q, K, V, O and dO exact, P and dS carried as two
+bfloat16 terms in the products that take them, every sum in float32) and
+``"scalar"`` (the rest: every element upcast to float32, P and dS never
+rounded).
 """
 from __future__ import annotations
 
@@ -373,6 +379,23 @@ def flash_attention_bwd_stats_plain(q: torch.Tensor, k: torch.Tensor,
 
 BWD_KERNELS = ("flash_attention_bwd_pre", "flash_attention_bwd_dq",
                "flash_attention_bwd_dkv")
+BWD_VARIANTS = ("tc", "scalar")
+# the C entry point of each backward kernel on each route
+_BWD_ENTRIES = {
+    "scalar": ("rt_flash_attention_bwd_pre", "rt_flash_attention_bwd_dq",
+               "rt_flash_attention_bwd_dkv"),
+    "tc": ("rt_flash_attention_bwd_tc_pre", "rt_flash_attention_bwd_tc_dq",
+           "rt_flash_attention_bwd_tc_dkv"),
+}
+
+
+def bwd_variant(dtype: torch.dtype, s: int, g: int, d: int) -> str:
+    """Which design of the three backward kernels a CUDA call runs, from
+    its dtype, query length ``s``, group size ``g = H / K`` and head width
+    ``d``: ``"tc"`` (tensor cores) where the forward runs its tc kernel
+    (:func:`variant`: bfloat16 with ``d % 16 == 0``, ``d <= 128`` and ``s
+    * g >= 64``), else ``"scalar"``."""
+    return "tc" if variant(dtype, s, g, d) == "tc" else "scalar"
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -382,10 +405,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(dq, dk, dv) of :func:`flash_attention` at (q, k, v), from its
     output ``o`` and the output's gradient ``do`` (B, S, H, D), each in the
     inputs' dtype. Replaces the reference's ``_bwd``. On a CUDA tensor
-    three kernels run in turn: ``flash_bwd_pre_kernel`` (each row's max,
-    sum and ``D`` into a float32 scratch), ``flash_bwd_dq_kernel`` and
-    ``flash_bwd_dkv_kernel``; on a CPU tensor,
-    :func:`flash_attention_bwd_plain`."""
+    three kernels of the route :func:`bwd_variant` picks run in turn: pre
+    (each row's max, sum and ``D`` into a float32 scratch), dq and dkv; on
+    a CPU tensor, :func:`flash_attention_bwd_plain`."""
     q_offset = int(q_offset)
     kv_valid_len = None if kv_valid_len is None else int(kv_valid_len)
     _check(q, k, v, q_offset, kv_valid_len)
@@ -416,29 +438,34 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _bwd_kernels(which, inputs, outputs, causal: bool, q_offset: int,
-                 kv_valid_len: Optional[int]) -> None:
+                 kv_valid_len: Optional[int],
+                 route: Optional[str] = None) -> None:
     """Launch the backward kernels named in ``which`` (of
-    :data:`BWD_KERNELS`, in that order) on checked CUDA ``inputs`` (q, k,
-    v, o, dO) into ``outputs`` (dq, dk, dv and the float32 scratch of 3 *
-    B * S * H row statistics: m, l, D, each (B, K, S, g))."""
+    :data:`BWD_KERNELS`, in that order), of ``route`` (default: the one
+    :func:`bwd_variant` picks; another only to compare the two), on
+    checked CUDA ``inputs`` (q, k, v, o, dO) into ``outputs`` (dq, dk, dv
+    and the float32 scratch of 3 * B * S * H row statistics: m, l, D, each
+    (B, K, S, g)); each launch counted under its kernel and
+    ``<kernel>.<route>``."""
     q, k, v, o, do = inputs
     dq, dk, dv, stats = outputs
     b, s, h, d = q.shape
     tk, kh = k.shape[1], k.shape[2]
+    var = route or bwd_variant(q.dtype, s, h // kh, d)
     tail = (b, s, tk, h, kh, d, int(causal), q_offset,
             -1 if kv_valid_len is None else kv_valid_len,
             _DTYPE_CODES[q.dtype])
     pre, dq_k, dkv = BWD_KERNELS
+    e_pre, e_dq, e_dkv = _BWD_ENTRIES[var]
     if pre in which:
-        _build.launch(pre, "rt_flash_attention_bwd_pre", q.device,
-                      q.data_ptr(), k.data_ptr(), o.data_ptr(),
-                      do.data_ptr(), stats.data_ptr(), *tail)
+        _build.launch(pre, e_pre, q.device, q.data_ptr(), k.data_ptr(),
+                      o.data_ptr(), do.data_ptr(), stats.data_ptr(), *tail,
+                      variant=var)
     if dq_k in which:
-        _build.launch(dq_k, "rt_flash_attention_bwd_dq", q.device,
-                      q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      do.data_ptr(), stats.data_ptr(), dq.data_ptr(), *tail)
+        _build.launch(dq_k, e_dq, q.device, q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), do.data_ptr(), stats.data_ptr(),
+                      dq.data_ptr(), *tail, variant=var)
     if dkv in which:
-        _build.launch(dkv, "rt_flash_attention_bwd_dkv", q.device,
-                      q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      do.data_ptr(), stats.data_ptr(), dk.data_ptr(),
-                      dv.data_ptr(), *tail)
+        _build.launch(dkv, e_dkv, q.device, q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), do.data_ptr(), stats.data_ptr(),
+                      dk.data_ptr(), dv.data_ptr(), *tail, variant=var)

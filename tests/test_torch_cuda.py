@@ -1186,6 +1186,23 @@ FLASH_BWD_EDGES = [
     (1, 100, 100, 7, 1, 40, True, 0, None),
     (1, 40, 40, 2, 1, 256, True, 0, 23),
 ]
+# bf16 edges the tc route takes (each also through the scalar route's
+# float32 and float16): GQA g = 1, 2, 8 and 64, D 16 to 128 (80 and 112 off
+# the 64-column boxes), S * g = 64, S = 1, T = 3, q_offset > 0,
+# kv_valid_len < T (inside a 64-key warpgroup, and leaving the second
+# warpgroup of a 128-key dkv block without keys), non-causal, S and T off
+# the 64- and 128-row tiles
+FLASH_BWD_TC_EDGES = [
+    (2, 77, 77, 16, 8, 128, True, 0, None),
+    (1, 32, 32, 4, 2, 64, True, 0, None),
+    (1, 1, 40, 64, 1, 16, True, 39, None),
+    (2, 65, 3, 4, 4, 32, False, 0, None),
+    (1, 130, 200, 5, 1, 80, False, 0, 150),
+    (2, 100, 170, 16, 2, 112, True, 70, 160),
+    (1, 300, 300, 8, 1, 48, True, 0, 60),
+    (1, 129, 257, 4, 2, 96, True, 128, None),
+    (2, 64, 100, 4, 2, 32, True, 36, 90),
+]
 # each element within FLASH_BWD_REL of itself plus 2^-14 of its output's
 # largest magnitude: float32 sums in another order from the same inputs,
 # then one step of the output's dtype
@@ -1214,24 +1231,85 @@ def _flash_bwd_inputs(case, dt, dev):
     return q, k, v, FA.flash_attention(q, k, v, **kw), do, kw
 
 
+def _bwd_route(q, k):
+    b, s, h, d = q.shape
+    return FA.bwd_variant(q.dtype, s, h // k.shape[2], d)
+
+
+def _bwd_ran(route):
+    """Each backward kernel launched once, on ``route`` alone."""
+    want = {n: 1 for n in FA.BWD_KERNELS}
+    for var in FA.BWD_VARIANTS:
+        want.update({f"{n}.{var}": int(var == route)
+                     for n in FA.BWD_KERNELS})
+    assert {n: _build.launches[n] for n in want} == want, \
+        dict(_build.launches)
+
+
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16,
                                 torch.float16], ids=str)
-@pytest.mark.parametrize("case", FLASH_BWD_EDGES, ids=str)
+@pytest.mark.parametrize("case", FLASH_BWD_EDGES + FLASH_BWD_TC_EDGES,
+                         ids=str)
 def test_flash_bwd_kernels_match_plain(dev, case, dt):
     """dq, dk and dv of the three backward kernels against
     ``flash_attention_bwd_plain`` on the same inputs, each element within
     2^-14 of its output's largest magnitude plus, for bf16 and f16 (the
     outputs round to the dtype), 2^-7 or 2^-10 of itself; one launch of
-    each kernel."""
+    each kernel, all on the route ``bwd_variant`` gives."""
     q, k, v, o, do, kw = _flash_bwd_inputs(case, dt, dev)
     _build.reset_launches()
     got = FA.flash_attention_bwd(q, k, v, o, do, **kw)
     want = FA.flash_attention_bwd_plain(q, k, v, o, do, **kw)
     torch.cuda.synchronize()
-    assert {n: _build.launches[n] for n in FA.BWD_KERNELS} == \
-        {n: 1 for n in FA.BWD_KERNELS}
+    _bwd_ran(_bwd_route(q, k))
     assert all(x.dtype == dt for x in got)
     _bwd_close(got, want)
+
+
+@pytest.mark.parametrize("case", FLASH_BWD_TC_EDGES, ids=str)
+def test_flash_bwd_tc_route_gives_the_same_bits_twice(dev, case):
+    """The tc kernels write every output element once, without atomics:
+    two calls on the same inputs give equal bits."""
+    q, k, v, o, do, kw = _flash_bwd_inputs(case, torch.bfloat16, dev)
+    assert _bwd_route(q, k) == "tc"
+    first = FA.flash_attention_bwd(q, k, v, o, do, **kw)
+    second = FA.flash_attention_bwd(q, k, v, o, do, **kw)
+    for x, y in zip(first, second):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("case, dt", [
+    ((2, 77, 77, 16, 8, 128, True, 0, None), torch.float32),
+    ((2, 77, 77, 16, 8, 128, True, 0, None), torch.float16),
+    ((1, 200, 200, 4, 2, 144, True, 0, None), torch.bfloat16),   # D > 128
+    ((1, 200, 200, 4, 2, 40, True, 0, None), torch.bfloat16),    # D % 16
+    ((1, 63, 63, 2, 2, 64, True, 0, None), torch.bfloat16),      # S*g = 63
+], ids=str)
+def test_flash_bwd_outside_the_tc_rule_runs_the_scalar_kernels(dev, case,
+                                                               dt):
+    q, k, v, o, do, kw = _flash_bwd_inputs(case, dt, dev)
+    assert _bwd_route(q, k) == "scalar"
+    _build.reset_launches()
+    got = FA.flash_attention_bwd(q, k, v, o, do, **kw)
+    torch.cuda.synchronize()
+    _bwd_ran("scalar")
+    _bwd_close(got, FA.flash_attention_bwd_plain(q, k, v, o, do, **kw))
+
+
+def test_flash_bwd_tc_kernels_refuse_what_they_do_not_take(dev):
+    """The tc entry points raise on a dtype or head size outside their
+    rule rather than run."""
+    q, k, v, o, do, kw = _flash_bwd_inputs(FLASH_BWD_EDGES[0],
+                                           torch.float32, dev)
+    b, s, h, d = q.shape
+    out = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
+           torch.empty(3 * b * s * h, dtype=torch.float32, device=dev))
+    with pytest.raises(RuntimeError, match="cudaError"):
+        _build.launch("flash_attention_bwd_pre",
+                      "rt_flash_attention_bwd_tc_pre", dev, q.data_ptr(),
+                      k.data_ptr(), o.data_ptr(), do.data_ptr(),
+                      out[3].data_ptr(), b, s, k.shape[1], h, k.shape[2], d,
+                      1, 0, -1, 0)
 
 
 def test_flash_autograd_on_card_runs_the_backward_kernels(dev):
@@ -1245,8 +1323,7 @@ def test_flash_autograd_on_card_runs_the_backward_kernels(dev):
     _build.reset_launches()
     o.backward(do)
     torch.cuda.synchronize()
-    assert {n: _build.launches[n] for n in FA.BWD_KERNELS} == \
-        {n: 1 for n in FA.BWD_KERNELS}
+    _bwd_ran("tc")
     want = FA.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(),
                                         o.detach(), do, **kw)
     _bwd_close((q.grad, k.grad, v.grad), want)
@@ -1281,17 +1358,21 @@ def test_wkv_and_ssd_refuse_a_call_that_needs_a_gradient(dev):
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=str)
-@pytest.mark.parametrize("case", FLASH_BWD_EDGES, ids=str)
+@pytest.mark.parametrize("case", FLASH_BWD_EDGES + FLASH_BWD_TC_EDGES,
+                         ids=str)
 def test_flash_bwd_pre_kernel_matches_stats_plain(dev, case, dt):
-    """The row statistics the pre kernel writes (m, l, D) against
-    ``flash_attention_bwd_stats_plain``, each within 2^-14 of its largest
-    magnitude (float32 sums in another order, from the same values)."""
+    """The row statistics the pre kernel of the call's route writes (m, l,
+    D) against ``flash_attention_bwd_stats_plain``, each within 2^-14 of
+    its largest magnitude (float32 sums in another order, from the same
+    values)."""
     q, k, v, o, do, kw = _flash_bwd_inputs(case, dt, dev)
     b, s, t, h, kh, d = case[:6]
     out = (torch.empty_like(q), torch.empty_like(k), torch.empty_like(v),
            torch.empty(3 * b * s * h, dtype=torch.float32, device=dev))
+    _build.reset_launches()
     FA._bwd_kernels(FA.BWD_KERNELS[:1], (q, k, v, o, do), out,
                     kw["causal"], kw["q_offset"], kw["kv_valid_len"])
+    assert _build.launches[f"{FA.BWD_KERNELS[0]}.{_bwd_route(q, k)}"] == 1
     got = out[3].view(3, b, kh, s, h // kh)
     want = FA.flash_attention_bwd_stats_plain(q, k, o, do, **kw)
     for name, x, y in zip("mlD", got, want):

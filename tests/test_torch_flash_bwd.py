@@ -11,6 +11,12 @@ autograd through ``flash_attention_plain``, within 1e-4, as
 as autograd sees it: a call that needs a gradient goes through
 ``_FlashAttention`` (the CPU tier's plain backward, counted), one that
 does not builds no graph.
+
+Then the CUDA side's decisions the CPU can check: which backward design a
+call runs (``ops.bwd_variant``, the forward's tc rule), and why the
+tensor-core route carries P and dS as two bf16 terms: its arithmetic,
+emulated in torch, stays within the card's elementwise limit against the
+plain backward and the reference with two terms, and leaves it with one.
 """
 import jax
 import jax.numpy as jnp
@@ -193,3 +199,178 @@ def test_stats_plain_is_what_the_plain_backward_normalises_by(case):
     assert float((p - want).abs().max()) <= 1e-6
     assert torch.allclose(dsum, (do * o).sum(-1).reshape(
         b, s, kh, g).permute(0, 2, 1, 3), atol=1e-5, rtol=0)
+
+
+# --------------------------------------------------------------------------- #
+# the CUDA routing rule and the tensor-core backward's arithmetic
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("dtype, s, g, d, want", [
+    (torch.bfloat16, 4096, 2, 128, "tc"),        # qwen3-0.6b training
+    (torch.bfloat16, 4096, 1, 80, "tc"),         # hubert-xlarge's encoder
+    (torch.bfloat16, 32, 2, 64, "tc"),           # S * g = 64: one warpgroup
+    (torch.bfloat16, 1, 64, 16, "tc"),           # one row, 64 heads a group
+    (torch.bfloat16, 63, 1, 64, "scalar"),       # S * g = 63
+    (torch.bfloat16, 1, 2, 128, "scalar"),       # a decode-sized call
+    (torch.bfloat16, 512, 1, 144, "scalar"),     # wider than 128
+    (torch.bfloat16, 512, 1, 256, "scalar"),
+    (torch.bfloat16, 512, 1, 40, "scalar"),      # not a multiple of 16
+    (torch.bfloat16, 512, 1, 8, "scalar"),
+    (torch.float32, 4096, 2, 128, "scalar"),     # float32 training, check (f)
+    (torch.float16, 4096, 2, 128, "scalar"),
+    (torch.float32, 64, 1, 64, "scalar"),
+])
+def test_bwd_variant_is_a_rule_of_dtype_and_shape(dtype, s, g, d, want):
+    assert FA.bwd_variant(dtype, s, g, d) == want
+
+
+def test_bwd_variant_takes_the_forwards_tc_rule():
+    """Where the forward runs its tc kernel, the backward runs the tc
+    route, and nowhere else."""
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
+        for s, g in ((1, 1), (1, 64), (16, 4), (33, 2), (63, 1), (64, 1),
+                     (4096, 2)):
+            for d in range(8, 264, 8):
+                fwd_tc = FA.variant(dtype, s, g, d) == "tc"
+                assert (FA.bwd_variant(dtype, s, g, d) == "tc") == fwd_tc
+
+
+def _terms(x, terms):
+    """x as ``terms`` bfloat16 terms, each the rounding of what the earlier
+    ones leave (bf16(x), bf16(x - bf16(x)), ...), as float32."""
+    out, rest = [], x
+    for _ in range(terms):
+        term = rest.to(torch.bfloat16).float()
+        out.append(term)
+        rest = rest - term
+    return out
+
+
+def _tc_bwd_emulation(q, k, v, o, do, *, causal, q_offset, kv_valid_len,
+                      terms):
+    """The tc kernels' arithmetic in torch: S = Q·Kᵀ and dP = dO·Vᵀ from
+    the bf16 operands summed in float32; m and l online over 64-key tiles
+    (pre); D = rowsum(dO∘O); ``P = exp(s·scale - m) · (1 / max(l,
+    1e-30))`` and ``dS = P∘(dP - D)`` in float32; then Pᵀ·dO, dSᵀ·Q and
+    dS·K with P and dS carried as ``terms`` bf16 terms, each term's product
+    summed in float32 into one accumulator; dK and dV summed over the
+    group, dK and dQ scaled once, every output rounded to bf16."""
+    b, s, h, d = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = 1.0 / d ** 0.5
+    qf, of, dof = (x.float().permute(0, 2, 1, 3) for x in (q, o, do))
+    kf, vf = (x.float().permute(0, 2, 1, 3).repeat_interleave(g, 1)
+              for x in (k, v))                           # (B, H, T, D)
+    kv_lim = t if kv_valid_len is None else min(kv_valid_len, t)
+    kpos = torch.arange(t)[None, :]
+    ok = kpos < kv_lim
+    if causal:
+        ok = ok & (kpos <= torch.arange(s)[:, None] + q_offset)
+    x = torch.where(ok, (qf @ kf.transpose(-1, -2)) * scale,
+                    torch.full((), FA.NEG_INF))
+    m = torch.full((b, h, s, 1), FA.NEG_INF)
+    l = torch.zeros((b, h, s, 1))
+    for t0 in range(0, t, 64):
+        tile = x[..., t0:t0 + 64]
+        m_new = torch.maximum(m, tile.amax(-1, keepdim=True))
+        l = l * torch.exp(m - m_new) + torch.exp(tile - m_new).sum(
+            -1, keepdim=True)
+        m = m_new
+    drow = (dof * of).sum(-1, keepdim=True)
+    p = torch.where(ok, torch.exp(x - m) * (1.0 / torch.clamp(l, min=1e-30)),
+                    torch.zeros(()))
+    ds = p * (dof @ vf.transpose(-1, -2) - drow)
+    dv = sum(pt.transpose(-1, -2) @ dof for pt in _terms(p, terms))
+    dk = sum(dt.transpose(-1, -2) @ qf for dt in _terms(ds, terms))
+    dq = sum(dt @ kf for dt in _terms(ds, terms))
+
+    def kv_out(x):                          # (B, H, T, D) -> (B, T, K, D)
+        return x.reshape(b, kh, g, t, d).sum(2).permute(0, 2, 1, 3)
+    return ((dq * scale).permute(0, 2, 1, 3).to(torch.bfloat16),
+            (kv_out(dk) * scale).to(torch.bfloat16),
+            kv_out(dv).to(torch.bfloat16))
+
+
+# the card's elementwise limit (chip_smoke.py's check (k),
+# tests/test_torch_cuda.py): |got - want| <= 2^-7·|want| + 2^-14·max|want|
+# for bf16 outputs
+BF16_REL, ABS_OF_MAX = 2.0 ** -7, 2.0 ** -14
+
+# bf16 shapes the tc route takes: GQA 1, 2 and 8; D 16, 64, 80 and 128;
+# q_offset > 0; kv_valid_len < T; non-causal; S and T off the 64-row tiles
+# (B, S, T, H, K, D, causal, q_offset, kv_valid_len)
+TC_BWD_CASES = [
+    (2, 77, 77, 4, 2, 128, True, 0, None),
+    (1, 130, 130, 4, 4, 64, True, 0, None),
+    (1, 65, 100, 8, 1, 16, False, 0, 90),
+    (2, 33, 70, 4, 2, 64, True, 37, None),
+    (1, 100, 150, 6, 3, 80, True, 20, 110),
+    (1, 200, 200, 2, 1, 128, False, 0, None),
+    (1, 64, 64, 16, 2, 80, True, 0, None),
+    (1, 150, 150, 2, 2, 16, True, 0, 140),
+]
+
+
+def _limit_share(got, want):
+    """The largest share of its limit that an element's difference takes,
+    over dq, dk and dv (above 1: outside the card's limit)."""
+    worst = 0.0
+    for x, y in zip(got, want):
+        assert x.dtype == y.dtype == torch.bfloat16 and x.shape == y.shape
+        y32 = y.float()
+        diff = (x.float() - y32).abs()
+        limit = BF16_REL * y32.abs() + ABS_OF_MAX * float(y32.abs().max())
+        worst = max(worst, float((diff / limit).max()))
+    return worst
+
+
+def _tc_bwd_inputs(case):
+    b, s, t, h, kh, d = case[:6]
+    rng = np.random.default_rng(sum(case[:6]))
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(shape, np.float32))
+                   .to(torch.bfloat16)
+                   for shape in ((b, s, h, d), (b, t, kh, d), (b, t, kh, d),
+                                 (b, s, h, d)))
+    assert FA.bwd_variant(q.dtype, s, h // kh, d) == "tc"
+    return q, k, v, do, _kw(case)
+
+
+@pytest.mark.parametrize("case", TC_BWD_CASES, ids=_ids)
+def test_two_bf16_terms_of_p_and_ds_hold_the_card_limit(case):
+    """The tc route's arithmetic with P and dS as two bf16 terms, against
+    ``flash_attention_bwd_plain`` on the same bf16 inputs: every element
+    of dq, dk and dv within the card's limit."""
+    q, k, v, do, kw = _tc_bwd_inputs(case)
+    o = FA.flash_attention_plain(q, k, v, **kw)
+    got = _tc_bwd_emulation(q, k, v, o, do, terms=2, **kw)
+    want = FA.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+    assert _limit_share(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("case", TC_BWD_CASES[:4], ids=_ids)
+def test_two_bf16_terms_hold_the_card_limit_against_the_reference(case):
+    """The same arithmetic against the reference's ``custom_vjp`` (the
+    Pallas forward in interpret mode, the chunked ``_bwd``) run through
+    JAX on the CPU in bf16, from the same inputs and the reference's o."""
+    q, k, v, do, kw = _tc_bwd_inputs(case)
+    as_jnp = lambda x: jnp.asarray(x.float().numpy(), jnp.bfloat16)  # noqa
+    o, vjp = jax.vjp(lambda q_, k_, v_: rops.flash_attention(
+        q_, k_, v_, interpret=True, **kw), *map(as_jnp, (q, k, v)))
+    want = [torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+            for x in vjp(as_jnp(do))]
+    o = torch.from_numpy(np.asarray(o, np.float32)).to(torch.bfloat16)
+    got = _tc_bwd_emulation(q, k, v, o, do, terms=2, **kw)
+    assert _limit_share(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("case", TC_BWD_CASES, ids=_ids)
+def test_one_bf16_term_of_p_and_ds_breaks_the_card_limit(case):
+    """The witness for the second term: P and dS rounded once to bf16
+    (2^-9 relative, as FlashAttention-2/3 do) move outputs past the card's
+    limit on every shape, by several times (about 10 to 16 on these)."""
+    q, k, v, do, kw = _tc_bwd_inputs(case)
+    o = FA.flash_attention_plain(q, k, v, **kw)
+    got = _tc_bwd_emulation(q, k, v, o, do, terms=1, **kw)
+    want = FA.flash_attention_bwd_plain(q, k, v, o, do, **kw)
+    assert _limit_share(got, want) > 4.0
