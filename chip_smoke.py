@@ -60,7 +60,7 @@ Phases (any failure raises and ends the run with a nonzero exit):
    (``python -m repro_torch.launch.serve --experiment 1
    --show-federated``) in a subprocess, its ``[exp1]`` lines against the
    in-process run's;
-7. a WatDiv drift scenario: ``watdiv.load(640)`` (about 10 M triples) on
+7. a WatDiv drift scenario: ``watdiv.load(320)`` (about 5 M triples) on
    8 shards, AWAPart, 4 MiB budget; ``scenario.flash_crowd`` through
    ``run_scenario`` adaptive and frozen on the torch executor, each against
    the numpy executor's run (every ``WindowRecord``, the recoveries and
@@ -206,7 +206,31 @@ Phases (any failure raises and ends the run with a nonzero exit):
    last below the first; then the backward kernels at the main path's
    and hubert-xlarge's shapes (tc, beside the scalar route on the same
    call) and a float32 shape (scalar), timed per kernel and summed beside
-   the plain version, the SDPA backward and the bounds.
+   the plain version, the SDPA backward and the bounds;
+18. RWKV6 and zamba2 training (``[train-ssm]`` lines): (k2) the WKV and
+   SSD backward kernels (``csrc/rwkv6_wkv_bwd.cu``,
+   ``csrc/mamba2_ssd_bwd.cu``: the reverse sweep, then the sums across
+   blocks) against ``wkv_bwd_plain`` and ``ssd_bwd_plain`` at edge cases
+   (S = 1, 63, 64, 65 and 4096, every compiled head and state size, w = 0
+   every third step and w within 1e-6 of 1, dt tiny and huge, s0 zero,
+   the model's strided views), each call on its two kernels alone, every
+   gradient within 1e-5 of its largest magnitude, two calls bit for bit;
+   4096 steps of w near 1 and of tiny dt against a float64 plain backward
+   (within twice the float32 plain version's own distance); five planted
+   faults (a reverse step dropped, dS not decayed, one head's part of db
+   left out) failing the check; (f2) float32 gradients of rwkv6-3b (4 of
+   32 layers) and zamba2-7b (6 of 81) at full width, 1 x 1024 tokens, the
+   kernels against autograd through the plain versions on the card and
+   against the CPU, every leaf within 1e-4 of its largest (rwkv6-3b, whose
+   float32 gradient moves 2e-4 to 4e-4 with the order of sums alone:
+   within 2 N and 3 N, N the plain card run's distance from the CPU in
+   the same run); (t2) rwkv6-3b at full width and depth
+   and (t3) zamba2-7b at full width and 24 of 81 layers, each 8 steps of
+   4 x 4096 tokens through ``TrainSupervisor`` (rwkv6-3b through
+   ``launch.train.build``), with the launch counts of every kernel of
+   the path, step walls, tokens/s, peak memory, a profiled step and the
+   loss checks of (t); then the backward kernels timed at those shapes
+   and the flash tc backward at zamba2-7b's D = 112.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -950,10 +974,11 @@ def paper_experiments(bitmaps) -> None:
 # phase 7: a WatDiv drift scenario, held against the numpy executor
 # --------------------------------------------------------------------------- #
 
-# WatDiv at scale 640: about 10.0 M triples at the generator's 15.7 k
-# triples a unit, the size of WatDiv's smallest published dataset (scale
-# factor 100, 10 M triples), on 8 shards
-WATDIV_SCALE = 640
+# WatDiv at scale 320: about 5.0 M triples at the generator's 15.7 k
+# triples a unit, half WatDiv's smallest published dataset (scale factor
+# 100, 10 M triples), on 8 shards; cut from 640 so that the whole run, with
+# phase 18, stays under 900 s
+WATDIV_SCALE = 320
 
 
 def watdiv_drift(bitmaps) -> None:
@@ -3238,7 +3263,7 @@ TRAIN_ARCH = "qwen3-0.6b"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 8   # cut from train_4k's 256
 TRAIN_F32_LAYERS, TRAIN_F32_SEQ = 4, 1024          # check (f)
 TRAIN_REDUCED = ("qwen3-0.6b", "smollm-360m", "hubert-xlarge",
-                 "olmoe-1b-7b")                    # check (r)
+                 "olmoe-1b-7b", "rwkv6-3b", "zamba2-7b")   # check (r)
 TRAIN_REDUCED_EPS = 1e-3    # AdamW eps of (r): see tests/test_torch_train.py
 FLASH_BWD_SRC = "src/repro_torch/csrc/flash_attention_bwd.cu"
 FLASH_BWD_REPLACES = "src/repro/kernels/flash_attention/ops.py:48"
@@ -3473,22 +3498,22 @@ def device_ms_parts(fn, parts, reps: int = 5) -> dict:
     return out
 
 
-def flash_bwd_rows(rows, launches, f32_launches) -> None:
+def flash_bwd_rows(rows, shapes, row_launches, prefix="train") -> None:
     """(k) timed: the backward kernels of each shape's route at each of
-    FLASH_BWD_SHAPES (device time per call from the profiler and per call
+    ``shapes`` (device time per call from the profiler and per call
     with launch overhead from CUDA events), their sum, at the bf16 shapes
     the scalar route's beside them, the plain version (the pre kernel
     beside ``flash_attention_bwd_stats_plain``, dq and dkv beside the
     whole plain backward), the backward of
-    ``scaled_dot_product_attention`` (``enable_gqa``) and the bounds. The
-    main path's shape gives the kernels line's tc rows with the main
-    path's ``launches``, the float32 shape its scalar rows with the
-    launches of check (f)'s float32 training (``f32_launches``)."""
+    ``scaled_dot_product_attention`` (``enable_gqa``) and the bounds. A
+    shape named in ``row_launches`` (what -> (the run, its launches))
+    gives the kernels line's rows of its route, with that run's
+    launches."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as FA
 
     gen = torch.Generator(device="cuda").manual_seed(18)
-    for i, (what, b, s, h, kh, d, dt, causal) in enumerate(FLASH_BWD_SHAPES):
+    for what, b, s, h, kh, d, dt, causal in shapes:
         q, k, v, o, do, kw = _bwd_case(gen, b, s, s, h, kh, d, dt, causal,
                                        0, None)
         route = FA.bwd_variant(dt, s, h // kh, d)
@@ -3501,7 +3526,7 @@ def flash_bwd_rows(rows, launches, f32_launches) -> None:
         want = FA.flash_attention_bwd_plain(q, k, v, o, do, **kw)
         err, use = _bwd_err(got, want, what)
         caught = _bwd_faults_caught(FA, q, k, v, o, do, kw, got, want, what)
-        log(f"[train] (k) check at {what} on {route}: largest abs diff "
+        log(f"[{prefix}] (k) check at {what} on {route}: largest abs diff "
             f"{err:.3e}, worst element at {use:.3f} of its limit "
             f"{_bwd_limit_text(dt)}; {caught} of {caught} planted faults "
             f"fail it; two calls give equal bits")
@@ -3562,14 +3587,12 @@ def flash_bwd_rows(rows, launches, f32_launches) -> None:
                         ops_pp * pairs / rate else "operations")
             row_plain = stats_plain_ms if j == 0 else plain_ms
             row_err = stats_err if j == 0 else err
-            run = "main path" if i == 0 else "check (f)" if dt == F32 else "-"
-            main = {"main path": launches, "check (f)": f32_launches}.get(
-                run, {})
+            run, main = row_launches.get(what, ("-", {}))
             n_launch = main.get(f"{n}.{route}", 0)
             earlier = ("" if scalar is None else
                        f"; the scalar route at this shape "
                        f"{scalar[FLASH_BWD_PARTS['scalar'][j]]:.4f} ms")
-            log(f"[train] (k) {n} on {route} at {what} (B={b}, S=T={s}, "
+            log(f"[{prefix}] (k) {n} on {route} at {what} (B={b}, S=T={s}, "
                 f"H={h}, K={kh}, D={d}, {str(dt)[6:]}, "
                 f"{'causal' if causal else 'non-causal'}): device time per "
                 f"call {dev[part]:.4f} ms (profiler), {events[n]:.4f} ms "
@@ -3583,7 +3606,7 @@ def flash_bwd_rows(rows, launches, f32_launches) -> None:
                 f"{own_pp * pairs / rate * 1e3:.4f} ms at that rate; "
                 f"launches {n_launch} ({run}); max_abs_err {row_err:.3e}; "
                 f"{card()}")
-            if i == 0 or dt == F32:
+            if what in row_launches:
                 rows.append(dict(
                     name=n, route="cuda", source=FLASH_BWD_SRC,
                     replaces=FLASH_BWD_REPLACES, variant=route,
@@ -3599,7 +3622,7 @@ def flash_bwd_rows(rows, launches, f32_launches) -> None:
                    + " + ".join(f"{scalar[p_]:.4f}"
                                 for p_ in FLASH_BWD_PARTS["scalar"])
                    + f"), {scalar['total'] / dev['total']:.1f}x")
-        log(f"[train] (k) the backward at {what} on {route}: three kernels "
+        log(f"[{prefix}] (k) the backward at {what} on {route}: three kernels "
             f"{dev['total']:.4f} ms device time a call "
             f"({' + '.join(f'{dev[p_]:.4f}' for p_ in parts)}), "
             f"{events['sum']:.4f} ms with launch overhead{earlier}; plain "
@@ -3618,15 +3641,23 @@ def _train_close(what, got, want, tol) -> float:
     """Trees keyed alike, each leaf within ``tol`` of its own largest
     magnitude; returns the largest such ratio."""
     assert set(got) == set(want), (what, set(got) ^ set(want))
-    worst = 0.0
+    ratios = _leaf_ratios(got, want)
+    for key, ratio in ratios.items():
+        assert ratio <= tol, (what, key, ratio)
+    return max(ratios.values(), default=0.0)
+
+
+def _leaf_ratios(got, want) -> dict:
+    """Each leaf's max |got - want| over its largest |want| (tensors or
+    numpy arrays of equal shapes)."""
+    out = {}
     for key in want:
         g = torch.as_tensor(got[key]).double().cpu()
         w = torch.as_tensor(want[key]).double().cpu()
-        assert g.shape == w.shape, (what, key)
-        ratio = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-30)
-        assert ratio <= tol, (what, key, ratio)
-        worst = max(worst, ratio)
-    return worst
+        assert g.shape == w.shape, key
+        out[key] = float((g - w).abs().max()) / max(float(w.abs().max()),
+                                                    1e-30)
+    return out
 
 
 def train_f32_grads() -> dict:
@@ -3747,7 +3778,7 @@ def train_reduced() -> None:
         inv = [k for k in p_h if k.endswith("inv_perm")]
         for k in inv:
             assert np.array_equal(p_c[k], flat[k].numpy()), (arch, k)
-        log(f"[train] check (r) reduced {arch}, 3 float32 steps (flash "
+        log(f"[train] check (r) reduced {arch}, 3 float32 steps (the "
             f"forward and backward kernels on the card), card vs CPU: loss "
             f"{m_c[-1]['loss']:.6f} vs {m_h[-1]['loss']:.6f}, grad_norm "
             f"{m_c[-1]['grad_norm']:.6f} vs {m_h[-1]['grad_norm']:.6f}; "
@@ -3803,34 +3834,65 @@ def training_run():
     """(t) the main path: qwen3-0.6b at full width and depth trained for
     TRAIN_STEPS steps through ``launch.train.build`` and
     ``TrainSupervisor``. Returns the run's kernel launches."""
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.launch import train
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    built = train.build(TRAIN_ARCH, reduced=False, batch=TRAIN_BATCH,
+                        seq=TRAIN_SEQ, steps=TRAIN_STEPS, use_flash=True)
+    cfg = built[0]
+    assert (cfg.remat, cfg.param_dtype, cfg.compute_dtype, cfg.use_flash) \
+        == ("full", "float32", "bfloat16", True)
+
+    def check(launches):
+        n = cfg.n_layers
+        assert launches.get("flash_attention_fwd.tc") == 2 * n * TRAIN_STEPS
+        assert launches.get("flash_attention_fwd") == 2 * n * TRAIN_STEPS
+        for k, c in _bwd_route_counts(FA, "tc", n * TRAIN_STEPS).items():
+            assert launches.get(k, 0) == c, (k, launches)
+        return "backward kernels on tc"
+    return supervised_training("train", "(t)", built, t0, TRAIN_BATCH,
+                               TRAIN_SEQ, TRAIN_STEPS, check, "flash_bwd",
+                               "flash")
+
+
+def supervised_training(prefix, label, built, t0, batch, seq, steps, check,
+                        share_of, note):
+    """Train ``built`` (``launch.train.build``'s tuple) for ``steps`` steps
+    of ``batch`` x ``seq`` tokens through ``TrainSupervisor``, every step
+    on the pipeline's first batch, launch counts reset just before and
+    read just after (``check(launches)`` asserts them and names the
+    route); step walls, tokens/s, peak memory, a profiled step's idle
+    share and top device operations (``share_of``: the kernels whose share
+    of device time to print); every loss finite, the first within 0.5 of
+    a random model's ln V + 1/2, the last below the first. Returns the
+    run's kernel launches."""
     import tempfile
 
     from repro_torch.kernels import _build
-    from repro_torch.kernels.flash_attention import ops as FA
     from repro_torch.launch import train
     from repro_torch.runtime.resilience import (SupervisorConfig,
                                                 TrainSupervisor)
 
     dev = torch.device("cuda")
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    cfg, model, opt, stream, step_fn = train.build(
-        TRAIN_ARCH, reduced=False, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-        steps=TRAIN_STEPS, use_flash=True)
-    assert (cfg.remat, cfg.param_dtype, cfg.compute_dtype, cfg.use_flash) \
-        == ("full", "float32", "bfloat16", True)
+    cfg, model, opt, stream, step_fn = built
+    arch = cfg.arch_id
     n_params = sum(p.numel() for p in model.parameters())
     first = train.to_device(stream.host_batch(0), dev)
     torch.cuda.synchronize()
-    log(f"[train] (t) {TRAIN_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
-        f"{cfg.n_heads}/{cfg.n_kv_heads} heads x {cfg.resolved_head_dim}, "
-        f"vocab {cfg.vocab_size}, {n_params} parameters (float32 masters, "
-        f"bf16 compute, AdamW float32), remat full, flash; global batch "
-        f"{TRAIN_BATCH} x {TRAIN_SEQ}; built in "
+    heads = (f"{cfg.n_heads}/{cfg.n_kv_heads} heads x "
+             f"{cfg.resolved_head_dim}" if cfg.n_heads else
+             f"{cfg.d_model // cfg.rwkv_head_dim} WKV heads x "
+             f"{cfg.rwkv_head_dim}")
+    log(f"[{prefix}] {label} {arch}: {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {heads}, vocab {cfg.vocab_size}, {n_params} "
+        f"parameters (float32 masters, bf16 compute, AdamW float32), "
+        f"remat {cfg.remat}, {note}; global batch {batch} x {seq}; built in "
         f"{time.perf_counter() - t0:.2f} s; every step takes the pipeline's "
         "first batch again, so that the loss on one batch must fall")
-    _mem("(t) after the build", "train")
+    _mem(f"{label} after the build", prefix)
     walls, losses = [], []
 
     def one_step(state, step):
@@ -3843,51 +3905,47 @@ def training_run():
 
     def on_metrics(step, state, dt):
         losses.append(state.metrics["loss"])
-        tokens = TRAIN_BATCH * TRAIN_SEQ
-        log(f"[train] (t) step {step}: loss {state.metrics['loss']:.5f}, "
-            f"grad_norm {state.metrics['grad_norm']:.4f}, lr "
-            f"{state.metrics['lr']:.3e}, wall {walls[-1] * 1e3:.1f} ms, "
-            f"{tokens / walls[-1]:.1f} tokens/s")
+        log(f"[{prefix}] {label} step {step}: loss "
+            f"{state.metrics['loss']:.5f}, grad_norm "
+            f"{state.metrics['grad_norm']:.4f}, lr {state.metrics['lr']:.3e}, "
+            f"wall {walls[-1] * 1e3:.1f} ms, "
+            f"{batch * seq / walls[-1]:.1f} tokens/s")
 
     with tempfile.TemporaryDirectory() as tmp:
         sup = TrainSupervisor(
-            SupervisorConfig(ckpt_dir=tmp, ckpt_every=TRAIN_STEPS + 1),
+            SupervisorConfig(ckpt_dir=tmp, ckpt_every=steps + 1),
             one_step, train.state_tree, train.load_state, device=dev)
         _build.reset_launches()
-        state = sup.run(train.TrainState(model, opt, {}), TRAIN_STEPS,
+        state = sup.run(train.TrainState(model, opt, {}), steps,
                         on_metrics=on_metrics)
         launches = dict(_build.launches)
     assert sup.failures == 0
-    _mem("(t) 8 steps", "train")
-    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
-    log(f"[train] (t) launches a step: {per_step}")
-    n = cfg.n_layers
-    assert launches.get("flash_attention_fwd.tc") == 2 * n * TRAIN_STEPS
-    assert launches.get("flash_attention_fwd") == 2 * n * TRAIN_STEPS
-    for k, c in _bwd_route_counts(FA, "tc", n * TRAIN_STEPS).items():
-        assert launches.get(k, 0) == c, (k, launches)
+    _mem(f"{label} {steps} steps", prefix)
+    per_step = {k: v / steps for k, v in launches.items()}
+    log(f"[{prefix}] {label} launches a step: {per_step}")
+    route = check(launches)
     steady = statistics.median(walls[1:])
-    log(f"[train] (t) step wall (backward kernels on tc): first "
+    log(f"[{prefix}] {label} step wall ({route}): first "
         f"{walls[0] * 1e3:.1f} ms, median of "
-        f"steps 2-{TRAIN_STEPS} {steady * 1e3:.1f} ms "
+        f"steps 2-{steps} {steady * 1e3:.1f} ms "
         f"(min {min(walls[1:]) * 1e3:.1f}, max {max(walls[1:]) * 1e3:.1f}), "
-        f"{TRAIN_BATCH * TRAIN_SEQ / steady:.1f} tokens/s; {card()}")
+        f"{batch * seq / steady:.1f} tokens/s; {card()}")
     random_loss = math.log(cfg.vocab_size) + 0.5
     assert all(math.isfinite(x) for x in losses), losses
     assert abs(losses[0] - random_loss) <= 0.5, losses[0]
     assert losses[-1] < losses[0], losses
-    log(f"[train] (t) check: every loss finite; step-1 loss {losses[0]:.4f} "
-        f"within 0.5 of a random model's ln V + 1/2 = {random_loss:.4f} "
-        f"(ln V = {math.log(cfg.vocab_size):.4f}; unit-RMS hidden states "
-        f"against N(0, 1/d) head columns give logits of variance 1); loss "
-        f"falls over the {TRAIN_STEPS} steps on one batch: "
+    log(f"[{prefix}] {label} check: every loss finite; step-1 loss "
+        f"{losses[0]:.4f} within 0.5 of a random model's ln V + 1/2 = "
+        f"{random_loss:.4f} (ln V = {math.log(cfg.vocab_size):.4f}; "
+        f"unit-RMS hidden states against N(0, 1/d) head columns give logits "
+        f"of variance 1); loss falls over the {steps} steps on one batch: "
         + " -> ".join(f"{x:.4f}" for x in losses))
     _profile_idle("one training step (forward, remat recompute, backward, "
                   "AdamW)", lambda: step_fn(state.model, state.opt_state,
-                                           first), steady, "train",
-                  share_of="flash_bwd")
-    _mem("(t) after the profiled step", "train")
-    del state, model, opt, first, sup
+                                           first), steady, prefix,
+                  share_of=share_of)
+    _mem(f"{label} after the profiled step", prefix)
+    del state, model, opt, first, sup, built
     torch.cuda.empty_cache()
     return launches
 
@@ -3900,8 +3958,565 @@ def training(rows) -> None:
     f32_launches = train_f32_grads()
     train_reduced()
     launches = training_run()
-    flash_bwd_rows(rows, launches, f32_launches)
+    flash_bwd_rows(rows, FLASH_BWD_SHAPES,
+                   {"qwen3-0.6b training": ("main path", launches),
+                    "float32": ("check (f)", f32_launches)})
     log(f"[train] phase wall {time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------------------------------------- #
+# phase 18: RWKV6 and zamba2 training, the WKV and SSD backward kernels
+# --------------------------------------------------------------------------- #
+
+SSM_BATCH, SSM_SEQ, SSM_STEPS = 4, 4096, 8         # (t2) and (t3)
+ZAMBA_TRAIN_LAYERS = 24     # (t3): of 81, four applications of the shared block
+SSM_F32 = (("rwkv6-3b", 4), ("zamba2-7b", 6))      # check (f2): layers
+SSM_F32_SEQ = 1024
+# each gradient of a backward kernel within SSM_GRAD_REL of its largest
+# magnitude: the plain version is the same float32 recurrence, its sums in
+# another order (the forwards' mark, 1e-5 of y's largest)
+SSM_GRAD_REL = 1e-5
+WKV_BWD = ("rwkv6_wkv_bwd", "rwkv6_wkv_bwd_sum")
+SSD_BWD = ("mamba2_ssd_bwd", "mamba2_ssd_bwd_sum")
+WKV_BWD_PARTS = ("wkv_bwd_kernel", "wkv_bwd_sum_kernel")
+SSD_BWD_PARTS = ("ssd_bwd_kernel", "ssd_bwd_sum_kernel")
+WKV_BWD_SRC = "src/repro_torch/csrc/rwkv6_wkv_bwd.cu"
+SSD_BWD_SRC = "src/repro_torch/csrc/mamba2_ssd_bwd.cu"
+# no Pallas kernel: the reference differentiates these scans with XLA
+WKV_BWD_REPLACES = "src/repro/models/rwkv.py:94"
+SSD_BWD_REPLACES = "src/repro/models/ssm.py:82"
+# (B, S, H, hd, decay, s0 scale) of (k2) on the WKV backward: S = 1, 63,
+# 64, 65 and 4096 (marks every 16 steps, ragged last chunks), every hd, w =
+# 0 every third step, w within 1e-6 of 1, s0 zero, B * H = 1 and 2 blocks
+# (under one wave) and rwkv6-3b's 160
+WKV_BWD_EDGES = [
+    (2, 1, 3, 64, "model", 0.5),
+    (2, 63, 3, 64, "model", 0.5),
+    (2, 64, 3, 64, "zero", 0.0),
+    (2, 65, 3, 64, "near1", 0.5),
+    (1, 4096, 2, 64, "model", 0.5),
+    (2, 40, 3, 16, "model", 0.5),
+    (2, 40, 3, 32, "zero", 0.5),
+    (1, 65, 2, 128, "model", 0.0),
+    (1, 17, 1, 64, "model", 0.5),
+    (4, 130, 40, 64, "model", 0.5),
+]
+# (B, S, H, hd, N, dt, s0, strided) of (k2) on the SSD backward: S = 1, 63,
+# 64, 65 and 4096, dt tiny and huge, s0 zero, the model's strided views,
+# B * H = 1 (under one wave) and zamba2-7b's 112 heads; then every
+# compiled (hd, N) at S = 40
+SSD_BWD_EDGES = [
+    (2, 1, 3, 64, 64, "model", "random", False),
+    (2, 63, 3, 64, 64, "model", "random", False),
+    (2, 64, 3, 64, 64, "model", "zero", False),
+    (2, 65, 3, 64, 64, "huge", "random", True),
+    (1, 4096, 2, 64, 64, "model", "random", False),
+    (1, 17, 1, 64, 32, "tiny", "zero", False),
+    (4, 130, 112, 64, 64, "model", "random", True),
+] + [(1, 40, 2, hd, n, "model", "random", False)
+     for hd in (16, 32, 64, 128) for n in (16, 32, 64, 128)]
+# (k2)'s long cases against a float64 plain backward (there the float32
+# recurrences drift about 1e-5 from it, so neither float32 side is the
+# reference)
+WKV_BWD_LONG = (1, 4096, 2, 64, "near1", 0.5)
+SSD_BWD_LONG = (1, 4096, 2, 64, 64, "tiny", "random", False)
+# (k2)'s planted faults, at S = 65
+WKV_BWD_FAULT_CASE = (2, 65, 3, 64, "model", 0.5)
+SSD_BWD_FAULT_CASE = (2, 65, 3, 64, 64, "model", "random", False)
+# the flash backward at zamba2-7b's shared block: D = 112 on the tc route
+ZAMBA_FLASH_BWD = ("zamba2-7b training", SSM_BATCH, SSM_SEQ, 32, 32, 112,
+                   BF16, True)
+
+
+def _with_cotangents(args, gen):
+    """``args`` of a forward (its y first, its s0 last) and random dy and
+    dS_final."""
+    dy = torch.randn(args[0].shape, generator=gen, device="cuda")
+    ds = torch.randn(args[-1].shape, generator=gen, device="cuda")
+    return tuple(args) + (dy, ds)
+
+
+def _grads_err(got, want, what) -> tuple:
+    """Each gradient within SSM_GRAD_REL of its own largest magnitude, and
+    contiguous; returns the largest abs difference and the largest
+    share of a gradient's largest magnitude."""
+    errs, rels = [0.0], [0.0]
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.shape == w.shape and g.is_contiguous(), (what, i)
+        assert bool(torch.isfinite(g).all()), (what, i)
+        if not g.numel():
+            continue
+        errs.append(float((g.double() - w.double()).abs().max()))
+        rels.append(errs[-1] / max(float(w.abs().max()), 1e-30))
+        assert rels[-1] <= SSM_GRAD_REL, (what, i, rels[-1])
+    return max(errs), max(rels)
+
+
+def _wkv_bwd_fault(args, fault):
+    """``wkv_bwd_plain``'s reverse recurrence, every state kept, with one
+    planted fault: ``"step dropped"`` (the reverse step at S/2 skipped) or
+    ``"no decay"`` (G <- G + r dyᵀ, without diag(w)); None for none."""
+    r, k, v, w, u, s0, dy, ds = args
+    s = r.shape[1]
+    states = [s0]
+    for t in range(s - 1):
+        states.append(w[:, t, :, :, None] * states[-1]
+                      + k[:, t, :, :, None] * v[:, t, :, None, :])
+    g = ds.clone()
+    dr, dk, dv, dw = (torch.zeros_like(r) for _ in range(4))
+    du = torch.zeros_like(u)
+    for t in reversed(range(s)):
+        if fault == "step dropped" and t == s // 2:
+            continue
+        sp = states[t]
+        rt, kt, vt, wt, dyt = (x[:, t] for x in (r, k, v, w, dy))
+        vdy = (vt * dyt).sum(-1, keepdim=True)
+        dr[:, t] = u * kt * vdy + torch.einsum("bhij,bhj->bhi", sp, dyt)
+        dk[:, t] = u * rt * vdy + torch.einsum("bhij,bhj->bhi", g, vt)
+        dv[:, t] = ((u * rt * kt).sum(-1, keepdim=True) * dyt
+                    + torch.einsum("bhij,bhi->bhj", g, kt))
+        dw[:, t] = (g * sp).sum(-1)
+        du += (rt * kt * vdy).sum(0)
+        decay = 1.0 if fault == "no decay" else wt[..., None]
+        g = decay * g + rt[..., None] * dyt[:, :, None, :]
+    return dr, dk, dv, dw, du, g
+
+
+def _ssd_bwd_fault(args, fault):
+    """``ssd_bwd_plain``'s reverse recurrence, every state kept, with one
+    planted fault: ``"step dropped"`` or ``"no decay"`` (G not multiplied
+    by e^{dt a}); None for none."""
+    x, b, c, dt, a, d, s0, dy, ds = args
+    s = x.shape[1]
+    alpha = torch.exp(dt * a)
+
+    def step(st, t):
+        return (alpha[:, t, :, None, None] * st + b[:, t, None, :, None]
+                * (dt[:, t, :, None] * x[:, t])[:, :, None, :])
+    states = [s0]
+    for t in range(s - 1):
+        states.append(step(states[-1], t))
+    g = ds.clone()
+    dx, ddt = torch.zeros_like(x), torch.zeros_like(dt)
+    db, dc = torch.zeros_like(b), torch.zeros_like(c)
+    da, dd = torch.zeros_like(a), torch.zeros_like(d)
+    for t in reversed(range(s)):
+        if fault == "step dropped" and t == s // 2:
+            continue
+        sp = states[t]
+        xt, dyt, dtt, at = x[:, t], dy[:, t], dt[:, t], alpha[:, t]
+        g = g + c[:, t, None, :, None] * dyt[:, :, None, :]
+        dc[:, t] = torch.einsum("bhnp,bhp->bn", step(sp, t), dyt)
+        db[:, t] = torch.einsum("bh,bhnp,bhp->bn", dtt, g, xt)
+        gb = torch.einsum("bhnp,bn->bhp", g, b[:, t])
+        dx[:, t] = d[:, None] * dyt + dtt[..., None] * gb
+        sg = (sp * g).sum((-2, -1))
+        ddt[:, t] = (xt * gb).sum(-1) + a * at * sg
+        da += (dtt * at * sg).sum(0)
+        dd += (xt * dyt).sum((0, 2))
+        if fault != "no decay":
+            g = at[:, :, None, None] * g
+    return dx, db, dc, ddt, da, dd, g
+
+
+def ssm_bwd_edges() -> None:
+    """(k2) each backward at its edges against its plain version on the
+    card (each call on its two kernels alone, two calls bit for bit), the
+    long cases against a float64 plain backward, and five planted faults
+    that must fail the check."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.mamba2_ssd import ops as SSD
+    from repro_torch.kernels.rwkv6_wkv import ops as W
+
+    gen = torch.Generator(device="cuda").manual_seed(30)
+    ops = {"WKV": (W.wkv_bwd, W.wkv_bwd_plain, WKV_BWD, _wkv_inputs),
+           "SSD": (SSD.ssd_bwd, SSD.ssd_bwd_plain, SSD_BWD, _ssd_inputs)}
+    edges = {"WKV": WKV_BWD_EDGES, "SSD": SSD_BWD_EDGES}
+    for name, (bwd, plain, kernels, make) in ops.items():
+        worst = (0.0, 0.0)
+        for case in edges[name]:
+            args = _with_cotangents(make(case, gen), gen)
+            _build.reset_launches()
+            got = bwd(*args)
+            torch.cuda.synchronize()
+            assert dict(_build.launches) == {k: 1 for k in kernels}, \
+                (case, dict(_build.launches))
+            err = _grads_err(got, plain(*args), (name, case))
+            worst = tuple(max(p, q) for p, q in zip(worst, err))
+            again = bwd(*args)
+            assert all(torch.equal(p, q) for p, q in zip(got, again)), \
+                (name, case, "two calls differ")
+        log(f"[train-ssm] check (k2): the {name} backward kernels "
+            f"({', '.join(kernels)}) match the plain backward at "
+            f"{len(edges[name])} edges, each call on its two kernels alone: "
+            f"largest abs diff {worst[0]:.3e}, every gradient within "
+            f"{worst[1]:.3e} of its largest (limit {SSM_GRAD_REL}); two calls "
+            "give equal bits")
+    for name, case, what in (("WKV", WKV_BWD_LONG, "w within 1e-6 of 1"),
+                             ("SSD", SSD_BWD_LONG, "dt about 1e-6")):
+        bwd, plain, _, make = ops[name]
+        args = _with_cotangents(make(case, gen), gen)
+        got, own = bwd(*args), plain(*args)
+        exact = plain(*(t.double() for t in args))
+        shares = []
+        for g, p, e in zip(got, own, exact):
+            top = max(float(e.abs().max()), 1e-300)
+            k_rel = float((g.double() - e).abs().max()) / top
+            p_rel = float((p.double() - e).abs().max()) / top
+            assert k_rel <= max(2 * p_rel, SSM_GRAD_REL), (name, k_rel, p_rel)
+            shares.append((k_rel, p_rel))
+        log(f"[train-ssm] check (k2): the {name} backward over {case[1]} "
+            f"steps of {what} against a float64 plain backward: each "
+            "gradient's distance from it over its largest, kernel vs the "
+            "float32 plain version: "
+            + ", ".join(f"{k:.2e} vs {p:.2e}" for k, p in shares)
+            + " (limit: twice the plain version's, or 1e-5)")
+        del args, got, own, exact
+    wkv_args = _with_cotangents(_wkv_inputs(WKV_BWD_FAULT_CASE, gen), gen)
+    ssd_args = _with_cotangents(_ssd_inputs(SSD_BWD_FAULT_CASE, gen), gen)
+    wkv_got, ssd_got = W.wkv_bwd(*wkv_args), SSD.ssd_bwd(*ssd_args)
+    # head 0 alone: its part of db, which the second kernel adds in
+    x, b, c, dt, a, d, s0, dy, ds = ssd_args
+    head0 = SSD.ssd_bwd_plain(x[:, :, :1], b, c, dt[:, :, :1], a[:1], d[:1],
+                              s0[:, :1].contiguous(),
+                              dy[:, :, :1].contiguous(),
+                              ds[:, :1].contiguous())[1]
+    no_head0 = list(ssd_got)
+    no_head0[1] = ssd_got[1] - head0
+    faults = {
+        "WKV: one reverse step dropped": (wkv_got, _wkv_bwd_fault(
+            wkv_args, "step dropped")),
+        "WKV: dS not decayed": (wkv_got, _wkv_bwd_fault(wkv_args,
+                                                         "no decay")),
+        "SSD: one reverse step dropped": (ssd_got, _ssd_bwd_fault(
+            ssd_args, "step dropped")),
+        "SSD: dS not decayed": (ssd_got, _ssd_bwd_fault(ssd_args,
+                                                        "no decay")),
+        "SSD: one head's db part left out": (
+            no_head0, SSD.ssd_bwd_plain(*ssd_args)),
+    }
+    # the faulty recurrences without their fault pass the check
+    _grads_err(wkv_got, _wkv_bwd_fault(wkv_args, None), "WKV unfaulted")
+    _grads_err(ssd_got, _ssd_bwd_fault(ssd_args, None), "SSD unfaulted")
+    for fault, (got, want) in faults.items():
+        try:
+            _grads_err(got, want, fault)
+        except AssertionError:
+            continue
+        raise AssertionError(f"check (k2) passes a planted fault: {fault}")
+    log(f"[train-ssm] check (k2): {len(faults)} of {len(faults)} planted "
+        f"faults fail it at S = 65 ({'; '.join(faults)}); the faulty "
+        "recurrences without their fault pass")
+
+
+@contextlib.contextmanager
+def _plain_ssm_ops():
+    """``wkv`` and ``ssd`` as autograd through their plain versions, on
+    whatever device: the model's calls go through no kernel and no
+    Function."""
+    from repro_torch.kernels.mamba2_ssd import ops as SSD
+    from repro_torch.kernels.rwkv6_wkv import ops as W
+
+    wkv, ssd = W.wkv, SSD.ssd
+    W.wkv, SSD.ssd = W.wkv_plain, SSD.ssd_plain
+    try:
+        yield
+    finally:
+        W.wkv, SSD.ssd = wkv, ssd
+
+
+def ssm_f32_grads() -> dict:
+    """(f2) rwkv6-3b and zamba2-7b at full width and SSM_F32 layers,
+    float32, 1 x SSM_F32_SEQ tokens, TF32 off: the gradients with the
+    kernels (WKV or SSD forward and backward, zamba2's flash kernels)
+    against the CPU's plain versions: every leaf within 1e-4 of its
+    largest, loss and grad_norm within 1e-5. rwkv6-3b's float32 gradient
+    at full width is not determined to 1e-4: autograd through the plain
+    versions on the card and the CPU run, which differ only in the order
+    of their sums, lie 2.2e-4 to 4.1e-4 of a leaf's largest apart over
+    three seeds (``scripts/rwkv_grad_spread.py``). So rwkv6-3b runs the
+    plain versions on the card too, and with N (N') that run's distance
+    from the CPU a leaf (in grad_norm), the kernels are held within
+    max(1e-4, 2 N) (max(1e-5, 2 N')) of it, as check (f) holds flash, and
+    max(1e-4, 3 N) (max(1e-5, 3 N')) of the CPU; the loss within 1e-5.
+    Returns each kernel run's launches."""
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.models import lm, transformer
+    from repro_torch.optim import global_norm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    for arch, layers in SSM_F32:
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(configs.get(arch), n_layers=layers,
+                                  compute_dtype="float32", use_flash=True)
+        # drawn on the card (drawing them on the host took about 20 s)
+        flat = lm.init_flat(cfg, device="cuda", generator=torch.Generator(
+            device="cuda").manual_seed(12))
+        tokens = torch.from_numpy(np.random.default_rng(12).integers(
+            0, cfg.vocab_size, (1, SSM_F32_SEQ)).astype(np.int32))
+        res, walls = {}, {}
+        runs = ((("kernels", "cuda"), ("plain", "cuda"), ("cpu", "cpu"))
+                if cfg.rwkv else (("kernels", "cuda"), ("cpu", "cpu")))
+        for run, device in runs:
+            f = {k: v.to(device) for k, v in flat.items()}
+            model = lm.make_trainable(transformer.Transformer(cfg, f), cfg,
+                                      f)
+            _build.reset_launches()
+            t = time.perf_counter()
+            with (_plain_ssm_ops() if run == "plain"
+                  else contextlib.nullcontext()):
+                _, met, grads = lm.loss_and_grads(
+                    model, {"tokens": tokens.to(device)}, cfg)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            walls[run] = time.perf_counter() - t
+            res[run] = (float(met["loss"]), float(global_norm(grads)),
+                        {k: v.cpu() for k, v in grads.items()},
+                        dict(_build.launches))
+            del model, f, grads
+        ran = res["kernels"][3]
+        if cfg.rwkv:
+            want = {"rwkv6_wkv.tc": 2 * layers}         # + the remat
+            want.update({k: layers for k in WKV_BWD})
+        else:
+            apps = transformer.n_shared_apps(cfg)
+            fvar = FA.variant(F32, SSM_F32_SEQ, 1, cfg.resolved_head_dim)
+            want = {"mamba2_ssd.tc": 2 * layers,
+                    f"flash_attention_fwd.{fvar}": 2 * apps}
+            want.update({k: layers for k in SSD_BWD})
+            want.update({k: c for k, c in _bwd_route_counts(
+                FA, FA.bwd_variant(F32, SSM_F32_SEQ, 1,
+                                   cfg.resolved_head_dim), apps).items()
+                         if c})
+        assert all(ran.get(k) == c for k, c in want.items()), (want, ran)
+        (loss, gn, grads, _), (loss_h, gn_h, grads_h, _) = (res["kernels"],
+                                                           res["cpu"])
+        loss_rel = abs(loss - loss_h) / abs(loss_h)
+        gn_rel = abs(gn - gn_h) / gn_h
+        assert loss_rel <= 1e-5, loss_rel
+        if not cfg.rwkv:
+            cpu_worst = _train_close(f"(f2) {arch} kernels vs CPU", grads,
+                                     grads_h, 1e-4)
+            assert gn_rel <= 1e-5, gn_rel
+            text = "limits 1e-4 a leaf, 1e-5 loss and grad_norm"
+        else:
+            # N: how far the order of sums alone moves the gradients here
+            spread = max(_leaf_ratios(res["plain"][2], grads_h).values())
+            gn_spread = abs(res["plain"][1] - gn_h) / gn_h
+            worst = _train_close(f"(f2) {arch} kernels vs plain", grads,
+                                 res["plain"][2], max(1e-4, 2 * spread))
+            cpu_worst = _train_close(f"(f2) {arch} kernels vs CPU", grads,
+                                     grads_h, max(1e-4, 3 * spread))
+            gn_plain = abs(gn - res["plain"][1]) / res["plain"][1]
+            assert gn_plain <= max(1e-5, 2 * gn_spread), gn_plain
+            assert gn_rel <= max(1e-5, 3 * gn_spread), gn_rel
+            assert not any(k.startswith("rwkv6") for k in res["plain"][3])
+            text = (f"limits max(1e-4, 3 N) a leaf, max(1e-5, 3 N') "
+                    f"grad_norm, 1e-5 loss; against autograd through the "
+                    f"plain versions on the card: every leaf within "
+                    f"{worst:.3e} (limit max(1e-4, 2 N)), grad_norm rel "
+                    f"{gn_plain:.2e} (limit max(1e-5, 2 N')); the plain card "
+                    f"run against the CPU, the order of sums alone: N = "
+                    f"{spread:.3e} a leaf, N' = {gn_spread:.2e} grad_norm")
+        counts = ", ".join(f"{k} x{c}" for k, c in sorted(want.items()))
+        log(f"[train-ssm] check (f2) {arch} at full width, {layers} layers, "
+            f"1 x {SSM_F32_SEQ} tokens, float32, TF32 off, remat full: the "
+            f"kernels ({counts}) against the CPU's plain versions: every "
+            f"gradient leaf within {cpu_worst:.3e} of its largest, loss "
+            f"{loss:.6f} vs {loss_h:.6f} (rel {loss_rel:.2e}), grad_norm "
+            f"{gn:.6f} vs {gn_h:.6f} (rel {gn_rel:.2e}); {text}; "
+            + ", ".join(f"{run} {w:.2f} s" for run, w in walls.items())
+            + f", all {time.perf_counter() - t0:.1f} s")
+        out[arch] = ran
+        del res, flat
+        torch.cuda.empty_cache()
+    return out
+
+
+def ssm_training_runs() -> tuple:
+    """(t2) rwkv6-3b at full width and depth through ``launch.train.build``
+    and (t3) zamba2-7b at full width and ZAMBA_TRAIN_LAYERS layers (its
+    config from ``configs.get`` with ``n_layers`` replaced, built as
+    ``launch.train.build`` builds one), SSM_STEPS steps of SSM_BATCH x
+    SSM_SEQ tokens each. Returns both runs' launches."""
+    import functools
+
+    from repro_torch import configs
+    from repro_torch.data.pipeline import DataConfig, make_stream
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.launch import train
+    from repro_torch.models import lm, transformer
+    from repro_torch.optim import AdamWConfig
+
+    steps = SSM_STEPS
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    built = train.build("rwkv6-3b", reduced=False, batch=SSM_BATCH,
+                        seq=SSM_SEQ, steps=steps)
+    cfg = built[0]
+    assert (cfg.remat, cfg.param_dtype, cfg.compute_dtype) == (
+        "full", "float32", "bfloat16")
+
+    def check_rwkv(launches):
+        n = cfg.n_layers * steps
+        assert launches.get("rwkv6_wkv.tc") == 2 * n, launches
+        assert launches.get("rwkv6_wkv") == 2 * n, launches
+        for k in WKV_BWD:
+            assert launches.get(k) == n, (k, launches)
+        return "WKV forward on tc, the WKV backward kernels"
+    rwkv = supervised_training("train-ssm", "(t2)", built, t0, SSM_BATCH,
+                               SSM_SEQ, steps, check_rwkv, "wkv_bwd",
+                               "the time mix in float32")
+    del built
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    zcfg = dataclasses.replace(configs.get("zamba2-7b"),
+                               n_layers=ZAMBA_TRAIN_LAYERS, use_flash=True)
+    model, opt = lm.init_all(zcfg, device="cuda")
+    stream = make_stream(zcfg, DataConfig(seed=0, global_batch=SSM_BATCH,
+                                          seq_len=SSM_SEQ))
+    opt_cfg = AdamWConfig(total_steps=steps,
+                          warmup_steps=max(steps // 20, 5))
+    step_fn = functools.partial(lm.train_step, cfg=zcfg, opt_cfg=opt_cfg)
+    apps = transformer.n_shared_apps(zcfg)
+
+    def check_zamba(launches):
+        n = zcfg.n_layers * steps
+        assert launches.get("mamba2_ssd.tc") == 2 * n, launches
+        assert launches.get("mamba2_ssd") == 2 * n, launches
+        for k in SSD_BWD:
+            assert launches.get(k) == n, (k, launches)
+        assert launches.get("flash_attention_fwd.tc") == 2 * apps * steps
+        for k, c in _bwd_route_counts(FA, "tc", apps * steps).items():
+            assert launches.get(k, 0) == c, (k, launches)
+        return ("SSD forward on tc, the SSD backward kernels, flash forward "
+                "and backward on tc at D = 112")
+    zamba = supervised_training(
+        "train-ssm", "(t3)", (zcfg, model, opt, stream, step_fn), t0,
+        SSM_BATCH, SSM_SEQ, steps, check_zamba, "ssd_bwd",
+        f"{zcfg.n_layers} of 81 layers ({apps} applications of the shared "
+        "block), flash")
+    del model, opt
+    torch.cuda.empty_cache()
+    return rwkv, zamba
+
+
+def _wkv_bwd_cost(b, s, h, hd):
+    """Bytes (r, k, v, w, dy read and dr, dk, dv, dw written, u, s0, ds
+    read and du, ds0 written, once each) and the fewest operations the
+    function needs, a multiply-add counted as two: per state element and
+    step, the state once (w S + k v) and the reverse's five multiply-adds
+    (G, dr, dk, dv, dw), 12 in all."""
+    return (4 * (9 * b * s * h * hd + 2 * h * hd + 3 * b * h * hd * hd),
+            12 * b * s * h * hd * hd)
+
+
+def _ssd_bwd_cost(b, s, h, hd, n):
+    """Bytes (x, dy, b, c, dt read and dx, db, dc, ddt written, a, d, s0,
+    ds read and da, dd, ds0 written) and the fewest operations, a
+    multiply-add as two: per state element and step the state once (2),
+    G += c dy, dc, db's sum, sum_n G b and <S, G> (a multiply-add each)
+    and G *= alpha (1), 13 in all."""
+    return (4 * (3 * b * s * h * hd + 4 * b * s * n + 2 * b * s * h + 4 * h
+                 + 3 * b * h * n * hd),
+            13 * b * s * h * n * hd)
+
+
+def ssm_bwd_rows(rows, wkv_launches, ssd_launches) -> None:
+    """The WKV backward at (t2)'s shape and the SSD backward at (t3)'s:
+    each against its plain version, each kernel's device time per call
+    (profiler), the call with launch overhead (CUDA events), the plain
+    version's time (CUDA events: a Python loop over the steps), the
+    bounds, and the main paths' launches; a row of the kernels line per
+    kernel (no PyTorch call computes either function)."""
+    from repro_torch import configs
+    from repro_torch.kernels.mamba2_ssd import ops as SSD
+    from repro_torch.kernels.rwkv6_wkv import ops as W
+    from repro_torch.models import rwkv, ssm
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    rcfg, zcfg = configs.get("rwkv6-3b"), configs.get("zamba2-7b")
+    cases = (
+        ("WKV", "rwkv6-3b", (SSM_BATCH, SSM_SEQ, rwkv.n_heads(rcfg),
+                             rcfg.rwkv_head_dim, "model", 0.5),
+         _wkv_inputs, W.wkv_bwd, W.wkv_bwd_plain, WKV_BWD, WKV_BWD_PARTS,
+         WKV_BWD_SRC, WKV_BWD_REPLACES, wkv_launches),
+        ("SSD", "zamba2-7b", (SSM_BATCH, SSM_SEQ, ssm.dims(zcfg)["n_heads"],
+                              zcfg.ssm_head_dim, zcfg.ssm_state, "model",
+                              "random", False),
+         _ssd_inputs, SSD.ssd_bwd, SSD.ssd_bwd_plain, SSD_BWD, SSD_BWD_PARTS,
+         SSD_BWD_SRC, SSD_BWD_REPLACES, ssd_launches),
+    )
+    for (name, arch, case, make, bwd, plain, kernels, parts, src, replaces,
+         launches) in cases:
+        args = _with_cotangents(make(case, gen), gen)
+        got = bwd(*args)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        want = plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t) * 1e3
+        err, rel = _grads_err(got, want, (name, arch))
+        del got, want
+        dev = device_ms_parts(lambda: bwd(*args), parts, reps=3)
+        assert all(dev[p] > 0 for p in parts), (name, dev)
+        events = call_ms(lambda: bwd(*args), reps=3, runs=3)
+        if name == "WKV":
+            b, s, h, hd = case[:4]
+            n_bytes, n_ops = _wkv_bwd_cost(b, s, h, hd)
+            sum_bytes, sum_ops = 4 * (b * h * hd + h * hd), b * h * hd
+            shape = f"B={b}, S={s}, H={h}, hd={hd}"
+        else:
+            b, s, h, hd, n = case[:5]
+            n_bytes, n_ops = _ssd_bwd_cost(b, s, h, hd, n)
+            sum_bytes = 4 * (2 * b * s * h * n + 2 * b * s * n + 2 * b * h
+                             + 2 * h)
+            sum_ops = 2 * b * s * h * n
+            shape = f"B={b}, S={s}, H={h}, hd={hd}, N={n}"
+        for kernel, part, nb, no in zip(kernels, parts,
+                                        (n_bytes, sum_bytes),
+                                        (n_ops, sum_ops)):
+            t_bytes, t_ops = nb / HBM_BYTES_PER_S, no / SCALAR_OPS_PER_S
+            bound = max(t_bytes, t_ops)
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            log(f"[train-ssm] (k2) {kernel} at {arch}'s training shape "
+                f"({shape}): device time per call {dev[part]:.4f} ms "
+                f"(profiler); the whole backward {dev['total']:.4f} ms, "
+                f"{events:.4f} ms with launch overhead (CUDA events); plain "
+                f"backward {plain_ms:.1f} ms (host clock: a Python loop over "
+                f"{s} steps); bound {bound * 1e3:.4f} ms ({bound_by}: {no} "
+                f"operations / 67 TFLOP/s float32, {nb} B / 3.35 TB/s); "
+                f"kernel / bound {dev[part] / (bound * 1e3):.1f}; launches "
+                f"{launches.get(kernel, 0)} (main path); max_abs_err "
+                f"{err:.3e} (every gradient within {rel:.2e} of its "
+                f"largest); no PyTorch call computes it; {card()}")
+            rows.append(dict(
+                name=kernel, route="cuda", source=src, replaces=replaces,
+                launches=launches.get(kernel, 0), max_abs_err=err,
+                ms=dev[part], plain_ms=plain_ms, bound_ms=bound * 1e3,
+                bound_by=bound_by, library_ms=None))
+        del args
+        torch.cuda.empty_cache()
+
+
+def ssm_training(rows) -> None:
+    """Phase 18: (k2) at the edges, (f2), the main paths (t2) and (t3),
+    then the backward kernels timed at their shapes and the flash tc
+    backward at zamba2-7b's D = 112."""
+    t0 = time.perf_counter()
+    ssm_bwd_edges()
+    ssm_f32_grads()
+    rwkv, zamba = ssm_training_runs()
+    ssm_bwd_rows(rows, rwkv, zamba)
+    flash_bwd_rows(rows, [ZAMBA_FLASH_BWD],
+                   {ZAMBA_FLASH_BWD[0]: ("main path (t3)", zamba)},
+                   "train-ssm")
+    log(f"[train-ssm] phase wall {time.perf_counter() - t0:.1f} s")
 
 
 def tensor_core_kernels(lib) -> None:
@@ -3927,6 +4542,14 @@ def tensor_core_kernels(lib) -> None:
         assert len(found) == 8 and all(found.values()), (kernel, found)
         log(f"[build] cuobjdump -sass: {kernel} HGMMA instructions by D/16 "
             f"(1 to 8): {[found[ks] for ks in sorted(found)]}")
+
+
+def timed(label, fn, *args):
+    """``fn(*args)``, and a line with its wall time."""
+    t = time.perf_counter()
+    out = fn(*args)
+    log(f"[phase] {label}: {time.perf_counter() - t:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -3985,30 +4608,30 @@ def main() -> int:
     join_ops.hash_join_pipeline = recording_pipeline
     join_ops.expand_segment_ids = recording_segment_ids
     jac_ops.jaccard_distance = recording_jaccard
-    launches, svc, window = main_path(rec)
+    launches, svc, window = timed("2 main path", main_path, rec)
     join_ops.hash_join_pipeline = pipeline
     join_ops.expand_segment_ids = segment_ids
     jac_ops.jaccard_distance = jaccard
-    profile_window(svc, window)
+    timed("3 profile", profile_window, svc, window)
 
-    rows = kernels(rec, launches)
-    small_input()
+    rows = timed("4 kernels", kernels, rec, launches)
+    timed("5 small input", small_input)
     bitmaps = BitmapLog()
     jaccard = bitmaps.install(jac_ops)
-    paper_experiments(bitmaps)
-    watdiv_drift(bitmaps)
+    timed("6 paper", paper_experiments, bitmaps)
+    timed("7 watdiv", watdiv_drift, bitmaps)
     jac_ops.jaccard_distance = jaccard
-    hac_and_jaccard(rows, bitmaps)
+    timed("8 hac and jaccard", hac_and_jaccard, rows, bitmaps)
     del svc, window, bitmaps
     torch.cuda.empty_cache()       # the KG phases' services are gone
-    lm_launches = lm_serving()
-    flash_kernel(rows, lm_launches)
+    lm_launches = timed("9 qwen3-0.6b serving", lm_serving)
+    timed("10 flash", flash_kernel, rows, lm_launches)
     torch.cuda.empty_cache()       # the qwen3 model and caches are gone
-    rwkv_launches = rwkv_serving()
-    wkv_kernel(rows, rwkv_launches)
+    rwkv_launches = timed("11 rwkv6-3b serving", rwkv_serving)
+    timed("12 wkv", wkv_kernel, rows, rwkv_launches)
     torch.cuda.empty_cache()       # the rwkv6-3b model and states are gone
-    zamba_launches = zamba_serving()
-    ssd_kernel(rows, zamba_launches)
+    zamba_launches = timed("13 zamba2-7b serving", zamba_serving)
+    timed("14 ssd", ssd_kernel, rows, zamba_launches)
     zcfg = configs.get("zamba2-7b")
     rand = _flash_rand(torch.Generator(device="cuda").manual_seed(5))
     zshape = (zcfg.n_heads, zcfg.n_kv_heads, zcfg.resolved_head_dim)
@@ -4018,11 +4641,14 @@ def main() -> int:
                      *zshape, ZAMBA_CACHE)
     for arch, prefix, param_dtype, f32_layers in MOE_PHASES:
         torch.cuda.empty_cache()   # the earlier phases' models are gone
-        moe_launches, place_launches = moe_serving(arch, prefix, param_dtype,
-                                                   f32_layers)
+        moe_launches, place_launches = timed(
+            f"{arch} serving", moe_serving, arch, prefix, param_dtype,
+            f32_layers)
         moe_kernel_rows(rows, arch, moe_launches, place_launches)
     torch.cuda.empty_cache()       # the MoE phases' models are gone
-    training(rows)
+    timed("17 training", training, rows)
+    torch.cuda.empty_cache()       # the training phase's models are gone
+    timed("18 RWKV6 and zamba2 training", ssm_training, rows)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card())
     print(json.dumps({"kernels": rows}))

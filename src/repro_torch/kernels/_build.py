@@ -78,6 +78,16 @@ SIGNATURES = {
     "rt_flash_attention_bwd_tc_pre": (_P,) * 5 + (_I64,) * 10 + (_P,),
     "rt_flash_attention_bwd_tc_dq": (_P,) * 6 + (_I64,) * 10 + (_P,),
     "rt_flash_attention_bwd_tc_dkv": (_P,) * 7 + (_I64,) * 10 + (_P,),
+    # r, k, v, w, u, s0, dy, ds, dr, dk, dv, dw, ds0, du's parts, marks,
+    # hist, B, S, H, hd, stream; then du's parts, du, B, H * hd, stream
+    "rt_wkv_bwd": (_P,) * 16 + (_I64,) * 4 + (_P,),
+    "rt_wkv_bwd_sum": (_P, _P, _I64, _I64, _P),
+    # x, b, c, dt, a, d, s0, dy, ds, dx, ddt, ds0, db's and dc's parts, da's
+    # and dd's parts, marks, hist, B, S, H, hd, N, strides of x, b, c and
+    # dt over batch and time, stream; then the parts, db, dc, da, dd, B,
+    # S, H, N, stream
+    "rt_ssd_bwd": (_P,) * 17 + (_I64,) * 13 + (_P,),
+    "rt_ssd_bwd_sum": (_P,) * 7 + (_I64,) * 4 + (_P,),
 }
 
 # kernel name -> launches since the last reset_launches()

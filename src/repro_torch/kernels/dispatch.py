@@ -70,14 +70,3 @@ def note_tier(op: str, tier: str, reason: str = "") -> None:
     if reason:
         m.counter(f"kernels.dispatch.{op}.{tier}.{reason}").inc()
 
-
-def refuse_grad(op: str, missing: str, *tensors: torch.Tensor) -> None:
-    """Raise ``NotImplementedError`` when a CUDA call of ``op``, whose
-    backward kernel (``missing``) does not exist yet, needs a gradient:
-    grad is enabled and one of ``tensors`` requires it. The kernel's
-    output would otherwise carry no ``grad_fn`` and cut the graph."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise NotImplementedError(
-            f"{op} on a CUDA tensor has no backward: {missing} is not "
-            "written yet (ROADMAP item 8); call it under torch.no_grad(), "
-            "or on CPU tensors, whose plain version autograd differentiates")

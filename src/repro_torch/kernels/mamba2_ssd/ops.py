@@ -37,11 +37,14 @@ are free, so the model passes its views of the conv output without a copy.
 the final state is written there (it may be ``s0`` itself: a decode step
 updates its cache in place) and returned.
 
-No backward kernel yet (ROADMAP item 8): a CUDA call that needs a
-gradient (grad enabled and an input that requires it) raises
-``NotImplementedError``, so the card's path never returns a tensor cut
-from the autograd graph. A CPU call runs the plain version, which autograd
-differentiates.
+The gradient: a call that needs one (grad enabled and an input that
+requires it) goes through ``_SSD``, an autograd Function whose forward is
+the forward above and whose backward is :func:`ssd_bwd`: on a CUDA tensor
+the two kernels of ``repro_torch/csrc/mamba2_ssd_bwd.cu`` (the reverse
+sweep, then the sums over heads and over the batch), on a CPU tensor
+:func:`ssd_bwd_plain`. The reference has no backward kernel: XLA
+differentiates its chunked form. Such a call takes no ``state_out`` (the
+in-place decode step runs without a graph).
 """
 from __future__ import annotations
 
@@ -55,6 +58,8 @@ SIZES = (16, 32, 64, 128)    # the kernels' compiled state sizes and head dims
 TC_CHUNK = 64                # steps per chunk of the tc kernel
 TC_GRAM = 36 * 64            # G's 8x8 blocks on and under its diagonal
 _ENTRIES = {"tc": "rt_ssd_tc", "rec": "rt_ssd_fwd"}
+BWD_CHUNK = 16               # steps between the backward's checkpoints
+BWD_KERNELS = ("mamba2_ssd_bwd", "mamba2_ssd_bwd_sum")
 
 
 def _check(x, b, c, dt, a, d, s0, state_out) -> None:
@@ -152,8 +157,36 @@ def ssd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dt: torch.Tensor,
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, H, hd), b/c (B, S, N), dt (B, S, H), a/d (H,), s0 (B, H, N,
     hd), float32 -> (y (B, S, H, hd), final state (B, H, N, hd)). Replaces
-    ``ssd_pallas``."""
+    ``ssd_pallas``; differentiable (through ``_SSD``) when grad is enabled
+    and an input requires it."""
     _check(x, b, c, dt, a, d, s0, state_out)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, b, c, dt, a, d, s0)):
+        if state_out is not None:
+            raise ValueError("state_out is the in-place decode form; a call "
+                             "that needs a gradient returns its state")
+        return _SSD.apply(x, b, c, dt, a, d, s0)
+    return _forward(x, b, c, dt, a, d, s0, state_out)
+
+
+class _SSD(torch.autograd.Function):
+    """The forward saves its inputs; the backward is :func:`ssd_bwd`, with
+    the gradients of y and of the final state."""
+
+    @staticmethod
+    def forward(ctx, x, b, c, dt, a, d, s0):
+        ctx.save_for_backward(x, b, c, dt, a, d, s0)
+        return _forward(x, b, c, dt, a, d, s0, None)
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        return ssd_bwd(*ctx.saved_tensors, dy.contiguous(), ds.contiguous())
+
+
+def _forward(x, b, c, dt, a, d, s0, state_out
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward of a checked call: a kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
     tier = dispatch.tier(x)
     dispatch.note_tier("mamba2_ssd", tier)
     if tier == "torch":
@@ -161,12 +194,132 @@ def ssd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, dt: torch.Tensor,
         if state_out is not None:
             state = state_out.copy_(state)
         return y, state
-    dispatch.refuse_grad("ssd", "the SSD backward kernel", x, b, c, dt, a,
-                         d, s0)
-    hd, n = x.shape[3], b.shape[-1]
+    _check_cuda(x.shape[3], b.shape[-1])
+    s_out = torch.empty_like(s0) if state_out is None else state_out
+    y = _run(variant(x.shape[1], x.shape[3], b.shape[-1]), x, b, c, dt, a,
+             d, s0, s_out)
+    return y, s_out
+
+
+def _check_cuda(hd: int, n: int) -> None:
     if hd not in SIZES or n not in SIZES:
         raise ValueError(f"head_dim {hd}, state {n}: the CUDA kernels are "
                          f"compiled for head_dim and state in {SIZES}")
-    s_out = torch.empty_like(s0) if state_out is None else state_out
-    y = _run(variant(x.shape[1], hd, n), x, b, c, dt, a, d, s0, s_out)
-    return y, s_out
+
+
+# --------------------------------------------------------------------------- #
+# backward
+# --------------------------------------------------------------------------- #
+
+def ssd_bwd_plain(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+                  dt: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+                  s0: torch.Tensor, dy: torch.Tensor, ds: torch.Tensor):
+    """The reverse recurrence in torch ops, one step at a time over all
+    heads at once, at any size and float dtype. A forward sweep keeps the
+    state before every ``BWD_CHUNK`` steps; each chunk, last first,
+    recomputes its states from there and runs backwards, with G the
+    gradient of the state after step t (``ds`` after the last) and
+    ``α_t = e^{dt_t a}``:
+
+    * ``G += c_t dy_tᵀ``; ``dc_t = S_t dy_t`` (summed over heads);
+    * ``db_t = Σ_h dt_t G x_t``; ``dx_t = d dy_t + dt_t Gᵀ b_t``;
+    * ``ddt_t = x_t·(Gᵀ b_t) + a α_t ⟨S_{t-1}, G⟩``;
+    * ``da = Σ_{b,t} dt_t α_t ⟨S_{t-1}, G⟩``, ``dd = Σ_{b,t} x_t·dy_t``;
+    * then ``G <- α_t G``, and ``ds0`` is the last G.
+
+    -> (dx, db, dc, ddt, da, dd, ds0), each contiguous in its input's
+    shape."""
+    s = x.shape[1]
+
+    def step(state, t):
+        return (torch.exp(dt[:, t] * a)[:, :, None, None] * state
+                + b[:, t, None, :, None]
+                * (dt[:, t, :, None] * x[:, t])[:, :, None, :])
+    marks, state = [], s0
+    for t in range(s):
+        if t % BWD_CHUNK == 0:
+            marks.append(state)
+        state = step(state, t)
+    g = ds.clone()
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    db, dc = (torch.empty(b.shape, dtype=b.dtype, device=b.device)
+              for _ in range(2))
+    ddt = torch.empty(dt.shape, dtype=dt.dtype, device=dt.device)
+    da, dd = torch.zeros_like(a), torch.zeros_like(d)
+    for ci in reversed(range(len(marks))):
+        lo, hi = ci * BWD_CHUNK, min((ci + 1) * BWD_CHUNK, s)
+        before = [marks[ci]]
+        for t in range(lo, hi - 1):
+            before.append(step(before[-1], t))
+        for t in reversed(range(lo, hi)):
+            sp = before[t - lo]
+            xt, dyt, dtt = x[:, t], dy[:, t], dt[:, t]
+            alpha = torch.exp(dtt * a)                          # (B, H)
+            g = g + c[:, t, None, :, None] * dyt[:, :, None, :]
+            dc[:, t] = torch.einsum("bhnp,bhp->bn", step(sp, t), dyt)
+            db[:, t] = torch.einsum("bh,bhnp,bhp->bn", dtt, g, xt)
+            gb = torch.einsum("bhnp,bn->bhp", g, b[:, t])       # (B, H, hd)
+            dx[:, t] = d[:, None] * dyt + dtt[..., None] * gb
+            sg = (sp * g).sum((-2, -1))                         # (B, H)
+            ddt[:, t] = (xt * gb).sum(-1) + a * alpha * sg
+            da += (dtt * alpha * sg).sum(0)
+            dd += (xt * dyt).sum((0, 2))
+            g = alpha[:, :, None, None] * g
+    return dx, db, dc, ddt, da, dd, g
+
+
+def ssd_bwd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+            dt: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
+            s0: torch.Tensor, dy: torch.Tensor, ds: torch.Tensor):
+    """(dx, db, dc, ddt, da, dd, ds0) of :func:`ssd` at (x, b, c, dt, a, d,
+    s0), from the gradients of y (``dy``, (B, S, H, hd)) and of the final
+    state (``ds``, (B, H, N, hd)), float32, each contiguous. x, b, c and dt
+    may be the strided views :func:`ssd` takes. On a CUDA tensor two
+    kernels run: the reverse sweep (:data:`BWD_KERNELS` [0]: dx, ddt and
+    ds0, and each head's part of db and dc and each (b, h)'s of da and dd)
+    and the sums of those parts; on a CPU tensor, :func:`ssd_bwd_plain`."""
+    _check(x, b, c, dt, a, d, s0, None)
+    for name, t, want in (("dy", dy, x.shape), ("ds", ds, s0.shape)):
+        if (t.shape != want or t.dtype != torch.float32
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"{name}: expected a contiguous float32 tensor "
+                             f"of shape {tuple(want)} on {x.device}; got "
+                             f"{tuple(t.shape)}, {t.dtype}, {t.device}")
+    tier = dispatch.tier(x)
+    dispatch.note_tier("mamba2_ssd.bwd", tier)
+    if tier == "torch":
+        return ssd_bwd_plain(x, b, c, dt, a, d, s0, dy, ds)
+    bb, s, h, hd = x.shape
+    n = b.shape[-1]
+    _check_cuda(hd, n)
+    dev = x.device
+    dx = torch.empty((bb, s, h, hd), dtype=torch.float32, device=dev)
+    db, dc = (torch.zeros((bb, s, n), dtype=torch.float32, device=dev)
+              for _ in range(2))
+    ddt = torch.empty((bb, s, h), dtype=torch.float32, device=dev)
+    da, dd = torch.zeros_like(a), torch.zeros_like(d)
+    ds0 = torch.empty_like(s0)
+    if not (bb and h):
+        return dx, db, dc, ddt, da, dd, ds0
+    # db's and dc's part of each head, (B, S, H, N); da's and dd's of each
+    # (b, h)
+    db_part, dc_part = (torch.empty((bb, s, h, n), dtype=torch.float32,
+                                    device=dev) for _ in range(2))
+    scal_part = torch.empty((2, bb, h), dtype=torch.float32, device=dev)
+    chunks = -(-s // BWD_CHUNK)
+    marks = torch.empty(bb * h * max(chunks, 1) * n * hd,
+                        dtype=torch.float32, device=dev)
+    hist = torch.empty(bb * h * BWD_CHUNK * n * hd, dtype=torch.float32,
+                       device=dev)
+    scan, total = BWD_KERNELS
+    _build.launch(scan, "rt_ssd_bwd", dev,
+                  *(t.data_ptr() for t in (x, b, c, dt, a, d, s0, dy, ds)),
+                  *(t.data_ptr() for t in (dx, ddt, ds0, db_part, dc_part,
+                                           scal_part, marks, hist)),
+                  bb, s, h, hd, n, x.stride(0), x.stride(1), b.stride(0),
+                  b.stride(1), c.stride(0), c.stride(1), dt.stride(0),
+                  dt.stride(1))
+    _build.launch(total, "rt_ssd_bwd_sum", dev, db_part.data_ptr(),
+                  dc_part.data_ptr(), scal_part.data_ptr(), db.data_ptr(),
+                  dc.data_ptr(), da.data_ptr(), dd.data_ptr(), bb, s, h, n)
+    return dx, db, dc, ddt, da, dd, ds0

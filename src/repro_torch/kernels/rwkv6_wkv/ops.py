@@ -34,11 +34,13 @@ any S in its range, ragged S included, and ``w = 0`` exactly. The
 kernels are compiled for the head sizes in :data:`HEAD_DIMS`; a CUDA call
 at another size raises, a CPU call computes it.
 
-No backward kernel yet (ROADMAP item 8): a CUDA call that needs a
-gradient (grad enabled and an input that requires it) raises
-``NotImplementedError``, so the card's path never returns a tensor cut
-from the autograd graph. A CPU call runs the plain version, which autograd
-differentiates.
+The gradient: a call that needs one (grad enabled and an input that
+requires it) goes through ``_WKV``, an autograd Function whose forward is
+the forward above and whose backward is :func:`wkv_bwd`: on a CUDA tensor
+the two kernels of ``repro_torch/csrc/rwkv6_wkv_bwd.cu`` (the reverse
+sweep, then the sum of ``du`` over the batch), on a CPU tensor
+:func:`wkv_bwd_plain`. The reference has no backward kernel: XLA
+differentiates its scan.
 """
 from __future__ import annotations
 
@@ -53,6 +55,8 @@ MIN_TILE = 8                    # state columns of the rec kernel's blocks
 TC_CHUNK = 64                   # steps per chunk of the tc kernel
 DEC_COLS = 16                   # state columns of one warp of the dec kernel
 DEC_MAX_WARPS = 8               # warps of a dec block, at most
+BWD_CHUNK = 16                  # steps between the backward's checkpoints
+BWD_KERNELS = ("rwkv6_wkv_bwd", "rwkv6_wkv_bwd_sum")
 
 
 def _check(r, k, v, w, u, s0) -> None:
@@ -161,18 +165,38 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """r/k/v/w (B, S, H, hd), u (H, hd), s0 (B, H, hd, hd), float32 ->
     (y (B, S, H, hd), final state (B, H, hd, hd)). Replaces
-    ``wkv_pallas``."""
+    ``wkv_pallas``; differentiable (through ``_WKV``) when grad is enabled
+    and an input requires it."""
     _check(r, k, v, w, u, s0)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r, k, v, w, u, s0)):
+        return _WKV.apply(r, k, v, w, u, s0)
+    return _forward(r, k, v, w, u, s0)
+
+
+class _WKV(torch.autograd.Function):
+    """The forward saves its inputs; the backward is :func:`wkv_bwd`, with
+    the gradients of y and of the final state."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        return _forward(r, k, v, w, u, s0)
+
+    @staticmethod
+    def backward(ctx, dy, ds):
+        return wkv_bwd(*ctx.saved_tensors, dy.contiguous(), ds.contiguous())
+
+
+def _forward(r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward of a checked call: a kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
     t = dispatch.tier(r)
     dispatch.note_tier("wkv", t)
     if t == "torch":
         return wkv_plain(r, k, v, w, u, s0)
-    dispatch.refuse_grad("wkv", "the WKV backward kernel", r, k, v, w, u,
-                         s0)
     b, s, h, hd = r.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"head_dim {hd}: the CUDA kernels are compiled for "
-                         f"head_dim in {HEAD_DIMS}")
+    _check_cuda(hd)
     var = variant(s, hd)
     # rec and tc read s0 in 4-byte words; dec reads it in 16-byte groups
     aligned = (("r", r), ("k", k), ("v", v), ("w", w), ("u", u))
@@ -181,3 +205,106 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
             raise ValueError(f"{name}: the kernel reads 16-byte groups; the "
                              "tensor's storage is not 16-byte aligned")
     return _run(var, r, k, v, w, u, s0)
+
+
+def _check_cuda(hd: int) -> None:
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head_dim {hd}: the CUDA kernels are compiled for "
+                         f"head_dim in {HEAD_DIMS}")
+
+
+# --------------------------------------------------------------------------- #
+# backward
+# --------------------------------------------------------------------------- #
+
+def wkv_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+                  dy: torch.Tensor, ds: torch.Tensor):
+    """The reverse recurrence in torch ops, one step at a time, at any head
+    size and float dtype. A forward sweep keeps the state before every
+    ``BWD_CHUNK`` steps; each chunk, last first, recomputes its states from
+    there and runs backwards, with G the gradient of the state after step
+    t (``ds`` after the last):
+
+    * ``dr_t = u∘k_t (v_t·dy_t) + S_{t-1} dy_t``;
+    * ``dk_t = u∘r_t (v_t·dy_t) + G v_t``;
+    * ``dv_t = (Σ_i u_i r_t[i] k_t[i]) dy_t + Gᵀ k_t``;
+    * ``dw_t[i] = Σ_j G[i, j] S_{t-1}[i, j]``;
+    * ``du = Σ_{b, t} r_t∘k_t (v_t·dy_t)``;
+    * then ``G <- diag(w_t) G + r_t dy_tᵀ``, and ``ds0`` is the last G.
+
+    -> (dr, dk, dv, dw, du, ds0)."""
+    s = r.shape[1]
+
+    def step(st, t):
+        return (w[:, t, :, :, None] * st
+                + k[:, t, :, :, None] * v[:, t, :, None, :])
+    marks, state = [], s0
+    for t in range(s):
+        if t % BWD_CHUNK == 0:
+            marks.append(state)
+        state = step(state, t)
+    g = ds.clone()
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du = torch.zeros_like(u)
+    for c in reversed(range(len(marks))):
+        lo, hi = c * BWD_CHUNK, min((c + 1) * BWD_CHUNK, s)
+        before = [marks[c]]
+        for t in range(lo, hi - 1):
+            before.append(step(before[-1], t))
+        for t in reversed(range(lo, hi)):
+            sp = before[t - lo]
+            rt, kt, vt, wt, dyt = (x[:, t] for x in (r, k, v, w, dy))
+            vdy = (vt * dyt).sum(-1, keepdim=True)          # (B, H, 1)
+            dr[:, t] = u * kt * vdy + torch.einsum("bhij,bhj->bhi", sp, dyt)
+            dk[:, t] = u * rt * vdy + torch.einsum("bhij,bhj->bhi", g, vt)
+            dv[:, t] = ((u * rt * kt).sum(-1, keepdim=True) * dyt
+                        + torch.einsum("bhij,bhi->bhj", g, kt))
+            dw[:, t] = (g * sp).sum(-1)
+            du += (rt * kt * vdy).sum(0)
+            g = wt[..., None] * g + rt[..., None] * dyt[:, :, None, :]
+    return dr, dk, dv, dw, du, g
+
+
+def wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
+            dy: torch.Tensor, ds: torch.Tensor):
+    """(dr, dk, dv, dw, du, ds0) of :func:`wkv` at (r, k, v, w, u, s0), from
+    the gradients of y (``dy``, (B, S, H, hd)) and of the final state
+    (``ds``, (B, H, hd, hd)), float32. On a CUDA tensor two kernels run:
+    the reverse sweep (:data:`BWD_KERNELS` [0]: every gradient but du, and
+    du's part of each (b, h)) and the sum of those parts over b; on a CPU
+    tensor, :func:`wkv_bwd_plain`."""
+    _check(r, k, v, w, u, s0)
+    for name, x, want in (("dy", dy, r.shape), ("ds", ds, s0.shape)):
+        if (x.shape != want or x.dtype != torch.float32
+                or x.device != r.device or not x.is_contiguous()):
+            raise ValueError(f"{name}: expected a contiguous float32 tensor "
+                             f"of shape {tuple(want)} on {r.device}; got "
+                             f"{tuple(x.shape)}, {x.dtype}, {x.device}")
+    t = dispatch.tier(r)
+    dispatch.note_tier("wkv.bwd", t)
+    if t == "torch":
+        return wkv_bwd_plain(r, k, v, w, u, s0, dy, ds)
+    b, s, h, hd = r.shape
+    _check_cuda(hd)
+    grads = tuple(torch.empty_like(r) for _ in range(4))
+    du = torch.zeros_like(u)
+    ds0 = torch.empty_like(s0)
+    if not (b and h):
+        return (*grads, du, ds0)
+    du_part = torch.empty((b, h, hd), dtype=torch.float32, device=r.device)
+    chunks = -(-s // BWD_CHUNK)
+    marks = torch.empty(b * h * max(chunks, 1) * hd * hd, dtype=torch.float32,
+                        device=r.device)
+    hist = torch.empty(b * h * BWD_CHUNK * hd * hd, dtype=torch.float32,
+                       device=r.device)
+    scan, total = BWD_KERNELS
+    _build.launch(scan, "rt_wkv_bwd", r.device,
+                  *(x.data_ptr() for x in (r, k, v, w, u, s0, dy, ds)),
+                  *(x.data_ptr() for x in grads), ds0.data_ptr(),
+                  du_part.data_ptr(), marks.data_ptr(), hist.data_ptr(),
+                  b, s, h, hd)
+    _build.launch(total, "rt_wkv_bwd_sum", r.device, du_part.data_ptr(),
+                  du.data_ptr(), b, h * hd)
+    return (*grads, du, ds0)

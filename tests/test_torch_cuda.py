@@ -1329,32 +1329,196 @@ def test_flash_autograd_on_card_runs_the_backward_kernels(dev):
     _bwd_close((q.grad, k.grad, v.grad), want)
 
 
-def test_wkv_and_ssd_refuse_a_call_that_needs_a_gradient(dev):
-    """No backward kernel yet: a CUDA call with grad enabled and an input
-    that requires it raises, rather than return a tensor cut from the
-    graph; under no_grad it runs."""
-    g = torch.Generator(device=dev).manual_seed(3)
-    b, s, h, hd = 1, 8, 2, 16
-    r, k, vv = (torch.randn((b, s, h, hd), generator=g, device=dev)
-                for _ in range(3))
-    w = torch.rand((b, s, h, hd), generator=g, device=dev)
-    u = torch.randn((h, hd), generator=g, device=dev)
-    s0 = torch.zeros((b, h, hd, hd), device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        W.wkv(r.clone().requires_grad_(), k, vv, w, u, s0)
-    with torch.no_grad():
-        W.wkv(r.clone().requires_grad_(), k, vv, w, u, s0)
-    n = 16
-    x = torch.randn((b, s, h, hd), generator=g, device=dev)
-    bm, cm = (torch.randn((b, s, n), generator=g, device=dev)
-              for _ in range(2))
-    dt = torch.rand((b, s, h), generator=g, device=dev)
-    a, d = -torch.rand(h, device=dev), torch.ones(h, device=dev)
-    st = torch.zeros((b, h, n, hd), device=dev)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-        SSD.ssd(x, bm, cm, dt, a.clone().requires_grad_(), d, st)
-    with torch.no_grad():
-        SSD.ssd(x, bm, cm, dt, a.clone().requires_grad_(), d, st)
+# (B, S, H, hd, w, s0 scale) of the WKV backward: S = 1, 63, 64, 65 and
+# 4096 (the marks every 16 steps, a ragged last chunk), every hd, w = 0
+# every third step, w within 1e-6 of 1, s0 zero, B * H = 1 and 3 blocks
+# (under one wave) and rwkv6-3b's 160
+WKV_BWD_CASES = [
+    (2, 1, 3, 64, "model", 0.5),
+    (2, 63, 3, 64, "model", 0.5),
+    (2, 64, 3, 64, "model", 0.0),
+    (2, 65, 3, 64, "zero", 0.5),
+    (1, 4096, 2, 64, "model", 0.5),
+    (2, 40, 3, 16, "model", 0.5),
+    (2, 40, 3, 32, "near1", 0.5),
+    (1, 33, 2, 128, "model", 0.5),
+    (1, 17, 1, 64, "zero", 0.0),
+    (4, 100, 40, 64, "model", 0.5),
+]
+WKV_BWD = ("rwkv6_wkv_bwd", "rwkv6_wkv_bwd_sum")
+SSD_BWD = ("mamba2_ssd_bwd", "mamba2_ssd_bwd_sum")
+
+
+def _grads_close(got, want):
+    """Each gradient within 1e-5 of its own largest magnitude: the same
+    float32 recurrence as the plain version, its sums in another order."""
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.is_contiguous()
+        assert bool(torch.isfinite(g).all())
+        err = float((g - w).abs().max()) if g.numel() else 0.0
+        top = float(w.abs().max()) if w.numel() else 0.0
+        assert err <= 1e-5 * top, (err, top)
+
+
+def _bwd_launched(names, n=1):
+    """``n`` launches of each backward kernel in ``names`` and no others."""
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {k: n for k in names}, \
+        dict(_build.launches)
+
+
+def _wkv_bwd_inputs(case, dev):
+    args = _wkv_inputs(case, dev)
+    g = torch.Generator(device=dev).manual_seed(7 + sum(case[:4]))
+    dy = torch.randn(args[0].shape, generator=g, device=dev)
+    ds = torch.randn(args[5].shape, generator=g, device=dev)
+    return args + (dy, ds)
+
+
+@pytest.mark.parametrize("case", WKV_BWD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_wkv_bwd_kernels_match_plain(dev, case):
+    args = _wkv_bwd_inputs(case, dev)
+    got = W.wkv_bwd(*args)
+    _bwd_launched(WKV_BWD)
+    _grads_close(got, W.wkv_bwd_plain(*args))
+
+
+@pytest.mark.parametrize("case", WKV_BWD_CASES[3:5],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_wkv_bwd_gives_the_same_bits_twice(dev, case):
+    args = _wkv_bwd_inputs(case, dev)
+    first, again = W.wkv_bwd(*args), W.wkv_bwd(*args)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_wkv_bwd_near_one_decay_against_float64(dev):
+    """4096 steps of w within 1e-6 of 1: the kernel within twice the float32
+    plain version's own distance from a float64 plain backward (about
+    1e-5 of a gradient's largest: tests/test_torch_wkv_bwd.py)."""
+    args = _wkv_bwd_inputs((1, 4096, 2, 64, "near1", 0.5), dev)
+    got = W.wkv_bwd(*args)
+    plain = W.wkv_bwd_plain(*args)
+    exact = W.wkv_bwd_plain(*(x.double() for x in args))
+    for g, p, e in zip(got, plain, exact):
+        top = float(e.abs().max())
+        own = float((p.double() - e).abs().max())
+        assert float((g.double() - e).abs().max()) <= max(2 * own,
+                                                          1e-5 * top)
+
+
+def test_wkv_autograd_on_card_runs_the_backward_kernels(dev):
+    """A WKV call that needs a gradient returns tensors in the graph: the
+    forward runs its kernel, the backward the two backward kernels and no
+    plain version, and the gradients match the plain backward's."""
+    r, k, v, w, u, s0, dy, ds = _wkv_bwd_inputs((2, 100, 4, 64, "model",
+                                                 0.5), dev)
+    ins = [x.clone().requires_grad_() for x in (r, k, v, w, u, s0)]
+    y, st = W.wkv(*ins)
+    assert y.grad_fn is not None
+    _wkv_ran("tc")
+    _build.reset_launches()
+    grads = torch.autograd.grad((y * dy).sum() + (st * ds).sum(), ins)
+    _bwd_launched(WKV_BWD)
+    _grads_close(grads, W.wkv_bwd_plain(r, k, v, w, u, s0, dy, ds))
+
+
+def test_wkv_bwd_refuses_head_sizes_it_is_not_built_for(dev):
+    args = _wkv_bwd_inputs((1, 20, 2, 24, "model", 0.5), dev)
+    with pytest.raises(ValueError, match=r"head_dim 24.*\(16, 32, 64, 128\)"):
+        W.wkv_bwd(*args)
+    assert not _build.launches
+
+
+def test_wkv_bwd_with_no_steps_returns_the_state_gradient(dev):
+    args = _wkv_bwd_inputs((2, 0, 3, 64, "model", 1.0), dev)
+    dr, dk, dv, dw, du, ds0 = W.wkv_bwd(*args)
+    _bwd_launched(WKV_BWD)
+    assert dr.shape == (2, 0, 3, 64) and torch.equal(ds0, args[7])
+    assert not bool(du.any())
+
+
+# (B, S, H, hd, N, dt, s0, strided) of the SSD backward: S = 1, 63, 64,
+# 65 and 4096, every hd and N, dt tiny and huge, s0 zero, the model's
+# strided views, B * H under one wave and zamba2-7b's 112 heads
+SSD_BWD_CASES = [
+    (2, 1, 3, 64, 64, "model", "random", False),
+    (2, 63, 3, 64, 64, "model", "random", False),
+    (2, 64, 3, 64, 64, "model", "zero", False),
+    (2, 65, 3, 64, 64, "huge", "random", True),
+    (1, 4096, 2, 64, 64, "model", "random", False),
+    (2, 40, 3, 16, 16, "tiny", "random", False),
+    (2, 40, 3, 32, 128, "model", "random", True),
+    (1, 30, 2, 128, 16, "model", "random", False),
+    (1, 17, 1, 64, 32, "huge", "zero", False),
+    (2, 100, 112, 64, 64, "model", "random", True),
+]
+
+
+def _ssd_bwd_inputs(case, dev):
+    args = _ssd_inputs(case, dev)
+    g = torch.Generator(device=dev).manual_seed(7 + sum(case[:5]))
+    dy = torch.randn(args[0].shape, generator=g, device=dev)
+    ds = torch.randn(args[6].shape, generator=g, device=dev)
+    return args + (dy, ds)
+
+
+@pytest.mark.parametrize("case", SSD_BWD_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_ssd_bwd_kernels_match_plain(dev, case):
+    args = _ssd_bwd_inputs(case, dev)
+    got = SSD.ssd_bwd(*args)
+    _bwd_launched(SSD_BWD)
+    _grads_close(got, SSD.ssd_bwd_plain(*args))
+
+
+@pytest.mark.parametrize("case", SSD_BWD_CASES[3:5],
+                         ids=lambda c: "-".join(map(str, c)))
+def test_ssd_bwd_gives_the_same_bits_twice(dev, case):
+    args = _ssd_bwd_inputs(case, dev)
+    first, again = SSD.ssd_bwd(*args), SSD.ssd_bwd(*args)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_ssd_bwd_tiny_dt_against_float64(dev):
+    """4096 steps of dt about 1e-6: the kernel within twice the float32
+    plain version's own distance from a float64 plain backward."""
+    args = _ssd_bwd_inputs((1, 4096, 2, 64, 64, "tiny", "random", False),
+                           dev)
+    got = SSD.ssd_bwd(*args)
+    plain = SSD.ssd_bwd_plain(*args)
+    exact = SSD.ssd_bwd_plain(*(x.double() for x in args))
+    for g, p, e in zip(got, plain, exact):
+        top = float(e.abs().max())
+        own = float((p.double() - e).abs().max())
+        assert float((g.double() - e).abs().max()) <= max(2 * own,
+                                                          1e-5 * top)
+
+
+def test_ssd_autograd_on_card_runs_the_backward_kernels(dev):
+    """An SSD call on the model's strided views that needs a gradient: the
+    forward runs its kernel, the backward the two backward kernels alone,
+    the gradients contiguous and equal to the plain backward's."""
+    x, b, c, dt, a, d, s0, dy, ds = _ssd_bwd_inputs(
+        (2, 100, 4, 64, 64, "model", "random", True), dev)
+    ins = [t.detach().requires_grad_() for t in (x, b, c, dt, a, d, s0)]
+    y, st = SSD.ssd(*ins)
+    assert y.grad_fn is not None
+    _ran("tc")
+    _build.reset_launches()
+    grads = torch.autograd.grad((y * dy).sum() + (st * ds).sum(), ins)
+    _bwd_launched(SSD_BWD)
+    _grads_close(grads, SSD.ssd_bwd_plain(x, b, c, dt, a, d, s0, dy, ds))
+    with pytest.raises(ValueError, match="state_out"):
+        SSD.ssd(*ins, state_out=torch.empty_like(s0))
+
+
+@pytest.mark.parametrize("hd, n", [(24, 16), (16, 8)])
+def test_ssd_bwd_refuses_sizes_it_is_not_built_for(dev, hd, n):
+    args = _ssd_bwd_inputs((1, 20, 2, hd, n, "model", "random", False), dev)
+    with pytest.raises(ValueError, match=r"\(16, 32, 64, 128\)"):
+        SSD.ssd_bwd(*args)
+    assert not _build.launches
 
 
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=str)

@@ -189,14 +189,21 @@ tcfg, tmodel, topt, tstream, tstep = train.build(
     device="cpu")
 tmodel, topt, tmet = tstep(tmodel, topt, train.to_device(
     tstream.host_batch(0), "cpu"))
+trained = int(topt["step"]) == 1 and bool(np.isfinite(float(tmet["loss"])))
+for arch in ("rwkv6-3b", "zamba2-7b"):
+    acfg, amodel, aopt, astream, astep = train.build(
+        arch, reduced=True, batch=2, seq=16, steps=2, device="cpu")
+    amodel, aopt, amet = astep(amodel, aopt, train.to_device(
+        astream.host_batch(0), "cpu"))
+    trained = trained and int(aopt["step"]) == 1 and bool(
+        np.isfinite(float(amet["loss"])))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print(json.dumps({"accepted": rep.accepted, "bad": bad,
                   "windows": len(wrep.windows),
                   "exp2": exp2["t_adaptive"] > 0, "fed": "SELECT" in fed,
                   "z": list(z.shape),
-                  "trained": int(topt["step"]) == 1
-                  and bool(np.isfinite(float(tmet["loss"]))),
+                  "trained": trained,
                   "logits": list(logits.shape),
                   "rwkv_logits": list(rlogits.shape),
                   "zamba_logits": list(zlogits.shape)}))
