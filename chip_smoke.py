@@ -210,15 +210,19 @@ Phases (any failure raises and ends the run with a nonzero exit):
 18. RWKV6 and zamba2 training (``[train-ssm]`` lines): (k2) the WKV and
    SSD backward kernels (``csrc/rwkv6_wkv_bwd.cu``,
    ``csrc/mamba2_ssd_bwd.cu``: the reverse sweep, then the sums across
-   blocks) against ``wkv_bwd_plain`` and ``ssd_bwd_plain`` at edge cases
-   (S = 1, 63, 64, 65 and 4096, every compiled head and state size, w = 0
-   every third step and w within 1e-6 of 1, dt tiny and huge, s0 zero,
-   the model's strided views), each call on its two kernels alone, every
+   blocks; the SSD backward's tc route from 64 steps up,
+   ``csrc/mamba2_ssd_bwd_tc.cu``: chunk states, the passes over the chunk
+   boundaries, the gradients, the sums) against ``wkv_bwd_plain`` and
+   ``ssd_bwd_plain`` at edge cases (S = 1, 63, 64, 65, 130 and 4096,
+   every compiled head and state size on both SSD routes, w = 0 every
+   third step and w within 1e-6 of 1, dt tiny and huge, s0 zero, the
+   model's strided views), each call on its route's kernels alone, every
    gradient within 1e-5 of its largest magnitude, two calls bit for bit;
    4096 steps of w near 1 and of tiny dt against a float64 plain backward
-   (within twice the float32 plain version's own distance); five planted
+   (within twice the float32 plain version's own distance); seven planted
    faults (a reverse step dropped, dS not decayed, one head's part of db
-   left out) failing the check; (f2) float32 gradients of rwkv6-3b (4 of
+   left out, a chunk boundary's dS not passed on, one head group's part
+   of db left out) failing the check; (f2) float32 gradients of rwkv6-3b (4 of
    32 layers) and zamba2-7b (6 of 81) at full width, 1 x 1024 tokens, the
    kernels against autograd through the plain versions on the card and
    against the CPU, every leaf within 1e-4 of its largest (rwkv6-3b, whose
@@ -230,7 +234,8 @@ Phases (any failure raises and ends the run with a nonzero exit):
    ``launch.train.build``), with the launch counts of every kernel of
    the path, step walls, tokens/s, peak memory, a profiled step and the
    loss checks of (t); then the backward kernels timed at those shapes
-   and the flash tc backward at zamba2-7b's D = 112.
+   (the SSD backward's two routes on the same call) and the flash tc
+   backward at zamba2-7b's D = 112.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -263,6 +268,7 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory rate
 SCALAR_OPS_PER_S = 67e12         # H100 SXM float32 rate outside tensor cores
 TENSOR_OPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core rate
 TF32_OPS_PER_S = 495e12          # H100 SXM dense TF32 tensor-core rate
+F64_TC_OPS_PER_S = 67e12         # H100 SXM float64 tensor-core rate
 # 32-bit population counts a clock an SM at compute capability 9.0 (CUDA C++
 # Programming Guide, "Arithmetic Instructions" throughput table); times the
 # card's SM count and its maximum SM clock (nvidia-smi) for the rate
@@ -3977,11 +3983,18 @@ SSM_F32_SEQ = 1024
 # another order (the forwards' mark, 1e-5 of y's largest)
 SSM_GRAD_REL = 1e-5
 WKV_BWD = ("rwkv6_wkv_bwd", "rwkv6_wkv_bwd_sum")
-SSD_BWD = ("mamba2_ssd_bwd", "mamba2_ssd_bwd_sum")
+# the SSD backward's kernels by route (ops.BWD_KERNELS), the device
+# operations each launches, and their sources
+SSD_BWD = {"rec": ("mamba2_ssd_bwd", "mamba2_ssd_bwd_sum"),
+           "tc": ("mamba2_ssd_bwd_states", "mamba2_ssd_bwd_pass",
+                  "mamba2_ssd_bwd", "mamba2_ssd_bwd_sum")}
 WKV_BWD_PARTS = ("wkv_bwd_kernel", "wkv_bwd_sum_kernel")
-SSD_BWD_PARTS = ("ssd_bwd_kernel", "ssd_bwd_sum_kernel")
+SSD_BWD_PARTS = {"rec": ("ssd_bwd_kernel", "ssd_bwd_sum_kernel"),
+                 "tc": ("ssd_bwd_tc_states_kernel", "ssd_bwd_tc_pass_kernel",
+                        "ssd_bwd_tc_kernel", "ssd_bwd_tc_sum_kernel")}
 WKV_BWD_SRC = "src/repro_torch/csrc/rwkv6_wkv_bwd.cu"
-SSD_BWD_SRC = "src/repro_torch/csrc/mamba2_ssd_bwd.cu"
+SSD_BWD_SRC = {"rec": "src/repro_torch/csrc/mamba2_ssd_bwd.cu",
+               "tc": "src/repro_torch/csrc/mamba2_ssd_bwd_tc.cu"}
 # no Pallas kernel: the reference differentiates these scans with XLA
 WKV_BWD_REPLACES = "src/repro/models/rwkv.py:94"
 SSD_BWD_REPLACES = "src/repro/models/ssm.py:82"
@@ -4001,10 +4014,11 @@ WKV_BWD_EDGES = [
     (1, 17, 1, 64, "model", 0.5),
     (4, 130, 40, 64, "model", 0.5),
 ]
-# (B, S, H, hd, N, dt, s0, strided) of (k2) on the SSD backward: S = 1, 63,
-# 64, 65 and 4096, dt tiny and huge, s0 zero, the model's strided views,
-# B * H = 1 (under one wave) and zamba2-7b's 112 heads; then every
-# compiled (hd, N) at S = 40
+# (B, S, H, hd, N, dt, s0, strided) of (k2) on the SSD backward: S = 1, 63
+# (rec), 64, 65 and 4096 (tc), dt tiny and huge, s0 zero, the model's
+# strided views, B * H = 1 (under one wave) and zamba2-7b's 112 heads;
+# then every compiled (hd, N) at S = 40 (rec) and at S = 130 (tc: two
+# chunks and a ragged third)
 SSD_BWD_EDGES = [
     (2, 1, 3, 64, 64, "model", "random", False),
     (2, 63, 3, 64, 64, "model", "random", False),
@@ -4013,7 +4027,7 @@ SSD_BWD_EDGES = [
     (1, 4096, 2, 64, 64, "model", "random", False),
     (1, 17, 1, 64, 32, "tiny", "zero", False),
     (4, 130, 112, 64, 64, "model", "random", True),
-] + [(1, 40, 2, hd, n, "model", "random", False)
+] + [(1, s, 2, hd, n, "model", "random", False) for s in (40, 130)
      for hd in (16, 32, 64, 128) for n in (16, 32, 64, 128)]
 # (k2)'s long cases against a float64 plain backward (there the float32
 # recurrences drift about 1e-5 from it, so neither float32 side is the
@@ -4023,6 +4037,8 @@ SSD_BWD_LONG = (1, 4096, 2, 64, 64, "tiny", "random", False)
 # (k2)'s planted faults, at S = 65
 WKV_BWD_FAULT_CASE = (2, 65, 3, 64, "model", 0.5)
 SSD_BWD_FAULT_CASE = (2, 65, 3, 64, 64, "model", "random", False)
+# the tc route's head-group fault: 20 heads, groups of 16 and 4
+SSD_BWD_GROUP_FAULT_CASE = (1, 130, 20, 64, 64, "model", "random", False)
 # the flash backward at zamba2-7b's shared block: D = 112 on the tc route
 ZAMBA_FLASH_BWD = ("zamba2-7b training", SSM_BATCH, SSM_SEQ, 32, 32, 112,
                    BF16, True)
@@ -4084,11 +4100,16 @@ def _wkv_bwd_fault(args, fault):
 
 def _ssd_bwd_fault(args, fault):
     """``ssd_bwd_plain``'s reverse recurrence, every state kept, with one
-    planted fault: ``"step dropped"`` or ``"no decay"`` (G not multiplied
-    by e^{dt a}); None for none."""
+    planted fault: ``"step dropped"``, ``"no decay"`` (G not multiplied
+    by e^{dt a}) or ``"boundary"`` (the last chunk of 64 steps does not
+    pass on the dS it received: G leaves it with only its own steps'
+    part, the tc route's dS_out(k - 1) = dS part without e^{cum_last}
+    dS_out(k)); None for none."""
     x, b, c, dt, a, d, s0, dy, ds = args
     s = x.shape[1]
     alpha = torch.exp(dt * a)
+    first = (s - 1) // 64 * 64               # the last chunk's first step
+    carried = ds.clone()                     # what reached it, decayed
 
     def step(st, t):
         return (alpha[:, t, :, None, None] * st + b[:, t, None, :, None]
@@ -4116,45 +4137,68 @@ def _ssd_bwd_fault(args, fault):
         dd += (xt * dyt).sum((0, 2))
         if fault != "no decay":
             g = at[:, :, None, None] * g
+        carried = at[:, :, None, None] * carried
+        if fault == "boundary" and t == first and t > 0:
+            g = g - carried
     return dx, db, dc, ddt, da, dd, g
 
 
-def ssm_bwd_edges() -> None:
+def _ssd_bwd_launches(route, n=1) -> dict:
+    """The launch counts ``n`` SSD backward calls on ``route`` add: each of
+    its kernels and its ``<kernel>.<route>`` n times, nothing else."""
+    want = {k: n for k in SSD_BWD[route]}
+    want.update({f"{k}.{route}": n for k in SSD_BWD[route]})
+    return want
+
+
+def ssm_bwd_edges() -> dict:
     """(k2) each backward at its edges against its plain version on the
-    card (each call on its two kernels alone, two calls bit for bit), the
-    long cases against a float64 plain backward, and five planted faults
-    that must fail the check."""
+    card (each call on its route's kernels alone, two calls bit for bit),
+    the long cases against a float64 plain backward, and seven planted
+    faults that must fail the check. Returns the launches of the SSD
+    edges by route."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.mamba2_ssd import ops as SSD
     from repro_torch.kernels.rwkv6_wkv import ops as W
 
     gen = torch.Generator(device="cuda").manual_seed(30)
-    ops = {"WKV": (W.wkv_bwd, W.wkv_bwd_plain, WKV_BWD, _wkv_inputs),
-           "SSD": (SSD.ssd_bwd, SSD.ssd_bwd_plain, SSD_BWD, _ssd_inputs)}
+    ops = {"WKV": (W.wkv_bwd, W.wkv_bwd_plain, _wkv_inputs),
+           "SSD": (SSD.ssd_bwd, SSD.ssd_bwd_plain, _ssd_inputs)}
     edges = {"WKV": WKV_BWD_EDGES, "SSD": SSD_BWD_EDGES}
-    for name, (bwd, plain, kernels, make) in ops.items():
-        worst = (0.0, 0.0)
+    ssd_launches = collections.Counter()
+    for name, (bwd, plain, make) in ops.items():
+        worst = collections.defaultdict(lambda: (0.0, 0.0))
         for case in edges[name]:
             args = _with_cotangents(make(case, gen), gen)
             _build.reset_launches()
             got = bwd(*args)
             torch.cuda.synchronize()
-            assert dict(_build.launches) == {k: 1 for k in kernels}, \
+            if name == "WKV":
+                route, want = "", {k: 1 for k in WKV_BWD}
+            else:
+                route = SSD.bwd_variant(case[1], case[3], case[4])
+                want = _ssd_bwd_launches(route)
+                ssd_launches.update(_build.launches)
+            assert dict(_build.launches) == want, \
                 (case, dict(_build.launches))
             err = _grads_err(got, plain(*args), (name, case))
-            worst = tuple(max(p, q) for p, q in zip(worst, err))
+            worst[route] = tuple(max(p, q) for p, q in zip(worst[route], err))
             again = bwd(*args)
             assert all(torch.equal(p, q) for p, q in zip(got, again)), \
                 (name, case, "two calls differ")
-        log(f"[train-ssm] check (k2): the {name} backward kernels "
-            f"({', '.join(kernels)}) match the plain backward at "
-            f"{len(edges[name])} edges, each call on its two kernels alone: "
-            f"largest abs diff {worst[0]:.3e}, every gradient within "
-            f"{worst[1]:.3e} of its largest (limit {SSM_GRAD_REL}); two calls "
-            "give equal bits")
+        for route, (abs_err, rel) in sorted(worst.items()):
+            kernels = SSD_BWD[route] if route else WKV_BWD
+            count = sum(name == "WKV" or SSD.bwd_variant(
+                e[1], e[3], e[4]) == route for e in edges[name])
+            log(f"[train-ssm] check (k2): the {name} backward kernels "
+                f"({', '.join(kernels)}{f'; route {route}' if route else ''}"
+                f") match the plain backward at {count} edges, each call on "
+                f"its route's kernels alone: largest abs diff "
+                f"{abs_err:.3e}, every gradient within {rel:.3e} of its "
+                f"largest (limit {SSM_GRAD_REL}); two calls give equal bits")
     for name, case, what in (("WKV", WKV_BWD_LONG, "w within 1e-6 of 1"),
                              ("SSD", SSD_BWD_LONG, "dt about 1e-6")):
-        bwd, plain, _, make = ops[name]
+        bwd, plain, make = ops[name]
         args = _with_cotangents(make(case, gen), gen)
         got, own = bwd(*args), plain(*args)
         exact = plain(*(t.double() for t in args))
@@ -4183,6 +4227,19 @@ def ssm_bwd_edges() -> None:
                               ds[:, :1].contiguous())[1]
     no_head0 = list(ssd_got)
     no_head0[1] = ssd_got[1] - head0
+    # the tc route at 20 heads: head group 0 (heads 0-15) alone, its part
+    # of db, which the sum kernel adds in
+    grp_args = _with_cotangents(_ssd_inputs(SSD_BWD_GROUP_FAULT_CASE, gen),
+                                gen)
+    grp_got = SSD.ssd_bwd(*grp_args)
+    x, b, c, dt, a, d, s0, dy, ds = grp_args
+    g0 = slice(0, SSD.BWD_HEADS)
+    group0 = SSD.ssd_bwd_plain(x[:, :, g0], b, c, dt[:, :, g0], a[g0],
+                               d[g0], s0[:, g0].contiguous(),
+                               dy[:, :, g0].contiguous(),
+                               ds[:, g0].contiguous())[1]
+    no_group0 = list(grp_got)
+    no_group0[1] = grp_got[1] - group0
     faults = {
         "WKV: one reverse step dropped": (wkv_got, _wkv_bwd_fault(
             wkv_args, "step dropped")),
@@ -4194,10 +4251,15 @@ def ssm_bwd_edges() -> None:
                                                         "no decay")),
         "SSD: one head's db part left out": (
             no_head0, SSD.ssd_bwd_plain(*ssd_args)),
+        "SSD tc: a chunk boundary's dS not passed on": (
+            ssd_got, _ssd_bwd_fault(ssd_args, "boundary")),
+        "SSD tc: one head group's part of db left out": (
+            no_group0, SSD.ssd_bwd_plain(*grp_args)),
     }
     # the faulty recurrences without their fault pass the check
     _grads_err(wkv_got, _wkv_bwd_fault(wkv_args, None), "WKV unfaulted")
     _grads_err(ssd_got, _ssd_bwd_fault(ssd_args, None), "SSD unfaulted")
+    _grads_err(grp_got, SSD.ssd_bwd_plain(*grp_args), "SSD groups")
     for fault, (got, want) in faults.items():
         try:
             _grads_err(got, want, fault)
@@ -4205,8 +4267,10 @@ def ssm_bwd_edges() -> None:
             continue
         raise AssertionError(f"check (k2) passes a planted fault: {fault}")
     log(f"[train-ssm] check (k2): {len(faults)} of {len(faults)} planted "
-        f"faults fail it at S = 65 ({'; '.join(faults)}); the faulty "
-        "recurrences without their fault pass")
+        f"faults fail it at S = 65 (the group's at S = 130, 20 heads) "
+        f"({'; '.join(faults)}); the faulty recurrences without their "
+        "fault pass")
+    return dict(ssd_launches)
 
 
 @contextlib.contextmanager
@@ -4286,7 +4350,7 @@ def ssm_f32_grads() -> dict:
             fvar = FA.variant(F32, SSM_F32_SEQ, 1, cfg.resolved_head_dim)
             want = {"mamba2_ssd.tc": 2 * layers,
                     f"flash_attention_fwd.{fvar}": 2 * apps}
-            want.update({k: layers for k in SSD_BWD})
+            want.update(_ssd_bwd_launches("tc", layers))
             want.update({k: c for k, c in _bwd_route_counts(
                 FA, FA.bwd_variant(F32, SSM_F32_SEQ, 1,
                                    cfg.resolved_head_dim), apps).items()
@@ -4389,12 +4453,14 @@ def ssm_training_runs() -> tuple:
         n = zcfg.n_layers * steps
         assert launches.get("mamba2_ssd.tc") == 2 * n, launches
         assert launches.get("mamba2_ssd") == 2 * n, launches
-        for k in SSD_BWD:
-            assert launches.get(k) == n, (k, launches)
+        for k, c in _ssd_bwd_launches("tc", n).items():
+            assert launches.get(k) == c, (k, launches)
+        assert not any(k.endswith(".rec") and k.startswith("mamba2_ssd_bwd")
+                       for k in launches), launches
         assert launches.get("flash_attention_fwd.tc") == 2 * apps * steps
         for k, c in _bwd_route_counts(FA, "tc", apps * steps).items():
             assert launches.get(k, 0) == c, (k, launches)
-        return ("SSD forward on tc, the SSD backward kernels, flash forward "
+        return ("SSD forward on tc, the SSD backward on tc, flash forward "
                 "and backward on tc at D = 112")
     zamba = supervised_training(
         "train-ssm", "(t3)", (zcfg, model, opt, stream, step_fn), t0,
@@ -4427,13 +4493,67 @@ def _ssd_bwd_cost(b, s, h, hd, n):
             13 * b * s * h * n * hd)
 
 
-def ssm_bwd_rows(rows, wkv_launches, ssd_launches) -> None:
-    """The WKV backward at (t2)'s shape and the SSD backward at (t3)'s:
+def _ssd_bwd_tc_cost(b, s, h, hd, n, chunk=64, heads=16) -> dict:
+    """Bytes (each tensor a kernel reads or writes, once) and the least
+    time of its operations, by kernel of the tc route: float64
+    tensor-core products over 67 TFLOP/s, TF32 ones as three TF32
+    products (Z's two: V is exact) over 495 TFLOP/s, a multiply-add as
+    two, the two times added (one tensor core runs both). Per (b, h) and
+    chunk of L steps: float64 Bᵀ (w ∘ X), Cᵀ (e^{cum} ∘ dY), dY S_inᵀ and
+    X dS_outᵀ (L N hd each); TF32 dM = dY Xᵀ and Mᵀ dY (hd L (L + 1) / 2
+    each), B dS_out (L N hd), dG B and dGᵀ C (N L (L + 1) / 2 each), Z
+    over the rectangles (L (L + 1) (L + 2) / 6); G = C Bᵀ once per (b,
+    chunk, group of heads) (N L (L + 1) / 2). The passes: a multiply-add
+    an element and chunk, the sums an add an element and group, over 67
+    TFLOP/s float32. Returns {kernel: (bytes, ops, seconds of ops, what
+    the ops are)}."""
+    chunks, groups = -(-s // chunk), -(-h // heads)
+    states = grad64 = grad32 = z = 0
+    for t0 in range(0, s, chunk):
+        ln = min(chunk, s - t0)
+        tri = ln * (ln + 1) // 2
+        states += b * h * 2 * ln * n * hd
+        grad64 += b * h * 2 * ln * n * hd
+        grad32 += b * (h * (2 * hd * tri + ln * n * hd + 2 * n * tri)
+                       + groups * n * tri)
+        z += b * h * ln * (ln + 1) * (ln + 2) // 6
+    xs, bs, sts = b * s * h * hd, b * s * n, b * h * chunks * n * hd
+    g_ops = 2 * grad64 + 6 * grad32 + 4 * z
+    g_sec = (2 * grad64 / F64_TC_OPS_PER_S
+             + (6 * grad32 + 4 * z) / TF32_OPS_PER_S)
+    return {
+        "mamba2_ssd_bwd_states": (
+            4 * (2 * xs + 2 * bs + b * s * h + 2 * sts + b * h * chunks),
+            2 * states, 2 * states / F64_TC_OPS_PER_S,
+            "float64 tensor-core operations / 67 TFLOP/s"),
+        "mamba2_ssd_bwd_pass": (
+            4 * (4 * sts + 2 * b * h * chunks + 3 * b * h * n * hd),
+            4 * sts, 4 * sts / SCALAR_OPS_PER_S,
+            "operations / 67 TFLOP/s float32"),
+        "mamba2_ssd_bwd": (
+            4 * (3 * xs + 2 * bs + 2 * b * s * h + 2 * h + 2 * sts
+                 + 2 * groups * bs + 2 * b * chunks * h),
+            g_ops, g_sec, "tensor-core operations: float64 / 67 TFLOP/s "
+            "plus three-term TF32 / 495 TFLOP/s"),
+        "mamba2_ssd_bwd_sum": (
+            4 * (2 * groups * bs + 2 * bs + 2 * b * chunks * h + 2 * h),
+            2 * groups * bs + 2 * b * chunks * h,
+            (2 * groups * bs + 2 * b * chunks * h) / SCALAR_OPS_PER_S,
+            "operations / 67 TFLOP/s float32"),
+    }
+
+
+def ssm_bwd_rows(rows, wkv_launches, ssd_launches, ssd_edge_launches
+                 ) -> None:
+    """The WKV backward at (t2)'s shape and the SSD backward at (t3)'s,
+    the SSD backward on both routes on the same call (rec, tc, tc, rec):
     each against its plain version, each kernel's device time per call
     (profiler), the call with launch overhead (CUDA events), the plain
-    version's time (CUDA events: a Python loop over the steps), the
-    bounds, and the main paths' launches; a row of the kernels line per
-    kernel (no PyTorch call computes either function)."""
+    version's time (host clock: a Python loop over the steps), the
+    bounds, and the launches (the main paths'; the SSD rec kernels, which
+    no training path runs, (k2)'s edges'); a row of the kernels
+    line per kernel of each route (no PyTorch call computes either
+    function)."""
     from repro_torch import configs
     from repro_torch.kernels.mamba2_ssd import ops as SSD
     from repro_torch.kernels.rwkv6_wkv import ops as W
@@ -4441,67 +4561,135 @@ def ssm_bwd_rows(rows, wkv_launches, ssd_launches) -> None:
 
     gen = torch.Generator(device="cuda").manual_seed(31)
     rcfg, zcfg = configs.get("rwkv6-3b"), configs.get("zamba2-7b")
-    cases = (
-        ("WKV", "rwkv6-3b", (SSM_BATCH, SSM_SEQ, rwkv.n_heads(rcfg),
-                             rcfg.rwkv_head_dim, "model", 0.5),
-         _wkv_inputs, W.wkv_bwd, W.wkv_bwd_plain, WKV_BWD, WKV_BWD_PARTS,
-         WKV_BWD_SRC, WKV_BWD_REPLACES, wkv_launches),
-        ("SSD", "zamba2-7b", (SSM_BATCH, SSM_SEQ, ssm.dims(zcfg)["n_heads"],
-                              zcfg.ssm_head_dim, zcfg.ssm_state, "model",
-                              "random", False),
-         _ssd_inputs, SSD.ssd_bwd, SSD.ssd_bwd_plain, SSD_BWD, SSD_BWD_PARTS,
-         SSD_BWD_SRC, SSD_BWD_REPLACES, ssd_launches),
-    )
-    for (name, arch, case, make, bwd, plain, kernels, parts, src, replaces,
-         launches) in cases:
-        args = _with_cotangents(make(case, gen), gen)
-        got = bwd(*args)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        want = plain(*args)
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t) * 1e3
-        err, rel = _grads_err(got, want, (name, arch))
-        del got, want
-        dev = device_ms_parts(lambda: bwd(*args), parts, reps=3)
-        assert all(dev[p] > 0 for p in parts), (name, dev)
-        events = call_ms(lambda: bwd(*args), reps=3, runs=3)
-        if name == "WKV":
-            b, s, h, hd = case[:4]
-            n_bytes, n_ops = _wkv_bwd_cost(b, s, h, hd)
-            sum_bytes, sum_ops = 4 * (b * h * hd + h * hd), b * h * hd
-            shape = f"B={b}, S={s}, H={h}, hd={hd}"
-        else:
-            b, s, h, hd, n = case[:5]
-            n_bytes, n_ops = _ssd_bwd_cost(b, s, h, hd, n)
-            sum_bytes = 4 * (2 * b * s * h * n + 2 * b * s * n + 2 * b * h
-                             + 2 * h)
-            sum_ops = 2 * b * s * h * n
-            shape = f"B={b}, S={s}, H={h}, hd={hd}, N={n}"
-        for kernel, part, nb, no in zip(kernels, parts,
-                                        (n_bytes, sum_bytes),
-                                        (n_ops, sum_ops)):
-            t_bytes, t_ops = nb / HBM_BYTES_PER_S, no / SCALAR_OPS_PER_S
+    # the WKV backward
+    case = (SSM_BATCH, SSM_SEQ, rwkv.n_heads(rcfg), rcfg.rwkv_head_dim,
+            "model", 0.5)
+    args = _with_cotangents(_wkv_inputs(case, gen), gen)
+    got = W.wkv_bwd(*args)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    want = W.wkv_bwd_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    err, rel = _grads_err(got, want, ("WKV", "rwkv6-3b"))
+    del got, want
+    dev = device_ms_parts(lambda: W.wkv_bwd(*args), WKV_BWD_PARTS, reps=3)
+    assert all(dev[p] > 0 for p in WKV_BWD_PARTS), dev
+    events = call_ms(lambda: W.wkv_bwd(*args), reps=3, runs=3)
+    b, s, h, hd = case[:4]
+    n_bytes, n_ops = _wkv_bwd_cost(b, s, h, hd)
+    costs = ((n_bytes, n_ops),
+             (4 * (b * h * hd + h * hd), b * h * hd))
+    shape = f"B={b}, S={s}, H={h}, hd={hd}"
+    for kernel, part, (nb, no) in zip(WKV_BWD, WKV_BWD_PARTS, costs):
+        t_bytes, t_ops = nb / HBM_BYTES_PER_S, no / SCALAR_OPS_PER_S
+        bound = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"[train-ssm] (k2) {kernel} at rwkv6-3b's training shape "
+            f"({shape}): device time per call {dev[part]:.4f} ms "
+            f"(profiler); the whole backward {dev['total']:.4f} ms, "
+            f"{events:.4f} ms with launch overhead (CUDA events); plain "
+            f"backward {plain_ms:.1f} ms (host clock: a Python loop over "
+            f"{s} steps); bound {bound * 1e3:.4f} ms ({bound_by}: {no} "
+            f"operations / 67 TFLOP/s float32, {nb} B / 3.35 TB/s); "
+            f"kernel / bound {dev[part] / (bound * 1e3):.1f}; launches "
+            f"{wkv_launches.get(kernel, 0)} (main path); max_abs_err "
+            f"{err:.3e} (every gradient within {rel:.2e} of its "
+            f"largest); no PyTorch call computes it; {card()}")
+        rows.append(dict(
+            name=kernel, route="cuda", source=WKV_BWD_SRC,
+            replaces=WKV_BWD_REPLACES, launches=wkv_launches.get(kernel, 0),
+            max_abs_err=err, ms=dev[part], plain_ms=plain_ms,
+            bound_ms=bound * 1e3, bound_by=bound_by, library_ms=None))
+    del args
+    torch.cuda.empty_cache()
+
+    # the SSD backward, both routes on the same call
+    case = (SSM_BATCH, SSM_SEQ, ssm.dims(zcfg)["n_heads"], zcfg.ssm_head_dim,
+            zcfg.ssm_state, "model", "random", False)
+    b, s, h, hd, n = case[:5]
+    assert SSD.bwd_variant(s, hd, n) == "tc"
+    args = _with_cotangents(_ssd_inputs(case, gen), gen)
+    t = time.perf_counter()
+    want = SSD.ssd_bwd_plain(*args)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t) * 1e3
+    errs = {}
+    for route in ("tc", "rec"):
+        errs[route] = _grads_err(SSD.ssd_bwd(*args, route=route), want,
+                                 ("SSD", route))
+    del want
+    dev, events = {}, collections.defaultdict(list)
+    for route in ("rec", "tc", "tc", "rec"):
+        run = functools.partial(SSD.ssd_bwd, *args, route=route)
+        got = device_ms_parts(run, SSD_BWD_PARTS[route], reps=3)
+        assert all(got[p] > 0 for p in SSD_BWD_PARTS[route]), (route, got)
+        dev.setdefault(route, []).append(got)
+        events[route].append(call_ms(run, reps=3, runs=3))
+    shape = f"B={b}, S={s}, H={h}, hd={hd}, N={n}"
+    scalar_bytes, scalar_ops = _ssd_bwd_cost(b, s, h, hd, n)
+    tc_cost = _ssd_bwd_tc_cost(b, s, h, hd, n)
+    tc_ops = sum(c[1] for k, c in tc_cost.items()
+                 if k in ("mamba2_ssd_bwd_states", "mamba2_ssd_bwd"))
+    tc_sec = sum(c[2] for k, c in tc_cost.items()
+                 if k in ("mamba2_ssd_bwd_states", "mamba2_ssd_bwd"))
+    whole = {"tc": max(scalar_bytes / HBM_BYTES_PER_S, tc_sec) * 1e3,
+             "rec": max(scalar_bytes / HBM_BYTES_PER_S,
+                        scalar_ops / SCALAR_OPS_PER_S) * 1e3}
+    totals = {r: [d["total"] for d in dev[r]] for r in dev}
+    ratio = statistics.fmean(totals["rec"]) / statistics.fmean(totals["tc"])
+    log(f"[train-ssm] (k2) the SSD backward at zamba2-7b's training shape "
+        f"({shape}), in turns rec, tc, tc, rec: tc "
+        + " and ".join(f"{v:.4f}" for v in totals["tc"])
+        + " ms against rec " + " and ".join(f"{v:.4f}" for v in totals["rec"])
+        + " ms (device time per call, profiler; CUDA events tc "
+        + ", ".join(f"{v:.4f}" for v in events["tc"]) + ", rec "
+        + ", ".join(f"{v:.4f}" for v in events["rec"])
+        + f" ms); bounds: tc {whole['tc']:.4f} ms ({tc_ops} tensor-core "
+        f"operations, float64 / 67 TFLOP/s plus three-term TF32 / 495 "
+        f"TFLOP/s, {scalar_bytes} B / 3.35 TB/s), the "
+        f"scalar count {whole['rec']:.4f} ms ({scalar_ops} operations / 67 "
+        f"TFLOP/s); rec / tc {ratio:.2f}; {card()}")
+    for route in ("tc", "rec"):
+        err, rel = errs[route]
+        launches, where = ((ssd_launches, "main path (t3)") if route == "tc"
+                           else (ssd_edge_launches, "(k2)'s edges below 64 "
+                                 "steps: off the training path"))
+        for kernel, part in zip(SSD_BWD[route], SSD_BWD_PARTS[route]):
+            ms = statistics.fmean(d[part] for d in dev[route])
+            if route == "tc":
+                nb, no, t_ops, rate_note = tc_cost[kernel]
+            elif kernel == "mamba2_ssd_bwd":
+                nb, no = scalar_bytes, scalar_ops
+                t_ops, rate_note = (no / SCALAR_OPS_PER_S,
+                                    "operations / 67 TFLOP/s float32")
+            else:
+                nb = 4 * (2 * b * s * h * n + 2 * b * s * n + 2 * b * h
+                          + 2 * h)
+                no = 2 * b * s * h * n
+                t_ops, rate_note = (no / SCALAR_OPS_PER_S,
+                                    "operations / 67 TFLOP/s float32")
+            t_bytes = nb / HBM_BYTES_PER_S
             bound = max(t_bytes, t_ops)
             bound_by = "bytes" if t_bytes >= t_ops else "operations"
-            log(f"[train-ssm] (k2) {kernel} at {arch}'s training shape "
-                f"({shape}): device time per call {dev[part]:.4f} ms "
-                f"(profiler); the whole backward {dev['total']:.4f} ms, "
-                f"{events:.4f} ms with launch overhead (CUDA events); plain "
-                f"backward {plain_ms:.1f} ms (host clock: a Python loop over "
-                f"{s} steps); bound {bound * 1e3:.4f} ms ({bound_by}: {no} "
-                f"operations / 67 TFLOP/s float32, {nb} B / 3.35 TB/s); "
-                f"kernel / bound {dev[part] / (bound * 1e3):.1f}; launches "
-                f"{launches.get(kernel, 0)} (main path); max_abs_err "
+            count = launches.get(f"{kernel}.{route}", 0)
+            log(f"[train-ssm] (k2) {kernel} ({route}) at zamba2-7b's "
+                f"training shape ({shape}): device time per call "
+                + " and ".join(f"{d[part]:.4f}" for d in dev[route])
+                + f" ms (profiler); bound {bound * 1e3:.4f} ms ({bound_by}: "
+                f"{no} {rate_note}, {nb} B / 3.35 TB/s); "
+                f"kernel / bound {ms / (bound * 1e3):.1f}; plain backward "
+                f"{plain_ms:.1f} ms (host clock: a Python loop over {s} "
+                f"steps); launches {count} ({where}); max_abs_err "
                 f"{err:.3e} (every gradient within {rel:.2e} of its "
                 f"largest); no PyTorch call computes it; {card()}")
             rows.append(dict(
-                name=kernel, route="cuda", source=src, replaces=replaces,
-                launches=launches.get(kernel, 0), max_abs_err=err,
-                ms=dev[part], plain_ms=plain_ms, bound_ms=bound * 1e3,
-                bound_by=bound_by, library_ms=None))
-        del args
-        torch.cuda.empty_cache()
+                name=kernel, route="cuda", source=SSD_BWD_SRC[route],
+                replaces=SSD_BWD_REPLACES, variant=route, launches=count,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound * 1e3, bound_by=bound_by, library_ms=None))
+    del args
+    torch.cuda.empty_cache()
 
 
 def ssm_training(rows) -> None:
@@ -4509,10 +4697,10 @@ def ssm_training(rows) -> None:
     then the backward kernels timed at their shapes and the flash tc
     backward at zamba2-7b's D = 112."""
     t0 = time.perf_counter()
-    ssm_bwd_edges()
+    edge_launches = ssm_bwd_edges()
     ssm_f32_grads()
     rwkv, zamba = ssm_training_runs()
-    ssm_bwd_rows(rows, rwkv, zamba)
+    ssm_bwd_rows(rows, rwkv, zamba, edge_launches)
     flash_bwd_rows(rows, [ZAMBA_FLASH_BWD],
                    {ZAMBA_FLASH_BWD[0]: ("main path (t3)", zamba)},
                    "train-ssm")
@@ -4521,19 +4709,39 @@ def ssm_training(rows) -> None:
 
 def tensor_core_kernels(lib) -> None:
     """``cuobjdump -sass`` of the built library: the HGMMA (wgmma)
-    instructions of each tensor-core flash kernel, forward and backward;
-    fails when a tc kernel of the backward has none."""
+    instructions of each tensor-core flash kernel, forward and backward,
+    and the tensor-core instructions of each instance of the SSD
+    backward's tc kernels (DMMA, float64 mma.sync, in both; TF32 HMMA in
+    the gradient kernel); fails when an instance has none."""
     from repro_torch.kernels import _build
 
     tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
     sass = subprocess.run([str(tool), "-sass", str(lib)], check=True,
                           capture_output=True, text=True).stdout
     counts, name = collections.Counter(), None
+    mma = {"TF32 HMMA": collections.Counter(), "DMMA": collections.Counter()}
     for line in sass.splitlines():
         if "Function : " in line:
             name = line.split("Function : ")[1].strip()
         elif name and "HGMMA" in line:
             counts[name] += 1
+        elif name and "HMMA" in line and "TF32" in line:
+            mma["TF32 HMMA"][name] += 1
+        elif name and "DMMA" in line:
+            mma["DMMA"][name] += 1
+    for kernel, kinds in (("ssd_bwd_tc_states_kernel", ("DMMA",)),
+                          ("ssd_bwd_tc_kernel", ("TF32 HMMA", "DMMA"))):
+        for kind in kinds:
+            # template instances by (N, hd), each of 16, 32, 64, 128
+            found = {tuple(int(v) for v in n.split(kernel + "ILi")[1].split(
+                "EE")[0].split("ELi")): c for n, c in mma[kind].items()
+                if kernel + "ILi" in n}
+            for n in (16, 32, 64, 128):
+                for hd in (16, 32, 64, 128):
+                    assert found.get((n, hd), 0) > 0, (kernel, kind, n, hd)
+            log(f"[build] cuobjdump -sass: {kernel} {kind} instructions by "
+                f"(N, hd): "
+                + ", ".join(f"{k}: {found[k]}" for k in sorted(found)))
     for kernel in ("flash_tc_kernel", "flash_bwd_tc_pre_kernel",
                    "flash_bwd_tc_dq_kernel", "flash_bwd_tc_dkv_kernel"):
         # template instances by the head size's k-steps, D / 16 = 1 to 8

@@ -88,6 +88,11 @@ SIGNATURES = {
     # S, H, N, stream
     "rt_ssd_bwd": (_P,) * 17 + (_I64,) * 13 + (_P,),
     "rt_ssd_bwd_sum": (_P,) * 7 + (_I64,) * 4 + (_P,),
+    # x, b, c, dt, a, d, s0, dy, ds, dx, ddt, ds0, S_in's and dS_out's
+    # scratch, e^{cum_last}, db's and dc's parts, da's and dd's parts, db,
+    # dc, da, dd, B, S, H, hd, N, strides of x, b, c and dt over batch and
+    # time, which kernel (0 states, 1 passes, 2 gradients, 3 sums), stream
+    "rt_ssd_bwd_tc": (_P,) * 22 + (_I64,) * 14 + (_P,),
 }
 
 # kernel name -> launches since the last reset_launches()

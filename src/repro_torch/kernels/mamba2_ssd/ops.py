@@ -39,12 +39,23 @@ updates its cache in place) and returned.
 
 The gradient: a call that needs one (grad enabled and an input that
 requires it) goes through ``_SSD``, an autograd Function whose forward is
-the forward above and whose backward is :func:`ssd_bwd`: on a CUDA tensor
-the two kernels of ``repro_torch/csrc/mamba2_ssd_bwd.cu`` (the reverse
-sweep, then the sums over heads and over the batch), on a CPU tensor
-:func:`ssd_bwd_plain`. The reference has no backward kernel: XLA
-differentiates its chunked form. Such a call takes no ``state_out`` (the
-in-place decode step runs without a graph).
+the forward above and whose backward is :func:`ssd_bwd`. On a CUDA tensor
+that runs one of two routes, chosen by :func:`bwd_variant` from the
+length alone (the forward's rule):
+
+* ``"tc"`` (S ≥ 64): the four kernels of
+  ``repro_torch/csrc/mamba2_ssd_bwd_tc.cu``, the gradient of the chunked
+  form on the tensor cores (each chunk's own state and dS part, the passes
+  over the chunk boundaries, the gradients a block per (b, chunk, group
+  of :data:`BWD_HEADS` heads), the sums over the groups and chunks);
+* ``"rec"`` (S < 64): the two kernels of
+  ``repro_torch/csrc/mamba2_ssd_bwd.cu`` (the reverse sweep, then the
+  sums over heads and over the batch).
+
+On a CPU tensor it runs :func:`ssd_bwd_plain`, the plain version of both.
+The reference has no backward kernel: XLA differentiates its chunked form.
+Such a call takes no ``state_out`` (the in-place decode step runs without
+a graph).
 """
 from __future__ import annotations
 
@@ -58,8 +69,16 @@ SIZES = (16, 32, 64, 128)    # the kernels' compiled state sizes and head dims
 TC_CHUNK = 64                # steps per chunk of the tc kernel
 TC_GRAM = 36 * 64            # G's 8x8 blocks on and under its diagonal
 _ENTRIES = {"tc": "rt_ssd_tc", "rec": "rt_ssd_fwd"}
-BWD_CHUNK = 16               # steps between the backward's checkpoints
-BWD_KERNELS = ("mamba2_ssd_bwd", "mamba2_ssd_bwd_sum")
+BWD_CHUNK = 16               # steps between the rec backward's checkpoints
+BWD_HEADS = 16               # heads a block of the tc backward
+# each backward route's kernels, in launch order; a launch is counted
+# under its kernel and under "<kernel>.<route>" ("mamba2_ssd_bwd.<route>":
+# one a call)
+BWD_KERNELS = {
+    "rec": ("mamba2_ssd_bwd", "mamba2_ssd_bwd_sum"),
+    "tc": ("mamba2_ssd_bwd_states", "mamba2_ssd_bwd_pass", "mamba2_ssd_bwd",
+           "mamba2_ssd_bwd_sum"),
+}
 
 
 def _check(x, b, c, dt, a, d, s0, state_out) -> None:
@@ -268,16 +287,26 @@ def ssd_bwd_plain(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     return dx, db, dc, ddt, da, dd, g
 
 
+def bwd_variant(s: int, hd: int, n: int) -> str:
+    """Which backward a CUDA call of length ``s``, head width ``hd`` and
+    state size ``n`` runs: ``"tc"`` (the chunked form's gradient on the
+    tensor cores) from one chunk of 64 steps up, at every ``hd`` and ``n``
+    of :data:`SIZES`, else ``"rec"`` (the reverse recurrence): the
+    forward's :func:`variant`."""
+    return "tc" if s >= TC_CHUNK else "rec"
+
+
 def ssd_bwd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
             dt: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
-            s0: torch.Tensor, dy: torch.Tensor, ds: torch.Tensor):
+            s0: torch.Tensor, dy: torch.Tensor, ds: torch.Tensor, *,
+            route: Optional[str] = None):
     """(dx, db, dc, ddt, da, dd, ds0) of :func:`ssd` at (x, b, c, dt, a, d,
     s0), from the gradients of y (``dy``, (B, S, H, hd)) and of the final
     state (``ds``, (B, H, N, hd)), float32, each contiguous. x, b, c and dt
-    may be the strided views :func:`ssd` takes. On a CUDA tensor two
-    kernels run: the reverse sweep (:data:`BWD_KERNELS` [0]: dx, ddt and
-    ds0, and each head's part of db and dc and each (b, h)'s of da and dd)
-    and the sums of those parts; on a CPU tensor, :func:`ssd_bwd_plain`."""
+    may be the strided views :func:`ssd` takes. On a CUDA tensor the
+    kernels of ``route`` (default: the one :func:`bwd_variant` picks;
+    another only to compare the two, and both take any S ≥ 1) run in turn
+    (:data:`BWD_KERNELS`); on a CPU tensor, :func:`ssd_bwd_plain`."""
     _check(x, b, c, dt, a, d, s0, None)
     for name, t, want in (("dy", dy, x.shape), ("ds", ds, s0.shape)):
         if (t.shape != want or t.dtype != torch.float32
@@ -301,6 +330,33 @@ def ssd_bwd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     ds0 = torch.empty_like(s0)
     if not (bb and h):
         return dx, db, dc, ddt, da, dd, ds0
+    route = route or bwd_variant(s, hd, n)
+    kernels = BWD_KERNELS[route]
+    strides = (x.stride(0), x.stride(1), b.stride(0), b.stride(1),
+               c.stride(0), c.stride(1), dt.stride(0), dt.stride(1))
+    inputs = tuple(t.data_ptr() for t in (x, b, c, dt, a, d, s0, dy, ds))
+    if route == "tc":
+        chunks, groups = -(-s // TC_CHUNK), -(-h // BWD_HEADS)
+        # each chunk's own state and dS part, then S_in and dS_out
+        # (B, H, chunks, N, hd); e^{cum_last} (B, H, chunks); each head
+        # group's parts of db and dc (groups, B, S, N); each (b, chunk,
+        # h)'s of da and dd (2, B chunks, H)
+        s_in, ds_out = (torch.empty(bb * h * chunks * n * hd,
+                                    dtype=torch.float32, device=dev)
+                        for _ in range(2))
+        elast = torch.empty(bb * h * chunks, dtype=torch.float32, device=dev)
+        db_part, dc_part = (torch.empty(groups * bb * s * n,
+                                        dtype=torch.float32, device=dev)
+                            for _ in range(2))
+        scal_part = torch.empty(2 * bb * chunks * h, dtype=torch.float32,
+                                device=dev)
+        ptrs = inputs + tuple(t.data_ptr() for t in (
+            dx, ddt, ds0, s_in, ds_out, elast, db_part, dc_part, scal_part,
+            db, dc, da, dd))
+        for which, kernel in enumerate(kernels):
+            _build.launch(kernel, "rt_ssd_bwd_tc", dev, *ptrs, bb, s, h, hd,
+                          n, *strides, which, variant=route)
+        return dx, db, dc, ddt, da, dd, ds0
     # db's and dc's part of each head, (B, S, H, N); da's and dd's of each
     # (b, h)
     db_part, dc_part = (torch.empty((bb, s, h, n), dtype=torch.float32,
@@ -311,15 +367,13 @@ def ssd_bwd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
                         dtype=torch.float32, device=dev)
     hist = torch.empty(bb * h * BWD_CHUNK * n * hd, dtype=torch.float32,
                        device=dev)
-    scan, total = BWD_KERNELS
-    _build.launch(scan, "rt_ssd_bwd", dev,
-                  *(t.data_ptr() for t in (x, b, c, dt, a, d, s0, dy, ds)),
+    scan, total = kernels
+    _build.launch(scan, "rt_ssd_bwd", dev, *inputs,
                   *(t.data_ptr() for t in (dx, ddt, ds0, db_part, dc_part,
                                            scal_part, marks, hist)),
-                  bb, s, h, hd, n, x.stride(0), x.stride(1), b.stride(0),
-                  b.stride(1), c.stride(0), c.stride(1), dt.stride(0),
-                  dt.stride(1))
+                  bb, s, h, hd, n, *strides, variant=route)
     _build.launch(total, "rt_ssd_bwd_sum", dev, db_part.data_ptr(),
                   dc_part.data_ptr(), scal_part.data_ptr(), db.data_ptr(),
-                  dc.data_ptr(), da.data_ptr(), dd.data_ptr(), bb, s, h, n)
+                  dc.data_ptr(), da.data_ptr(), dd.data_ptr(), bb, s, h, n,
+                  variant=route)
     return dx, db, dc, ddt, da, dd, ds0

@@ -1346,7 +1346,15 @@ WKV_BWD_CASES = [
     (4, 100, 40, 64, "model", 0.5),
 ]
 WKV_BWD = ("rwkv6_wkv_bwd", "rwkv6_wkv_bwd_sum")
-SSD_BWD = ("mamba2_ssd_bwd", "mamba2_ssd_bwd_sum")
+
+
+def _ssd_bwd_launched(route, n=1):
+    """``n`` launches of each SSD backward kernel of ``route`` (each also
+    under ``<kernel>.<route>``) and no others."""
+    torch.cuda.synchronize()
+    want = {k: n for k in SSD.BWD_KERNELS[route]}
+    want.update({f"{k}.{route}": n for k in SSD.BWD_KERNELS[route]})
+    assert dict(_build.launches) == want, dict(_build.launches)
 
 
 def _grads_close(got, want):
@@ -1438,9 +1446,9 @@ def test_wkv_bwd_with_no_steps_returns_the_state_gradient(dev):
     assert not bool(du.any())
 
 
-# (B, S, H, hd, N, dt, s0, strided) of the SSD backward: S = 1, 63, 64,
-# 65 and 4096, every hd and N, dt tiny and huge, s0 zero, the model's
-# strided views, B * H under one wave and zamba2-7b's 112 heads
+# (B, S, H, hd, N, dt, s0, strided) of the SSD backward: S = 1, 63 (rec),
+# 64, 65 and 4096 (tc), every hd and N, dt tiny and huge, s0 zero, the
+# model's strided views, B * H under one wave and zamba2-7b's 112 heads
 SSD_BWD_CASES = [
     (2, 1, 3, 64, 64, "model", "random", False),
     (2, 63, 3, 64, 64, "model", "random", False),
@@ -1468,11 +1476,67 @@ def _ssd_bwd_inputs(case, dev):
 def test_ssd_bwd_kernels_match_plain(dev, case):
     args = _ssd_bwd_inputs(case, dev)
     got = SSD.ssd_bwd(*args)
-    _bwd_launched(SSD_BWD)
+    _ssd_bwd_launched(SSD.bwd_variant(case[1], case[3], case[4]))
     _grads_close(got, SSD.ssd_bwd_plain(*args))
 
 
-@pytest.mark.parametrize("case", SSD_BWD_CASES[3:5],
+@pytest.mark.parametrize("hd", SSD.SIZES)
+@pytest.mark.parametrize("n", SSD.SIZES)
+def test_ssd_bwd_tc_matches_plain_at_every_size(dev, hd, n):
+    """The tc route at every compiled (hd, N), 130 steps: two chunks and a
+    ragged third, against the plain backward in float64. At 2 heads da is
+    a sum of terms many times its size, and the float32 plain backward
+    lies up to 2.3e-5 of its largest from float64 on such inputs (the tc
+    route within 1e-6: ``chip_smoke.py`` (k2)'s lines), so float64 is the
+    reference here."""
+    args = _ssd_bwd_inputs((1, 130, 2, hd, n, "model", "random", False),
+                           dev)
+    got = SSD.ssd_bwd(*args)
+    _ssd_bwd_launched("tc")
+    exact = SSD.ssd_bwd_plain(*(t.double() for t in args))
+    _grads_close([g.double() for g in got], exact)
+
+
+@pytest.mark.parametrize("s", [1, 40, 63, 64, 65, 200])
+def test_ssd_bwd_routes_by_length(dev, s):
+    """rec below 64 steps, tc from 64 up: each call on its route's kernels
+    alone."""
+    args = _ssd_bwd_inputs((1, s, 3, 64, 64, "model", "random", False), dev)
+    got = SSD.ssd_bwd(*args)
+    _ssd_bwd_launched("tc" if s >= 64 else "rec")
+    _grads_close(got, SSD.ssd_bwd_plain(*args))
+
+
+def test_ssd_bwd_groups_of_heads_sum_in_order(dev):
+    """20 heads: two head groups of the tc gradient kernel, their parts of
+    db and dc summed by the sum kernel; equal bits twice."""
+    args = _ssd_bwd_inputs((2, 130, 20, 64, 64, "model", "random", True),
+                           dev)
+    got = SSD.ssd_bwd(*args)
+    _ssd_bwd_launched("tc")
+    _grads_close(got, SSD.ssd_bwd_plain(*args))
+    again = SSD.ssd_bwd(*args)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_ssd_bwd_tc_takes_rows_off_16_byte_alignment(dev):
+    """x, b and c as views one float into wider rows: the tc route stages
+    them 4 bytes at a time, with the same bits as from aligned copies."""
+    x, bm, cm, dtv, a, d, st, dy, ds = _ssd_bwd_inputs(
+        (2, 130, 3, 64, 64, "model", "random", False), dev)
+    pad = torch.zeros((2, 130, 1), device=dev)
+    xv = torch.cat([pad, x.flatten(2)], -1)[..., 1:].unflatten(-1, (3, 64))
+    bv = torch.cat([pad, bm], -1)[..., 1:]
+    cv = torch.cat([pad, cm], -1)[..., 1:]
+    assert xv.data_ptr() % 16 and bv.data_ptr() % 16 and cv.data_ptr() % 16
+    got = SSD.ssd_bwd(xv, bv, cv, dtv, a, d, st, dy, ds)
+    _ssd_bwd_launched("tc")
+    want = SSD.ssd_bwd(x, bm, cm, dtv, a, d, st, dy, ds)
+    assert all(torch.equal(p, q) for p, q in zip(got, want))
+    _grads_close(got, SSD.ssd_bwd_plain(x, bm, cm, dtv, a, d, st, dy, ds))
+
+
+@pytest.mark.parametrize("case", SSD_BWD_CASES[1:5],
                          ids=lambda c: "-".join(map(str, c)))
 def test_ssd_bwd_gives_the_same_bits_twice(dev, case):
     args = _ssd_bwd_inputs(case, dev)
@@ -1497,18 +1561,22 @@ def test_ssd_bwd_tiny_dt_against_float64(dev):
 
 def test_ssd_autograd_on_card_runs_the_backward_kernels(dev):
     """An SSD call on the model's strided views that needs a gradient: the
-    forward runs its kernel, the backward the two backward kernels alone,
-    the gradients contiguous and equal to the plain backward's."""
-    x, b, c, dt, a, d, s0, dy, ds = _ssd_bwd_inputs(
-        (2, 100, 4, 64, 64, "model", "random", True), dev)
-    ins = [t.detach().requires_grad_() for t in (x, b, c, dt, a, d, s0)]
-    y, st = SSD.ssd(*ins)
-    assert y.grad_fn is not None
-    _ran("tc")
-    _build.reset_launches()
-    grads = torch.autograd.grad((y * dy).sum() + (st * ds).sum(), ins)
-    _bwd_launched(SSD_BWD)
-    _grads_close(grads, SSD.ssd_bwd_plain(x, b, c, dt, a, d, s0, dy, ds))
+    forward runs its kernel, the backward its route's kernels alone (tc at
+    100 steps, rec at 40), the gradients contiguous and equal to the plain
+    backward's."""
+    for s, route in ((100, "tc"), (40, "rec")):
+        x, b, c, dt, a, d, s0, dy, ds = _ssd_bwd_inputs(
+            (2, s, 4, 64, 64, "model", "random", True), dev)
+        ins = [t.detach().requires_grad_() for t in (x, b, c, dt, a, d, s0)]
+        _build.reset_launches()
+        y, st = SSD.ssd(*ins)
+        assert y.grad_fn is not None
+        _ran(route)
+        _build.reset_launches()
+        grads = torch.autograd.grad((y * dy).sum() + (st * ds).sum(), ins)
+        _ssd_bwd_launched(route)
+        _grads_close(grads, SSD.ssd_bwd_plain(x, b, c, dt, a, d, s0, dy,
+                                              ds))
     with pytest.raises(ValueError, match="state_out"):
         SSD.ssd(*ins, state_out=torch.empty_like(s0))
 

@@ -28,6 +28,7 @@ from repro.kernels.mamba2_ssd import ref as rref
 from repro_torch.kernels import _build
 from repro_torch.kernels.mamba2_ssd import ops as SSD
 from repro_torch.obs import metrics as obs_metrics
+from tf32_emulation import mm as _mm
 
 TOL = 1e-5
 B, H, HD, N = 2, 3, 16, 16
@@ -212,24 +213,6 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad, match):
     with pytest.raises((ValueError, TypeError), match=match):
         SSD.ssd(x, bm, torch.zeros((2, 4, n)), torch.zeros((2, 4, 3)), a,
                 torch.zeros(3), s0)
-
-
-def _tf32(v: torch.Tensor) -> torch.Tensor:
-    """float32 -> the nearest TF32 value (10 mantissa bits, ties away from
-    zero), as cvt.rna.tf32.f32: add 0x1000 to the bits, clear the low 13."""
-    bits = v.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _mm(a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
-    """a @ b on the tensor cores' TF32: one term hi·hi, or three, hi·hi +
-    hi·lo + lo·hi with hi = tf32(v), lo = tf32(v - hi). A product of two
-    TF32 values is exact in float32; the sums are float32."""
-    ahi, bhi = _tf32(a), _tf32(b)
-    if terms == 1:
-        return ahi @ bhi
-    alo, blo = _tf32(a - ahi), _tf32(b - bhi)
-    return alo @ bhi + ahi @ blo + ahi @ bhi
 
 
 def _chunked_tf32(args, terms=3, chunk=SSD.TC_CHUNK):
