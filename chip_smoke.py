@@ -208,34 +208,39 @@ Phases (any failure raises and ends the run with a nonzero exit):
    call) and a float32 shape (scalar), timed per kernel and summed beside
    the plain version, the SDPA backward and the bounds;
 18. RWKV6 and zamba2 training (``[train-ssm]`` lines): (k2) the WKV and
-   SSD backward kernels (``csrc/rwkv6_wkv_bwd.cu``,
-   ``csrc/mamba2_ssd_bwd.cu``: the reverse sweep, then the sums across
-   blocks; the SSD backward's tc route from 64 steps up,
-   ``csrc/mamba2_ssd_bwd_tc.cu``: chunk states, the passes over the chunk
-   boundaries, the gradients, the sums) against ``wkv_bwd_plain`` and
-   ``ssd_bwd_plain`` at edge cases (S = 1, 63, 64, 65, 130 and 4096,
-   every compiled head and state size on both SSD routes, w = 0 every
-   third step and w within 1e-6 of 1, dt tiny and huge, s0 zero, the
-   model's strided views), each call on its route's kernels alone, every
-   gradient within 1e-5 of its largest magnitude, two calls bit for bit;
-   4096 steps of w near 1 and of tiny dt against a float64 plain backward
-   (within twice the float32 plain version's own distance); seven planted
-   faults (a reverse step dropped, dS not decayed, one head's part of db
-   left out, a chunk boundary's dS not passed on, one head group's part
-   of db left out) failing the check; (f2) float32 gradients of rwkv6-3b (4 of
+   SSD backward kernels against ``wkv_bwd_plain`` and ``ssd_bwd_plain``
+   at edge cases, each backward on one of two routes by length: rec below
+   64 steps (``csrc/rwkv6_wkv_bwd.cu``, ``csrc/mamba2_ssd_bwd.cu``: the
+   reverse sweep, then the sums across blocks) and tc from 64 steps up
+   (``csrc/rwkv6_wkv_bwd_tc.cu``, ``csrc/mamba2_ssd_bwd_tc.cu``: chunk
+   states, the passes over the chunk boundaries, the gradients, the
+   sums): S = 1, 17, 40, 63 (rec), 64, 65, 130 and 4096 (tc), every
+   compiled head and state size on both routes (the WKV tc route at
+   S = 130 at every hd with each decay), w = 0 every third step and w
+   within 1e-6 of 1, dt tiny and huge, s0 zero, the model's strided
+   views; each call on its route's kernels alone (launches asserted per
+   route), every gradient within 1e-5 of its largest magnitude, two calls
+   bit for bit; 4096 steps of w near 1 and of tiny dt (both on tc)
+   against a float64 plain backward (within twice the float32 plain
+   version's own distance); nine planted faults (a reverse step dropped,
+   dS not decayed, one head's part of db left out, and on the tc routes a
+   chunk boundary's dS or G_out not passed on, one head group's part of
+   db left out, dw's pairs inside a sub-chunk left out) failing the
+   check; (f2) float32 gradients of rwkv6-3b (4 of
    32 layers) and zamba2-7b (6 of 81) at full width, 1 x 1024 tokens, the
-   kernels against autograd through the plain versions on the card and
-   against the CPU, every leaf within 1e-4 of its largest (rwkv6-3b, whose
-   float32 gradient moves 2e-4 to 4e-4 with the order of sums alone:
-   within 2 N and 3 N, N the plain card run's distance from the CPU in
-   the same run); (t2) rwkv6-3b at full width and depth
-   and (t3) zamba2-7b at full width and 24 of 81 layers, each 8 steps of
-   4 x 4096 tokens through ``TrainSupervisor`` (rwkv6-3b through
-   ``launch.train.build``), with the launch counts of every kernel of
-   the path, step walls, tokens/s, peak memory, a profiled step and the
-   loss checks of (t); then the backward kernels timed at those shapes
-   (the SSD backward's two routes on the same call) and the flash tc
-   backward at zamba2-7b's D = 112.
+   kernels (both backwards on tc) against autograd through the plain
+   versions on the card and against the CPU, every leaf within 1e-4 of
+   its largest (rwkv6-3b, whose float32 gradient moves 2e-4 to 4e-4 with
+   the order of sums alone: within 2 N and 3 N, N the plain card run's
+   distance from the CPU in the same run); (t2) rwkv6-3b at full width
+   and depth and (t3) zamba2-7b at full width and 24 of 81 layers, each 8
+   steps of 4 x 4096 tokens through ``TrainSupervisor`` (rwkv6-3b through
+   ``launch.train.build``), with the launch counts of every kernel of the
+   path by route (both backwards on tc, none on rec), step walls,
+   tokens/s, peak memory, a profiled step and the loss checks of (t);
+   then the backward kernels timed at those shapes (each backward's two
+   routes on the same call, in turns) and the flash tc backward at
+   zamba2-7b's D = 112.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -3982,26 +3987,33 @@ SSM_F32_SEQ = 1024
 # magnitude: the plain version is the same float32 recurrence, its sums in
 # another order (the forwards' mark, 1e-5 of y's largest)
 SSM_GRAD_REL = 1e-5
-WKV_BWD = ("rwkv6_wkv_bwd", "rwkv6_wkv_bwd_sum")
-# the SSD backward's kernels by route (ops.BWD_KERNELS), the device
-# operations each launches, and their sources
+# the WKV and SSD backward's kernels by route (ops.BWD_KERNELS), the
+# device operations each launches, and their sources
+WKV_BWD = {"rec": ("rwkv6_wkv_bwd", "rwkv6_wkv_bwd_sum"),
+           "tc": ("rwkv6_wkv_bwd_states", "rwkv6_wkv_bwd_pass",
+                  "rwkv6_wkv_bwd", "rwkv6_wkv_bwd_sum")}
 SSD_BWD = {"rec": ("mamba2_ssd_bwd", "mamba2_ssd_bwd_sum"),
            "tc": ("mamba2_ssd_bwd_states", "mamba2_ssd_bwd_pass",
                   "mamba2_ssd_bwd", "mamba2_ssd_bwd_sum")}
-WKV_BWD_PARTS = ("wkv_bwd_kernel", "wkv_bwd_sum_kernel")
+WKV_BWD_PARTS = {"rec": ("wkv_bwd_kernel", "wkv_bwd_sum_kernel"),
+                 "tc": ("wkv_bwd_tc_states_kernel", "wkv_bwd_tc_pass_kernel",
+                        "wkv_bwd_tc_kernel", "wkv_bwd_tc_sum_kernel")}
 SSD_BWD_PARTS = {"rec": ("ssd_bwd_kernel", "ssd_bwd_sum_kernel"),
                  "tc": ("ssd_bwd_tc_states_kernel", "ssd_bwd_tc_pass_kernel",
                         "ssd_bwd_tc_kernel", "ssd_bwd_tc_sum_kernel")}
-WKV_BWD_SRC = "src/repro_torch/csrc/rwkv6_wkv_bwd.cu"
+WKV_BWD_SRC = {"rec": "src/repro_torch/csrc/rwkv6_wkv_bwd.cu",
+               "tc": "src/repro_torch/csrc/rwkv6_wkv_bwd_tc.cu"}
 SSD_BWD_SRC = {"rec": "src/repro_torch/csrc/mamba2_ssd_bwd.cu",
                "tc": "src/repro_torch/csrc/mamba2_ssd_bwd_tc.cu"}
 # no Pallas kernel: the reference differentiates these scans with XLA
 WKV_BWD_REPLACES = "src/repro/models/rwkv.py:94"
 SSD_BWD_REPLACES = "src/repro/models/ssm.py:82"
-# (B, S, H, hd, decay, s0 scale) of (k2) on the WKV backward: S = 1, 63,
-# 64, 65 and 4096 (marks every 16 steps, ragged last chunks), every hd, w =
-# 0 every third step, w within 1e-6 of 1, s0 zero, B * H = 1 and 2 blocks
-# (under one wave) and rwkv6-3b's 160
+# (B, S, H, hd, decay, s0 scale) of (k2) on the WKV backward: S = 1, 17,
+# 40 and 63 (rec: marks every 16 steps, ragged last chunks), 64, 65, 130
+# and 4096 (tc: chunks of 64, ragged last chunks), every hd, w = 0 every
+# third step, w within 1e-6 of 1, s0 zero, B * H = 1 and 2 blocks (under
+# one wave) and rwkv6-3b's 160; then S = 130 at every hd and each decay
+# on tc (two chunks of 64 and a ragged third; five of 32 at hd 128)
 WKV_BWD_EDGES = [
     (2, 1, 3, 64, "model", 0.5),
     (2, 63, 3, 64, "model", 0.5),
@@ -4013,7 +4025,9 @@ WKV_BWD_EDGES = [
     (1, 65, 2, 128, "model", 0.0),
     (1, 17, 1, 64, "model", 0.5),
     (4, 130, 40, 64, "model", 0.5),
-]
+    (1, 130, 2, 32, "model", 0.0),
+] + [(1, 130, 2, hd, decay, 0.5) for hd in (16, 32, 64, 128)
+     for decay in ("model", "zero", "near1")]
 # (B, S, H, hd, N, dt, s0, strided) of (k2) on the SSD backward: S = 1, 63
 # (rec), 64, 65 and 4096 (tc), dt tiny and huge, s0 zero, the model's
 # strided views, B * H = 1 (under one wave) and zamba2-7b's 112 heads;
@@ -4034,7 +4048,7 @@ SSD_BWD_EDGES = [
 # reference)
 WKV_BWD_LONG = (1, 4096, 2, 64, "near1", 0.5)
 SSD_BWD_LONG = (1, 4096, 2, 64, 64, "tiny", "random", False)
-# (k2)'s planted faults, at S = 65
+# (k2)'s planted faults, at S = 65 (the WKV backward there on tc)
 WKV_BWD_FAULT_CASE = (2, 65, 3, 64, "model", 0.5)
 SSD_BWD_FAULT_CASE = (2, 65, 3, 64, 64, "model", "random", False)
 # the tc route's head-group fault: 20 heads, groups of 16 and 4
@@ -4070,14 +4084,40 @@ def _grads_err(got, want, what) -> tuple:
 
 def _wkv_bwd_fault(args, fault):
     """``wkv_bwd_plain``'s reverse recurrence, every state kept, with one
-    planted fault: ``"step dropped"`` (the reverse step at S/2 skipped) or
-    ``"no decay"`` (G <- G + r dyᵀ, without diag(w)); None for none."""
+    planted fault: ``"step dropped"`` (the reverse step at S/2 skipped),
+    ``"no decay"`` (G <- G + r dyᵀ, without diag(w)), ``"boundary"`` (the
+    last chunk of 64 steps does not pass on the G it received: G leaves
+    it with only its own steps' part, the tc route's G_out(c - 1) =
+    (r ∘ P⁻)ᵀ dY without diag(F) G_out(c)) or ``"pairs"`` (dw without its
+    pairs s < t < s' inside a sub-chunk of 16 steps: the tc route's
+    running products of those pairs left out); None for none."""
     r, k, v, w, u, s0, dy, ds = args
     s = r.shape[1]
+    sub = 16
     states = [s0]
     for t in range(s - 1):
         states.append(w[:, t, :, :, None] * states[-1]
                       + k[:, t, :, :, None] * v[:, t, :, None, :])
+    # the pairs' part of dw_t: <G, S> of the sub-chunk's own steps alone,
+    # the state from its start, the gradient from its end
+    pairs = torch.zeros_like(r)
+    if fault == "pairs":
+        inner = []
+        for t in range(s):
+            if t % sub == 0:
+                st = torch.zeros_like(s0)
+            inner.append(st)
+            st = (w[:, t, :, :, None] * st
+                  + k[:, t, :, :, None] * v[:, t, :, None, :])
+        gi = torch.zeros_like(ds)
+        for t in reversed(range(s)):
+            if t % sub == sub - 1 or t == s - 1:
+                gi = torch.zeros_like(ds)
+            pairs[:, t] = (gi * inner[t]).sum(-1)
+            gi = (w[:, t, :, :, None] * gi
+                  + r[:, t, :, :, None] * dy[:, t, :, None, :])
+    first = (s - 1) // 64 * 64               # the last chunk's first step
+    carried = ds.clone()                     # what reached it, decayed
     g = ds.clone()
     dr, dk, dv, dw = (torch.zeros_like(r) for _ in range(4))
     du = torch.zeros_like(u)
@@ -4091,10 +4131,13 @@ def _wkv_bwd_fault(args, fault):
         dk[:, t] = u * rt * vdy + torch.einsum("bhij,bhj->bhi", g, vt)
         dv[:, t] = ((u * rt * kt).sum(-1, keepdim=True) * dyt
                     + torch.einsum("bhij,bhi->bhj", g, kt))
-        dw[:, t] = (g * sp).sum(-1)
+        dw[:, t] = (g * sp).sum(-1) - pairs[:, t]
         du += (rt * kt * vdy).sum(0)
         decay = 1.0 if fault == "no decay" else wt[..., None]
         g = decay * g + rt[..., None] * dyt[:, :, None, :]
+        carried = wt[..., None] * carried
+        if fault == "boundary" and t == first and t > 0:
+            g = g - carried
     return dr, dk, dv, dw, du, g
 
 
@@ -4143,20 +4186,22 @@ def _ssd_bwd_fault(args, fault):
     return dx, db, dc, ddt, da, dd, g
 
 
-def _ssd_bwd_launches(route, n=1) -> dict:
-    """The launch counts ``n`` SSD backward calls on ``route`` add: each of
-    its kernels and its ``<kernel>.<route>`` n times, nothing else."""
-    want = {k: n for k in SSD_BWD[route]}
-    want.update({f"{k}.{route}": n for k in SSD_BWD[route]})
+def _bwd_launches(kernels, route, n=1) -> dict:
+    """The launch counts ``n`` backward calls on ``route`` add, with
+    ``kernels`` a backward's kernels by route (WKV_BWD, SSD_BWD): each of
+    the route's kernels and its ``<kernel>.<route>`` n times, nothing
+    else."""
+    want = {k: n for k in kernels[route]}
+    want.update({f"{k}.{route}": n for k in kernels[route]})
     return want
 
 
-def ssm_bwd_edges() -> dict:
+def ssm_bwd_edges() -> tuple:
     """(k2) each backward at its edges against its plain version on the
     card (each call on its route's kernels alone, two calls bit for bit),
-    the long cases against a float64 plain backward, and seven planted
-    faults that must fail the check. Returns the launches of the SSD
-    edges by route."""
+    the long cases against a float64 plain backward, and nine planted
+    faults that must fail the check. Returns the launches of the WKV and
+    of the SSD edges."""
     from repro_torch.kernels import _build
     from repro_torch.kernels.mamba2_ssd import ops as SSD
     from repro_torch.kernels.rwkv6_wkv import ops as W
@@ -4165,7 +4210,11 @@ def ssm_bwd_edges() -> dict:
     ops = {"WKV": (W.wkv_bwd, W.wkv_bwd_plain, _wkv_inputs),
            "SSD": (SSD.ssd_bwd, SSD.ssd_bwd_plain, _ssd_inputs)}
     edges = {"WKV": WKV_BWD_EDGES, "SSD": SSD_BWD_EDGES}
-    ssd_launches = collections.Counter()
+    kernels_of = {"WKV": WKV_BWD, "SSD": SSD_BWD}
+    route_of = {"WKV": lambda e: W.bwd_variant(e[1], e[3]),
+                "SSD": lambda e: SSD.bwd_variant(e[1], e[3], e[4])}
+    edge_launches = {"WKV": collections.Counter(),
+                     "SSD": collections.Counter()}
     for name, (bwd, plain, make) in ops.items():
         worst = collections.defaultdict(lambda: (0.0, 0.0))
         for case in edges[name]:
@@ -4173,12 +4222,9 @@ def ssm_bwd_edges() -> dict:
             _build.reset_launches()
             got = bwd(*args)
             torch.cuda.synchronize()
-            if name == "WKV":
-                route, want = "", {k: 1 for k in WKV_BWD}
-            else:
-                route = SSD.bwd_variant(case[1], case[3], case[4])
-                want = _ssd_bwd_launches(route)
-                ssd_launches.update(_build.launches)
+            route = route_of[name](case)
+            want = _bwd_launches(kernels_of[name], route)
+            edge_launches[name].update(_build.launches)
             assert dict(_build.launches) == want, \
                 (case, dict(_build.launches))
             err = _grads_err(got, plain(*args), (name, case))
@@ -4187,11 +4233,10 @@ def ssm_bwd_edges() -> dict:
             assert all(torch.equal(p, q) for p, q in zip(got, again)), \
                 (name, case, "two calls differ")
         for route, (abs_err, rel) in sorted(worst.items()):
-            kernels = SSD_BWD[route] if route else WKV_BWD
-            count = sum(name == "WKV" or SSD.bwd_variant(
-                e[1], e[3], e[4]) == route for e in edges[name])
+            kernels = kernels_of[name][route]
+            count = sum(route_of[name](e) == route for e in edges[name])
             log(f"[train-ssm] check (k2): the {name} backward kernels "
-                f"({', '.join(kernels)}{f'; route {route}' if route else ''}"
+                f"({', '.join(kernels)}; route {route}"
                 f") match the plain backward at {count} edges, each call on "
                 f"its route's kernels alone: largest abs diff "
                 f"{abs_err:.3e}, every gradient within {rel:.3e} of its "
@@ -4255,6 +4300,10 @@ def ssm_bwd_edges() -> dict:
             ssd_got, _ssd_bwd_fault(ssd_args, "boundary")),
         "SSD tc: one head group's part of db left out": (
             no_group0, SSD.ssd_bwd_plain(*grp_args)),
+        "WKV tc: a chunk boundary's G_out not passed on": (
+            wkv_got, _wkv_bwd_fault(wkv_args, "boundary")),
+        "WKV tc: dw's pairs inside a sub-chunk left out": (
+            wkv_got, _wkv_bwd_fault(wkv_args, "pairs")),
     }
     # the faulty recurrences without their fault pass the check
     _grads_err(wkv_got, _wkv_bwd_fault(wkv_args, None), "WKV unfaulted")
@@ -4266,11 +4315,12 @@ def ssm_bwd_edges() -> dict:
         except AssertionError:
             continue
         raise AssertionError(f"check (k2) passes a planted fault: {fault}")
+    assert W.bwd_variant(WKV_BWD_FAULT_CASE[1], WKV_BWD_FAULT_CASE[3]) == "tc"
     log(f"[train-ssm] check (k2): {len(faults)} of {len(faults)} planted "
-        f"faults fail it at S = 65 (the group's at S = 130, 20 heads) "
-        f"({'; '.join(faults)}); the faulty recurrences without their "
-        "fault pass")
-    return dict(ssd_launches)
+        f"faults fail it at S = 65 (the group's at S = 130, 20 heads; the "
+        f"WKV kernels on tc) ({'; '.join(faults)}); the faulty recurrences "
+        "without their fault pass")
+    return dict(edge_launches["WKV"]), dict(edge_launches["SSD"])
 
 
 @contextlib.contextmanager
@@ -4344,13 +4394,13 @@ def ssm_f32_grads() -> dict:
         ran = res["kernels"][3]
         if cfg.rwkv:
             want = {"rwkv6_wkv.tc": 2 * layers}         # + the remat
-            want.update({k: layers for k in WKV_BWD})
+            want.update(_bwd_launches(WKV_BWD, "tc", layers))
         else:
             apps = transformer.n_shared_apps(cfg)
             fvar = FA.variant(F32, SSM_F32_SEQ, 1, cfg.resolved_head_dim)
             want = {"mamba2_ssd.tc": 2 * layers,
                     f"flash_attention_fwd.{fvar}": 2 * apps}
-            want.update(_ssd_bwd_launches("tc", layers))
+            want.update(_bwd_launches(SSD_BWD, "tc", layers))
             want.update({k: c for k, c in _bwd_route_counts(
                 FA, FA.bwd_variant(F32, SSM_F32_SEQ, 1,
                                    cfg.resolved_head_dim), apps).items()
@@ -4429,9 +4479,11 @@ def ssm_training_runs() -> tuple:
         n = cfg.n_layers * steps
         assert launches.get("rwkv6_wkv.tc") == 2 * n, launches
         assert launches.get("rwkv6_wkv") == 2 * n, launches
-        for k in WKV_BWD:
-            assert launches.get(k) == n, (k, launches)
-        return "WKV forward on tc, the WKV backward kernels"
+        for k, c in _bwd_launches(WKV_BWD, "tc", n).items():
+            assert launches.get(k) == c, (k, launches)
+        assert not any(k.endswith(".rec") and k.startswith("rwkv6_wkv_bwd")
+                       for k in launches), launches
+        return "WKV forward on tc, the WKV backward on tc"
     rwkv = supervised_training("train-ssm", "(t2)", built, t0, SSM_BATCH,
                                SSM_SEQ, steps, check_rwkv, "wkv_bwd",
                                "the time mix in float32")
@@ -4453,7 +4505,7 @@ def ssm_training_runs() -> tuple:
         n = zcfg.n_layers * steps
         assert launches.get("mamba2_ssd.tc") == 2 * n, launches
         assert launches.get("mamba2_ssd") == 2 * n, launches
-        for k, c in _ssd_bwd_launches("tc", n).items():
+        for k, c in _bwd_launches(SSD_BWD, "tc", n).items():
             assert launches.get(k) == c, (k, launches)
         assert not any(k.endswith(".rec") and k.startswith("mamba2_ssd_bwd")
                        for k in launches), launches
@@ -4480,6 +4532,60 @@ def _wkv_bwd_cost(b, s, h, hd):
     (G, dr, dk, dv, dw), 12 in all."""
     return (4 * (9 * b * s * h * hd + 2 * h * hd + 3 * b * h * hd * hd),
             12 * b * s * h * hd * hd)
+
+
+def _wkv_bwd_tc_cost(b, s, h, hd, sub=16) -> dict:
+    """Bytes (each tensor a kernel reads or writes, once) and the least
+    time of its operations, by kernel of the tc route, a multiply-add
+    counted as two: TF32 tensor-core products as three TF32 products over
+    495 TFLOP/s, scalar float32 work over 67 TFLOP/s, the two times added.
+    Per (b, h) and chunk of L steps in m sub-chunks: (a) (k ∘ P⁺)ᵀ V and
+    (r ∘ P⁻)ᵀ dY (L hd^2 each); (c) dY S_inᵀ, V G_outᵀ and (k ∘ P⁺) G_out
+    (L hd^2 each), D's and Aᵀ dY's blocks on and under the diagonal (256 hd
+    a block each), the products across sub-chunks (Y's, X's and A's, 256
+    hd a pair of sub-chunks each), and in float32 the running products of
+    each sub-chunk of n steps and row: dw's pairs, dr's and dk's inner sums
+    (9 operations a pair), A's diagonal blocks (4 a pair), and a step's
+    own terms (about 24). The passes: a multiply-add an element and chunk
+    of each of the two scratches; the sum: an add a part, over 67 TFLOP/s
+    float32. Returns {kernel: (bytes, ops, seconds of ops, what the ops
+    are)}."""
+    from repro_torch.kernels.rwkv6_wkv import ops as W
+
+    chunk = W.BWD_TC_CHUNK[hd]
+    chunks = -(-s // chunk)
+    states = grad32 = scalar = 0
+    for t0 in range(0, s, chunk):
+        ln = min(chunk, s - t0)
+        subs = [min(sub, ln - o) for o in range(0, ln, sub)]
+        m = len(subs)
+        pairs = m * (m - 1) // 2
+        states += b * h * 2 * ln * hd * hd
+        grad32 += b * h * (3 * ln * hd * hd + 256 * hd * (m * (m + 1)
+                                                          + 3 * pairs))
+        scalar += b * h * hd * sum(13 * n * (n - 1) // 2 + 24 * n
+                                   for n in subs)
+    xs, sts = b * s * h * hd, b * h * chunks * hd * hd
+    parts = b * chunks * h * hd
+    g_sec = 6 * grad32 / TF32_OPS_PER_S + scalar / SCALAR_OPS_PER_S
+    return {
+        "rwkv6_wkv_bwd_states": (
+            4 * (5 * xs + 2 * sts + b * h * chunks * hd),
+            6 * states, 6 * states / TF32_OPS_PER_S,
+            "three-term TF32 tensor-core operations / 495 TFLOP/s"),
+        "rwkv6_wkv_bwd_pass": (
+            4 * (4 * sts + b * h * chunks * hd + 3 * b * h * hd * hd),
+            4 * sts, 4 * sts / SCALAR_OPS_PER_S,
+            "operations / 67 TFLOP/s float32"),
+        "rwkv6_wkv_bwd": (
+            4 * (9 * xs + 2 * sts + h * hd + parts),
+            6 * grad32 + scalar, g_sec, "three-term TF32 tensor-core "
+            "operations / 495 TFLOP/s plus float32 running products / 67 "
+            "TFLOP/s"),
+        "rwkv6_wkv_bwd_sum": (
+            4 * (parts + h * hd), parts, parts / SCALAR_OPS_PER_S,
+            "operations / 67 TFLOP/s float32"),
+    }
 
 
 def _ssd_bwd_cost(b, s, h, hd, n):
@@ -4543,17 +4649,16 @@ def _ssd_bwd_tc_cost(b, s, h, hd, n, chunk=64, heads=16) -> dict:
     }
 
 
-def ssm_bwd_rows(rows, wkv_launches, ssd_launches, ssd_edge_launches
-                 ) -> None:
+def ssm_bwd_rows(rows, wkv_launches, ssd_launches, wkv_edge_launches,
+                 ssd_edge_launches) -> None:
     """The WKV backward at (t2)'s shape and the SSD backward at (t3)'s,
-    the SSD backward on both routes on the same call (rec, tc, tc, rec):
-    each against its plain version, each kernel's device time per call
-    (profiler), the call with launch overhead (CUDA events), the plain
-    version's time (host clock: a Python loop over the steps), the
-    bounds, and the launches (the main paths'; the SSD rec kernels, which
-    no training path runs, (k2)'s edges'); a row of the kernels
-    line per kernel of each route (no PyTorch call computes either
-    function)."""
+    each on both routes on the same call (rec, tc, tc, rec): each against
+    its plain version, each kernel's device time per call (profiler), the
+    call with launch overhead (CUDA events), the plain version's time
+    (host clock: a Python loop over the steps), the bounds, and the
+    launches (the main paths'; the rec kernels, which no training path
+    runs, (k2)'s edges'); a row of the kernels line per kernel of each
+    route (no PyTorch call computes either function)."""
     from repro_torch import configs
     from repro_torch.kernels.mamba2_ssd import ops as SSD
     from repro_torch.kernels.rwkv6_wkv import ops as W
@@ -4561,46 +4666,85 @@ def ssm_bwd_rows(rows, wkv_launches, ssd_launches, ssd_edge_launches
 
     gen = torch.Generator(device="cuda").manual_seed(31)
     rcfg, zcfg = configs.get("rwkv6-3b"), configs.get("zamba2-7b")
-    # the WKV backward
+    # the WKV backward, both routes on the same call
     case = (SSM_BATCH, SSM_SEQ, rwkv.n_heads(rcfg), rcfg.rwkv_head_dim,
             "model", 0.5)
+    b, s, h, hd = case[:4]
+    assert W.bwd_variant(s, hd) == "tc"
     args = _with_cotangents(_wkv_inputs(case, gen), gen)
-    got = W.wkv_bwd(*args)
-    torch.cuda.synchronize()
     t = time.perf_counter()
     want = W.wkv_bwd_plain(*args)
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t) * 1e3
-    err, rel = _grads_err(got, want, ("WKV", "rwkv6-3b"))
-    del got, want
-    dev = device_ms_parts(lambda: W.wkv_bwd(*args), WKV_BWD_PARTS, reps=3)
-    assert all(dev[p] > 0 for p in WKV_BWD_PARTS), dev
-    events = call_ms(lambda: W.wkv_bwd(*args), reps=3, runs=3)
-    b, s, h, hd = case[:4]
-    n_bytes, n_ops = _wkv_bwd_cost(b, s, h, hd)
-    costs = ((n_bytes, n_ops),
-             (4 * (b * h * hd + h * hd), b * h * hd))
+    errs = {}
+    for route in ("tc", "rec"):
+        errs[route] = _grads_err(W.wkv_bwd(*args, route=route), want,
+                                 ("WKV", route))
+    del want
+    dev, events = {}, collections.defaultdict(list)
+    for route in ("rec", "tc", "tc", "rec"):
+        run = functools.partial(W.wkv_bwd, *args, route=route)
+        got = device_ms_parts(run, WKV_BWD_PARTS[route], reps=3)
+        assert all(got[p] > 0 for p in WKV_BWD_PARTS[route]), (route, got)
+        dev.setdefault(route, []).append(got)
+        events[route].append(call_ms(run, reps=3, runs=3))
     shape = f"B={b}, S={s}, H={h}, hd={hd}"
-    for kernel, part, (nb, no) in zip(WKV_BWD, WKV_BWD_PARTS, costs):
-        t_bytes, t_ops = nb / HBM_BYTES_PER_S, no / SCALAR_OPS_PER_S
-        bound = max(t_bytes, t_ops)
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
-        log(f"[train-ssm] (k2) {kernel} at rwkv6-3b's training shape "
-            f"({shape}): device time per call {dev[part]:.4f} ms "
-            f"(profiler); the whole backward {dev['total']:.4f} ms, "
-            f"{events:.4f} ms with launch overhead (CUDA events); plain "
-            f"backward {plain_ms:.1f} ms (host clock: a Python loop over "
-            f"{s} steps); bound {bound * 1e3:.4f} ms ({bound_by}: {no} "
-            f"operations / 67 TFLOP/s float32, {nb} B / 3.35 TB/s); "
-            f"kernel / bound {dev[part] / (bound * 1e3):.1f}; launches "
-            f"{wkv_launches.get(kernel, 0)} (main path); max_abs_err "
-            f"{err:.3e} (every gradient within {rel:.2e} of its "
-            f"largest); no PyTorch call computes it; {card()}")
-        rows.append(dict(
-            name=kernel, route="cuda", source=WKV_BWD_SRC,
-            replaces=WKV_BWD_REPLACES, launches=wkv_launches.get(kernel, 0),
-            max_abs_err=err, ms=dev[part], plain_ms=plain_ms,
-            bound_ms=bound * 1e3, bound_by=bound_by, library_ms=None))
+    scalar_bytes, scalar_ops = _wkv_bwd_cost(b, s, h, hd)
+    tc_cost = _wkv_bwd_tc_cost(b, s, h, hd)
+    tc_sec = sum(c[2] for c in tc_cost.values())
+    whole = {"tc": max(scalar_bytes / HBM_BYTES_PER_S, tc_sec) * 1e3,
+             "rec": max(scalar_bytes / HBM_BYTES_PER_S,
+                        scalar_ops / SCALAR_OPS_PER_S) * 1e3}
+    totals = {r: [d["total"] for d in dev[r]] for r in dev}
+    ratio = statistics.fmean(totals["rec"]) / statistics.fmean(totals["tc"])
+    log(f"[train-ssm] (k2) the WKV backward at rwkv6-3b's training shape "
+        f"({shape}), in turns rec, tc, tc, rec: tc "
+        + " and ".join(f"{v:.4f}" for v in totals["tc"])
+        + " ms against rec " + " and ".join(f"{v:.4f}" for v in totals["rec"])
+        + " ms (device time per call, profiler; CUDA events tc "
+        + ", ".join(f"{v:.4f}" for v in events["tc"]) + ", rec "
+        + ", ".join(f"{v:.4f}" for v in events["rec"])
+        + f" ms); bounds: tc {whole['tc']:.4f} ms (its kernels' operations "
+        f"{tc_sec * 1e3:.4f} ms: three-term TF32 / 495 TFLOP/s plus float32 "
+        f"running products / 67 TFLOP/s; {scalar_bytes} B / 3.35 TB/s), the "
+        f"scalar count {whole['rec']:.4f} ms ({scalar_ops} operations / 67 "
+        f"TFLOP/s); rec / tc {ratio:.2f}; {card()}")
+    for route in ("tc", "rec"):
+        err, rel = errs[route]
+        launches, where = ((wkv_launches, "main path (t2)") if route == "tc"
+                           else (wkv_edge_launches, "(k2)'s edges below 64 "
+                                 "steps: off the training path"))
+        for kernel, part in zip(WKV_BWD[route], WKV_BWD_PARTS[route]):
+            ms = statistics.fmean(d[part] for d in dev[route])
+            if route == "tc":
+                nb, no, t_ops, rate_note = tc_cost[kernel]
+            elif kernel == "rwkv6_wkv_bwd":
+                nb, no = scalar_bytes, scalar_ops
+                t_ops, rate_note = (no / SCALAR_OPS_PER_S,
+                                    "operations / 67 TFLOP/s float32")
+            else:
+                nb, no = 4 * (b * h * hd + h * hd), b * h * hd
+                t_ops, rate_note = (no / SCALAR_OPS_PER_S,
+                                    "operations / 67 TFLOP/s float32")
+            t_bytes = nb / HBM_BYTES_PER_S
+            bound = max(t_bytes, t_ops)
+            bound_by = "bytes" if t_bytes >= t_ops else "operations"
+            count = launches.get(f"{kernel}.{route}", 0)
+            log(f"[train-ssm] (k2) {kernel} ({route}) at rwkv6-3b's "
+                f"training shape ({shape}): device time per call "
+                + " and ".join(f"{d[part]:.4f}" for d in dev[route])
+                + f" ms (profiler); bound {bound * 1e3:.4f} ms ({bound_by}: "
+                f"{no} {rate_note}, {nb} B / 3.35 TB/s); "
+                f"kernel / bound {ms / (bound * 1e3):.1f}; plain backward "
+                f"{plain_ms:.1f} ms (host clock: a Python loop over {s} "
+                f"steps); launches {count} ({where}); max_abs_err "
+                f"{err:.3e} (every gradient within {rel:.2e} of its "
+                f"largest); no PyTorch call computes it; {card()}")
+            rows.append(dict(
+                name=kernel, route="cuda", source=WKV_BWD_SRC[route],
+                replaces=WKV_BWD_REPLACES, variant=route, launches=count,
+                max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound * 1e3, bound_by=bound_by, library_ms=None))
     del args
     torch.cuda.empty_cache()
 
@@ -4697,10 +4841,10 @@ def ssm_training(rows) -> None:
     then the backward kernels timed at their shapes and the flash tc
     backward at zamba2-7b's D = 112."""
     t0 = time.perf_counter()
-    edge_launches = ssm_bwd_edges()
+    wkv_edges, ssd_edges = ssm_bwd_edges()
     ssm_f32_grads()
     rwkv, zamba = ssm_training_runs()
-    ssm_bwd_rows(rows, rwkv, zamba, edge_launches)
+    ssm_bwd_rows(rows, rwkv, zamba, wkv_edges, ssd_edges)
     flash_bwd_rows(rows, [ZAMBA_FLASH_BWD],
                    {ZAMBA_FLASH_BWD[0]: ("main path (t3)", zamba)},
                    "train-ssm")
@@ -4710,9 +4854,11 @@ def ssm_training(rows) -> None:
 def tensor_core_kernels(lib) -> None:
     """``cuobjdump -sass`` of the built library: the HGMMA (wgmma)
     instructions of each tensor-core flash kernel, forward and backward,
-    and the tensor-core instructions of each instance of the SSD
-    backward's tc kernels (DMMA, float64 mma.sync, in both; TF32 HMMA in
-    the gradient kernel); fails when an instance has none."""
+    the TF32 HMMA instructions of each instance of the WKV backward's tc
+    states and gradient kernels, and the tensor-core instructions of each
+    instance of the SSD backward's tc kernels (DMMA, float64 mma.sync, in
+    both; TF32 HMMA in the gradient kernel); fails when an instance has
+    none."""
     from repro_torch.kernels import _build
 
     tool = pathlib.Path(_build._nvcc()).parent / "cuobjdump"
@@ -4729,6 +4875,16 @@ def tensor_core_kernels(lib) -> None:
             mma["TF32 HMMA"][name] += 1
         elif name and "DMMA" in line:
             mma["DMMA"][name] += 1
+    for kernel in ("wkv_bwd_tc_states_kernel", "wkv_bwd_tc_kernel"):
+        # template instances by hd, each of 16, 32, 64, 128
+        found = {int(n.split(kernel + "ILi")[1].split("E")[0]): c
+                 for n, c in mma["TF32 HMMA"].items() if kernel + "ILi" in n}
+        assert all(found.get(hd, 0) > 0 for hd in (16, 32, 64, 128)), \
+            (kernel, found)
+        assert not any(kernel + "ILi" in n for n in mma["DMMA"]), kernel
+        log(f"[build] cuobjdump -sass: {kernel} TF32 HMMA instructions by "
+            f"hd: " + ", ".join(f"{k}: {found[k]}" for k in sorted(found))
+            + " (no DMMA: the WKV tc backward takes none)")
     for kernel, kinds in (("ssd_bwd_tc_states_kernel", ("DMMA",)),
                           ("ssd_bwd_tc_kernel", ("TF32 HMMA", "DMMA"))):
         for kind in kinds:

@@ -263,58 +263,6 @@ __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
-// Fragments of mma.sync m16n8k8 (g = lane / 4, q = lane % 4), k read as
-// 2q and 2q + 1: A (row r, k) at (g, 2q), (g + 8, 2q), (g, 2q + 1),
-// (g + 8, 2q + 1); B (k, col) at (2q, g), (2q + 1, g); the accumulator
-// (g, 2q), (g, 2q + 1), (g + 8, 2q), (g + 8, 2q + 1).
-//
-// A read along its rows (row-major, row stride `ld`), rows r0 ..
-__device__ __forceinline__ void frag_rows(FragA& f, const float* m, int ld,
-                                          int r0, int k0, int g, int q) {
-  const float2 u = ld2(m + (r0 + g) * ld + k0 + 2 * q);
-  const float2 v = ld2(m + (r0 + g + 8) * ld + k0 + 2 * q);
-  frag_a(f, u.x, v.x, u.y, v.y);
-}
-
-// A read down the columns of a row-major m: A(r, k) = m[k][r]
-__device__ __forceinline__ void frag_cols(FragA& f, const float* m, int ld,
-                                          int r0, int k0, int g, int q) {
-  const float* p = m + (k0 + 2 * q) * ld + r0 + g;
-  frag_a(f, p[0], p[8], p[ld], p[ld + 8]);
-}
-
-// B(k, col) = m[k][col] of a row-major m
-__device__ __forceinline__ void frag_kmajor(FragB& f, const float* m, int ld,
-                                            int k0, int c0, int g, int q) {
-  const float* p = m + (k0 + 2 * q) * ld + c0 + g;
-  frag_b(f, p[0], p[ld]);
-}
-
-// B(k, col) = m[col][k] of a row-major m
-__device__ __forceinline__ void frag_nmajor(FragB& f, const float* m, int ld,
-                                            int k0, int c0, int g, int q) {
-  const float2 u = ld2(m + (c0 + g) * ld + k0 + 2 * q);
-  frag_b(f, u.x, u.y);
-}
-
-__device__ __forceinline__ void zero(float (&acc)[4]) {
-  acc[0] = acc[1] = acc[2] = acc[3] = 0.f;
-}
-
-// acc += a b as three TF32 products, each k step's hi.hi and its two small
-// terms summed from zero on the tensor cores and added to acc in float32
-// with round to nearest (see Precision above)
-__device__ __forceinline__ void mma3_rn(float (&acc)[4], const FragA& a,
-                                        const FragB& b) {
-  float big[4] = {0.f, 0.f, 0.f, 0.f};
-  float small[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(small, a.lo, b.hi);
-  mma_tf32(small, a.hi, b.lo);
-  mma_tf32(big, a.hi, b.hi);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) acc[e] += big[e] + small[e];
-}
-
 // acc += a b on the float64 tensor cores (mma.sync m8n8k4, two of them a
 // row half): the float32 values a 16x8x8 step's fragments hold, (rows g,
 // g + 8) x (k 2q, 2q + 1) of a and (k 2q, 2q + 1) x (column g) of b, their

@@ -82,6 +82,10 @@ SIGNATURES = {
     # hist, B, S, H, hd, stream; then du's parts, du, B, H * hd, stream
     "rt_wkv_bwd": (_P,) * 16 + (_I64,) * 4 + (_P,),
     "rt_wkv_bwd_sum": (_P, _P, _I64, _I64, _P),
+    # r, k, v, w, u, s0, dy, ds, dr, dk, dv, dw, ds0, S_in's and G_out's
+    # scratch, the chunks' decays, du's parts, du, B, S, H, hd, which
+    # kernel (0 states, 1 passes, 2 gradients, 3 sum), stream
+    "rt_wkv_bwd_tc": (_P,) * 18 + (_I64,) * 5 + (_P,),
     # x, b, c, dt, a, d, s0, dy, ds, dx, ddt, ds0, db's and dc's parts, da's
     # and dd's parts, marks, hist, B, S, H, hd, N, strides of x, b, c and
     # dt over batch and time, stream; then the parts, db, dc, da, dd, B,

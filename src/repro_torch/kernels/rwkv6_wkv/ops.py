@@ -36,15 +36,27 @@ at another size raises, a CPU call computes it.
 
 The gradient: a call that needs one (grad enabled and an input that
 requires it) goes through ``_WKV``, an autograd Function whose forward is
-the forward above and whose backward is :func:`wkv_bwd`: on a CUDA tensor
-the two kernels of ``repro_torch/csrc/rwkv6_wkv_bwd.cu`` (the reverse
-sweep, then the sum of ``du`` over the batch), on a CPU tensor
-:func:`wkv_bwd_plain`. The reference has no backward kernel: XLA
-differentiates its scan.
+the forward above and whose backward is :func:`wkv_bwd`. On a CUDA tensor
+that runs one of two routes, chosen by :func:`bwd_variant` from the
+length alone (the forward's rule):
+
+* ``"tc"`` (S ≥ 64): the four kernels of
+  ``repro_torch/csrc/rwkv6_wkv_bwd_tc.cu``, the gradient of the chunked
+  form on the tensor cores (each chunk's own state and gradient parts,
+  the passes over the chunk boundaries, the gradients a block per (b,
+  chunk, h) with dw taken per sub-chunk of 16 steps, the sum of du's
+  parts), every product as three TF32 products and every decay a product
+  of w's: no log, no exp, no division by w;
+* ``"rec"`` (S < 64): the two kernels of
+  ``repro_torch/csrc/rwkv6_wkv_bwd.cu`` (the reverse sweep, then the sum
+  of ``du`` over the batch).
+
+On a CPU tensor it runs :func:`wkv_bwd_plain`, the plain version of both.
+The reference has no backward kernel: XLA differentiates its scan.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -55,8 +67,20 @@ MIN_TILE = 8                    # state columns of the rec kernel's blocks
 TC_CHUNK = 64                   # steps per chunk of the tc kernel
 DEC_COLS = 16                   # state columns of one warp of the dec kernel
 DEC_MAX_WARPS = 8               # warps of a dec block, at most
-BWD_CHUNK = 16                  # steps between the backward's checkpoints
-BWD_KERNELS = ("rwkv6_wkv_bwd", "rwkv6_wkv_bwd_sum")
+BWD_CHUNK = 16                  # steps between the rec backward's checkpoints
+# steps per chunk of the tc backward, by head size (at hd 128 the chunk's
+# staged rows of 64 steps would not fit a block's shared memory), in
+# sub-chunks of BWD_TC_SUB
+BWD_TC_CHUNK = {16: 64, 32: 64, 64: 64, 128: 32}
+BWD_TC_SUB = 16
+# each backward route's kernels, in launch order; a launch is counted
+# under its kernel and under "<kernel>.<route>" ("rwkv6_wkv_bwd.<route>":
+# one a call)
+BWD_KERNELS = {
+    "rec": ("rwkv6_wkv_bwd", "rwkv6_wkv_bwd_sum"),
+    "tc": ("rwkv6_wkv_bwd_states", "rwkv6_wkv_bwd_pass", "rwkv6_wkv_bwd",
+           "rwkv6_wkv_bwd_sum"),
+}
 
 
 def _check(r, k, v, w, u, s0) -> None:
@@ -266,15 +290,35 @@ def wkv_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return dr, dk, dv, dw, du, g
 
 
+def bwd_variant(s: int, hd: int) -> str:
+    """Which backward a CUDA call of length ``s`` and head size ``hd``
+    runs: ``"tc"`` (the chunked form's gradient on the tensor cores) from
+    one chunk of 64 steps up, at every ``hd`` of :data:`HEAD_DIMS`, else
+    ``"rec"`` (the reverse recurrence): the rule by which :func:`variant`
+    picks the forward's tc kernel."""
+    return "tc" if s >= TC_CHUNK else "rec"
+
+
 def wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
-            dy: torch.Tensor, ds: torch.Tensor):
+            dy: torch.Tensor, ds: torch.Tensor, *,
+            route: Optional[str] = None):
     """(dr, dk, dv, dw, du, ds0) of :func:`wkv` at (r, k, v, w, u, s0), from
     the gradients of y (``dy``, (B, S, H, hd)) and of the final state
-    (``ds``, (B, H, hd, hd)), float32. On a CUDA tensor two kernels run:
-    the reverse sweep (:data:`BWD_KERNELS` [0]: every gradient but du, and
-    du's part of each (b, h)) and the sum of those parts over b; on a CPU
-    tensor, :func:`wkv_bwd_plain`."""
+    (``ds``, (B, H, hd, hd)), float32. On a CUDA tensor the kernels of
+    ``route`` run in turn (:data:`BWD_KERNELS`; default: the route
+    :func:`bwd_variant` picks; another only to compare the two, tc taking
+    any S >= 1):
+
+    * ``"tc"``: ``csrc/rwkv6_wkv_bwd_tc.cu``, the chunked form's gradient
+      on the tensor cores: each chunk's own state and gradient parts, the
+      passes over the chunk boundaries, the gradients a block per (b,
+      chunk, h), the sum of du's parts;
+    * ``"rec"``: ``csrc/rwkv6_wkv_bwd.cu``, the reverse sweep (every
+      gradient but du, and du's part of each (b, h)), then the sum of
+      those parts over b.
+
+    On a CPU tensor, :func:`wkv_bwd_plain`."""
     _check(r, k, v, w, u, s0)
     for name, x, want in (("dy", dy, r.shape), ("ds", ds, s0.shape)):
         if (x.shape != want or x.dtype != torch.float32
@@ -293,18 +337,38 @@ def wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ds0 = torch.empty_like(s0)
     if not (b and h):
         return (*grads, du, ds0)
+    route = route or bwd_variant(s, hd)
+    kernels = BWD_KERNELS[route]
+    inputs = tuple(x.data_ptr() for x in (r, k, v, w, u, s0, dy, ds))
+    outputs = tuple(x.data_ptr() for x in grads) + (ds0.data_ptr(),)
+    if route == "tc":
+        chunks = -(-s // BWD_TC_CHUNK[hd])
+        # each chunk's own parts of S and G, then S_in and G_out (B, H,
+        # chunks, hd, hd); the chunks' decays (B, H, chunks, hd); du's
+        # part of each block (B, chunks, H, hd)
+        s_in, g_out = (torch.empty(b * h * chunks * hd * hd,
+                                   dtype=torch.float32, device=r.device)
+                       for _ in range(2))
+        decay = torch.empty(b * h * chunks * hd, dtype=torch.float32,
+                            device=r.device)
+        du_part = torch.empty(b * chunks * h * hd, dtype=torch.float32,
+                              device=r.device)
+        ptrs = inputs + outputs + tuple(x.data_ptr() for x in (
+            s_in, g_out, decay, du_part, du))
+        for which, kernel in enumerate(kernels):
+            _build.launch(kernel, "rt_wkv_bwd_tc", r.device, *ptrs, b, s, h,
+                          hd, which, variant=route)
+        return (*grads, du, ds0)
     du_part = torch.empty((b, h, hd), dtype=torch.float32, device=r.device)
     chunks = -(-s // BWD_CHUNK)
     marks = torch.empty(b * h * max(chunks, 1) * hd * hd, dtype=torch.float32,
                         device=r.device)
     hist = torch.empty(b * h * BWD_CHUNK * hd * hd, dtype=torch.float32,
                        device=r.device)
-    scan, total = BWD_KERNELS
-    _build.launch(scan, "rt_wkv_bwd", r.device,
-                  *(x.data_ptr() for x in (r, k, v, w, u, s0, dy, ds)),
-                  *(x.data_ptr() for x in grads), ds0.data_ptr(),
+    scan, total = kernels
+    _build.launch(scan, "rt_wkv_bwd", r.device, *inputs, *outputs,
                   du_part.data_ptr(), marks.data_ptr(), hist.data_ptr(),
-                  b, s, h, hd)
+                  b, s, h, hd, variant=route)
     _build.launch(total, "rt_wkv_bwd_sum", r.device, du_part.data_ptr(),
-                  du.data_ptr(), b, h * hd)
+                  du.data_ptr(), b, h * hd, variant=route)
     return (*grads, du, ds0)

@@ -1329,10 +1329,10 @@ def test_flash_autograd_on_card_runs_the_backward_kernels(dev):
     _bwd_close((q.grad, k.grad, v.grad), want)
 
 
-# (B, S, H, hd, w, s0 scale) of the WKV backward: S = 1, 63, 64, 65 and
-# 4096 (the marks every 16 steps, a ragged last chunk), every hd, w = 0
-# every third step, w within 1e-6 of 1, s0 zero, B * H = 1 and 3 blocks
-# (under one wave) and rwkv6-3b's 160
+# (B, S, H, hd, w, s0 scale) of the WKV backward's rec route: S = 1, 63,
+# 64, 65 and 4096 (the marks every 16 steps, a ragged last chunk), every
+# hd, w = 0 every third step, w within 1e-6 of 1, s0 zero, B * H = 1 and 3
+# blocks (under one wave) and rwkv6-3b's 160
 WKV_BWD_CASES = [
     (2, 1, 3, 64, "model", 0.5),
     (2, 63, 3, 64, "model", 0.5),
@@ -1345,15 +1345,17 @@ WKV_BWD_CASES = [
     (1, 17, 1, 64, "zero", 0.0),
     (4, 100, 40, 64, "model", 0.5),
 ]
-WKV_BWD = ("rwkv6_wkv_bwd", "rwkv6_wkv_bwd_sum")
 
 
-def _ssd_bwd_launched(route, n=1):
-    """``n`` launches of each SSD backward kernel of ``route`` (each also
-    under ``<kernel>.<route>``) and no others."""
+
+
+def _bwd_launched(ops, route, n=1):
+    """``n`` launches of each backward kernel of ``route`` in ``ops``
+    (``W`` or ``SSD``; each also under ``<kernel>.<route>``) and no
+    others."""
     torch.cuda.synchronize()
-    want = {k: n for k in SSD.BWD_KERNELS[route]}
-    want.update({f"{k}.{route}": n for k in SSD.BWD_KERNELS[route]})
+    want = {k: n for k in ops.BWD_KERNELS[route]}
+    want.update({f"{k}.{route}": n for k in ops.BWD_KERNELS[route]})
     assert dict(_build.launches) == want, dict(_build.launches)
 
 
@@ -1368,13 +1370,6 @@ def _grads_close(got, want):
         assert err <= 1e-5 * top, (err, top)
 
 
-def _bwd_launched(names, n=1):
-    """``n`` launches of each backward kernel in ``names`` and no others."""
-    torch.cuda.synchronize()
-    assert dict(_build.launches) == {k: n for k in names}, \
-        dict(_build.launches)
-
-
 def _wkv_bwd_inputs(case, dev):
     args = _wkv_inputs(case, dev)
     g = torch.Generator(device=dev).manual_seed(7 + sum(case[:4]))
@@ -1387,8 +1382,8 @@ def _wkv_bwd_inputs(case, dev):
                          ids=lambda c: "-".join(map(str, c)))
 def test_wkv_bwd_kernels_match_plain(dev, case):
     args = _wkv_bwd_inputs(case, dev)
-    got = W.wkv_bwd(*args)
-    _bwd_launched(WKV_BWD)
+    got = W.wkv_bwd(*args, route="rec")
+    _bwd_launched(W, "rec")
     _grads_close(got, W.wkv_bwd_plain(*args))
 
 
@@ -1396,16 +1391,19 @@ def test_wkv_bwd_kernels_match_plain(dev, case):
                          ids=lambda c: "-".join(map(str, c)))
 def test_wkv_bwd_gives_the_same_bits_twice(dev, case):
     args = _wkv_bwd_inputs(case, dev)
-    first, again = W.wkv_bwd(*args), W.wkv_bwd(*args)
+    first = W.wkv_bwd(*args, route="rec")
+    again = W.wkv_bwd(*args, route="rec")
     assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
-def test_wkv_bwd_near_one_decay_against_float64(dev):
-    """4096 steps of w within 1e-6 of 1: the kernel within twice the float32
-    plain version's own distance from a float64 plain backward (about
-    1e-5 of a gradient's largest: tests/test_torch_wkv_bwd.py)."""
+@pytest.mark.parametrize("route", ["rec", "tc"])
+def test_wkv_bwd_near_one_decay_against_float64(dev, route):
+    """4096 steps of w within 1e-6 of 1: the kernels of each route within
+    twice the float32 plain version's own distance from a float64 plain
+    backward (about 1e-5 of a gradient's largest:
+    tests/test_torch_wkv_bwd.py)."""
     args = _wkv_bwd_inputs((1, 4096, 2, 64, "near1", 0.5), dev)
-    got = W.wkv_bwd(*args)
+    got = W.wkv_bwd(*args, route=route)
     plain = W.wkv_bwd_plain(*args)
     exact = W.wkv_bwd_plain(*(x.double() for x in args))
     for g, p, e in zip(got, plain, exact):
@@ -1417,18 +1415,21 @@ def test_wkv_bwd_near_one_decay_against_float64(dev):
 
 def test_wkv_autograd_on_card_runs_the_backward_kernels(dev):
     """A WKV call that needs a gradient returns tensors in the graph: the
-    forward runs its kernel, the backward the two backward kernels and no
-    plain version, and the gradients match the plain backward's."""
-    r, k, v, w, u, s0, dy, ds = _wkv_bwd_inputs((2, 100, 4, 64, "model",
-                                                 0.5), dev)
-    ins = [x.clone().requires_grad_() for x in (r, k, v, w, u, s0)]
-    y, st = W.wkv(*ins)
-    assert y.grad_fn is not None
-    _wkv_ran("tc")
-    _build.reset_launches()
-    grads = torch.autograd.grad((y * dy).sum() + (st * ds).sum(), ins)
-    _bwd_launched(WKV_BWD)
-    _grads_close(grads, W.wkv_bwd_plain(r, k, v, w, u, s0, dy, ds))
+    forward runs its kernel, the backward its route's kernels alone (tc at
+    100 steps, rec at 40) and no plain version, and the gradients match
+    the plain backward's."""
+    for s, route in ((100, "tc"), (40, "rec")):
+        r, k, v, w, u, s0, dy, ds = _wkv_bwd_inputs((2, s, 4, 64, "model",
+                                                     0.5), dev)
+        ins = [x.clone().requires_grad_() for x in (r, k, v, w, u, s0)]
+        _build.reset_launches()
+        y, st = W.wkv(*ins)
+        assert y.grad_fn is not None
+        _wkv_ran(route)
+        _build.reset_launches()
+        grads = torch.autograd.grad((y * dy).sum() + (st * ds).sum(), ins)
+        _bwd_launched(W, route)
+        _grads_close(grads, W.wkv_bwd_plain(r, k, v, w, u, s0, dy, ds))
 
 
 def test_wkv_bwd_refuses_head_sizes_it_is_not_built_for(dev):
@@ -1441,9 +1442,54 @@ def test_wkv_bwd_refuses_head_sizes_it_is_not_built_for(dev):
 def test_wkv_bwd_with_no_steps_returns_the_state_gradient(dev):
     args = _wkv_bwd_inputs((2, 0, 3, 64, "model", 1.0), dev)
     dr, dk, dv, dw, du, ds0 = W.wkv_bwd(*args)
-    _bwd_launched(WKV_BWD)
+    _bwd_launched(W, "rec")
     assert dr.shape == (2, 0, 3, 64) and torch.equal(ds0, args[7])
     assert not bool(du.any())
+
+
+@pytest.mark.parametrize("hd", W.HEAD_DIMS)
+@pytest.mark.parametrize("decay", ["model", "zero", "near1"])
+def test_wkv_bwd_tc_matches_plain_at_every_head_size(dev, hd, decay):
+    """The tc route at every compiled hd and each decay, 130 steps: two
+    chunks of 64 and a ragged third (five of 32 at hd 128)."""
+    args = _wkv_bwd_inputs((1, 130, 2, hd, decay, 0.5), dev)
+    got = W.wkv_bwd(*args)
+    _bwd_launched(W, "tc")
+    _grads_close(got, W.wkv_bwd_plain(*args))
+
+
+@pytest.mark.parametrize("s", [1, 17, 40, 63, 64, 65, 130, 200])
+def test_wkv_bwd_routes_by_length(dev, s):
+    """rec below 64 steps, tc from 64 up: each call on its route's kernels
+    alone, as ``bwd_variant`` says."""
+    args = _wkv_bwd_inputs((2, s, 3, 64, "model", 0.5), dev)
+    got = W.wkv_bwd(*args)
+    _bwd_launched(W, "tc" if s >= 64 else "rec")
+    assert W.bwd_variant(s, 64) == ("tc" if s >= 64 else "rec")
+    _grads_close(got, W.wkv_bwd_plain(*args))
+
+
+def test_wkv_bwd_tc_gives_the_same_bits_twice(dev):
+    args = _wkv_bwd_inputs((4, 130, 40, 64, "zero", 0.5), dev)
+    first, again = W.wkv_bwd(*args), W.wkv_bwd(*args)
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+
+def test_wkv_bwd_tc_takes_rows_off_16_byte_alignment(dev):
+    """r, k, v, w and dy as contiguous views one float into their storage:
+    the tc route stages them 4 bytes at a time, with the same bits as
+    from aligned copies."""
+    args = list(_wkv_bwd_inputs((2, 130, 3, 64, "model", 0.5), dev))
+    views = []
+    for x in args[:4] + [args[6]]:
+        buf = torch.empty(x.numel() + 1, device=dev)
+        views.append(buf[1:].view(x.shape).copy_(x))
+    assert all(v.is_contiguous() and v.data_ptr() % 16 for v in views)
+    got = W.wkv_bwd(*views[:4], args[4], args[5], views[4], args[7])
+    _bwd_launched(W, "tc")
+    want = W.wkv_bwd(*args)
+    assert all(torch.equal(p, q) for p, q in zip(got, want))
+    _grads_close(got, W.wkv_bwd_plain(*args))
 
 
 # (B, S, H, hd, N, dt, s0, strided) of the SSD backward: S = 1, 63 (rec),
@@ -1476,7 +1522,7 @@ def _ssd_bwd_inputs(case, dev):
 def test_ssd_bwd_kernels_match_plain(dev, case):
     args = _ssd_bwd_inputs(case, dev)
     got = SSD.ssd_bwd(*args)
-    _ssd_bwd_launched(SSD.bwd_variant(case[1], case[3], case[4]))
+    _bwd_launched(SSD, SSD.bwd_variant(case[1], case[3], case[4]))
     _grads_close(got, SSD.ssd_bwd_plain(*args))
 
 
@@ -1492,7 +1538,7 @@ def test_ssd_bwd_tc_matches_plain_at_every_size(dev, hd, n):
     args = _ssd_bwd_inputs((1, 130, 2, hd, n, "model", "random", False),
                            dev)
     got = SSD.ssd_bwd(*args)
-    _ssd_bwd_launched("tc")
+    _bwd_launched(SSD, "tc")
     exact = SSD.ssd_bwd_plain(*(t.double() for t in args))
     _grads_close([g.double() for g in got], exact)
 
@@ -1503,7 +1549,7 @@ def test_ssd_bwd_routes_by_length(dev, s):
     alone."""
     args = _ssd_bwd_inputs((1, s, 3, 64, 64, "model", "random", False), dev)
     got = SSD.ssd_bwd(*args)
-    _ssd_bwd_launched("tc" if s >= 64 else "rec")
+    _bwd_launched(SSD, "tc" if s >= 64 else "rec")
     _grads_close(got, SSD.ssd_bwd_plain(*args))
 
 
@@ -1513,7 +1559,7 @@ def test_ssd_bwd_groups_of_heads_sum_in_order(dev):
     args = _ssd_bwd_inputs((2, 130, 20, 64, 64, "model", "random", True),
                            dev)
     got = SSD.ssd_bwd(*args)
-    _ssd_bwd_launched("tc")
+    _bwd_launched(SSD, "tc")
     _grads_close(got, SSD.ssd_bwd_plain(*args))
     again = SSD.ssd_bwd(*args)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
@@ -1530,7 +1576,7 @@ def test_ssd_bwd_tc_takes_rows_off_16_byte_alignment(dev):
     cv = torch.cat([pad, cm], -1)[..., 1:]
     assert xv.data_ptr() % 16 and bv.data_ptr() % 16 and cv.data_ptr() % 16
     got = SSD.ssd_bwd(xv, bv, cv, dtv, a, d, st, dy, ds)
-    _ssd_bwd_launched("tc")
+    _bwd_launched(SSD, "tc")
     want = SSD.ssd_bwd(x, bm, cm, dtv, a, d, st, dy, ds)
     assert all(torch.equal(p, q) for p, q in zip(got, want))
     _grads_close(got, SSD.ssd_bwd_plain(x, bm, cm, dtv, a, d, st, dy, ds))
@@ -1574,7 +1620,7 @@ def test_ssd_autograd_on_card_runs_the_backward_kernels(dev):
         _ran(route)
         _build.reset_launches()
         grads = torch.autograd.grad((y * dy).sum() + (st * ds).sum(), ins)
-        _ssd_bwd_launched(route)
+        _bwd_launched(SSD, route)
         _grads_close(grads, SSD.ssd_bwd_plain(x, b, c, dt, a, d, s0, dy,
                                               ds))
     with pytest.raises(ValueError, match="state_out"):
