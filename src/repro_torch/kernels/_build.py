@@ -191,7 +191,10 @@ def launch(kernel: str, entry: str, device: torch.device, *args,
            variant: Optional[str] = None) -> None:
     """Call C entry point ``entry`` on the current stream of ``device``,
     raise if the launch failed, and count it under ``kernel`` (and, given
-    a ``variant``, under ``kernel.variant``)."""
+    a ``variant``, under ``kernel.variant``). On the meta tier (the dry
+    run) nothing is launched, built or counted."""
+    if device.type == "meta":
+        return
     fn = getattr(library(), entry)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream

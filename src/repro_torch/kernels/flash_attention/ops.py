@@ -114,7 +114,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           kv_valid_len: Optional[int] = None
                           ) -> torch.Tensor:
     """The kernel's function in torch ops, in float32, with its -1e30 mask
-    and 1e-30 denominator guards. Materialises the (B, K, g, S, T) scores."""
+    and 1e-30 denominator guards. Materialises the (B, K, g, S, T) scores.
+    Returns a contiguous tensor, as the kernels do."""
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -135,7 +136,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(scores - m)
     l = p.sum(-1, keepdim=True)
     out = torch.matmul(p, vf) / torch.clamp(l, min=1e-30)   # (B,K,g,S,D)
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d).to(
+        q.dtype).contiguous()
 
 
 def variant(dtype: torch.dtype, s: int, g: int, d: int) -> str:
@@ -236,12 +238,23 @@ class _FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def _route(q: torch.Tensor, k: torch.Tensor, *args, **kwargs) -> str:
+    return variant(q.dtype, q.shape[1], q.shape[2] // k.shape[2], q.shape[3])
+
+
+def _bwd_route(q: torch.Tensor, k: torch.Tensor, *args, **kwargs) -> str:
+    return bwd_variant(q.dtype, q.shape[1], q.shape[2] // k.shape[2],
+                       q.shape[3])
+
+
+@dispatch.kernel_op("flash_attention.fwd", _route)
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              causal: bool, q_offset: int,
              kv_valid_len: Optional[int]) -> torch.Tensor:
     """The forward of a checked call: a kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
-    t = dispatch.tier(q)
+    version on a CPU tensor, the CUDA path with nothing launched on a meta
+    tensor."""
+    t = dispatch.tier(q, meta=True)
     dispatch.note_tier("flash_attention.fwd", t)
     if t == "torch":
         return flash_attention_plain(q, k, v, causal=causal,
@@ -262,7 +275,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       q_offset, valid, variant=var)
         return out
     kv_len = tk if kv_valid_len is None else min(kv_valid_len, tk)
-    n_sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    n_sms = dispatch.n_sms(q.device)
     if var == "dec":
         if causal:              # no key past the last row's horizon
             kv_len = min(kv_len, q_offset + s)
@@ -300,7 +313,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
     queries, each recomputing its masked float32 scores (-1e30 where
     masked), ``p = exp(s - max) / max(sum, 1e-30)``, ``D = rowsum(dO∘O)``,
     ``dS = p∘(dO·Vᵀ - D)``; dq in q's dtype, dk and dv summed over the GQA
-    group in k's and v's. Materialises (B, K, g, 128, T) scores a chunk."""
+    group in k's and v's, each contiguous as the kernels' are. Materialises
+    (B, K, g, 128, T) scores a chunk."""
     b, s, h, d = q.shape
     t, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -337,8 +351,8 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
             0, 3, 1, 2, 4).reshape(b, hi - lo, h, d)
         dk += torch.matmul(ds.transpose(-1, -2), qc).sum(2) * scale
         dv += torch.matmul(p.transpose(-1, -2), doc).sum(2)
-    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
-            dv.permute(0, 2, 1, 3).to(v.dtype))
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype).contiguous(),
+            dv.permute(0, 2, 1, 3).to(v.dtype).contiguous())
 
 
 def flash_attention_bwd_stats_plain(q: torch.Tensor, k: torch.Tensor,
@@ -398,6 +412,7 @@ def bwd_variant(dtype: torch.dtype, s: int, g: int, d: int) -> str:
     return "tc" if variant(dtype, s, g, d) == "tc" else "scalar"
 
 
+@dispatch.kernel_op("flash_attention.bwd", _bwd_route)
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         o: torch.Tensor, do: torch.Tensor, *,
                         causal: bool = True, q_offset: int = 0,
@@ -407,7 +422,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     inputs' dtype. Replaces the reference's ``_bwd``. On a CUDA tensor
     three kernels of the route :func:`bwd_variant` picks run in turn: pre
     (each row's max, sum and ``D`` into a float32 scratch), dq and dkv; on
-    a CPU tensor, :func:`flash_attention_bwd_plain`."""
+    a CPU tensor, :func:`flash_attention_bwd_plain`; on a meta tensor,
+    the CUDA path with nothing launched."""
     q_offset = int(q_offset)
     kv_valid_len = None if kv_valid_len is None else int(kv_valid_len)
     _check(q, k, v, q_offset, kv_valid_len)
@@ -416,7 +432,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name}: expected q's shape, dtype and device "
                              f"{tuple(q.shape)}, {q.dtype}, {q.device}; got "
                              f"{tuple(x.shape)}, {x.dtype}, {x.device}")
-    t = dispatch.tier(q)
+    t = dispatch.tier(q, meta=True)
     dispatch.note_tier("flash_attention.bwd", t)
     if t == "torch":
         return flash_attention_bwd_plain(q, k, v, o, do, causal=causal,

@@ -202,11 +202,14 @@ class _SSD(torch.autograd.Function):
         return ssd_bwd(*ctx.saved_tensors, dy.contiguous(), ds.contiguous())
 
 
+@dispatch.kernel_op("mamba2_ssd", lambda x, b, *a: variant(
+    x.shape[1], x.shape[3], b.shape[-1]))
 def _forward(x, b, c, dt, a, d, s0, state_out
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward of a checked call: a kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
-    tier = dispatch.tier(x)
+    version on a CPU tensor, the CUDA path with nothing launched on a meta
+    tensor."""
+    tier = dispatch.tier(x, meta=True)
     dispatch.note_tier("mamba2_ssd", tier)
     if tier == "torch":
         y, state = ssd_plain(x, b, c, dt, a, d, s0)
@@ -296,6 +299,11 @@ def bwd_variant(s: int, hd: int, n: int) -> str:
     return "tc" if s >= TC_CHUNK else "rec"
 
 
+def _bwd_route(x, b, *args, route: Optional[str] = None) -> str:
+    return route or bwd_variant(x.shape[1], x.shape[3], b.shape[-1])
+
+
+@dispatch.kernel_op("mamba2_ssd.bwd", _bwd_route)
 def ssd_bwd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
             dt: torch.Tensor, a: torch.Tensor, d: torch.Tensor,
             s0: torch.Tensor, dy: torch.Tensor, ds: torch.Tensor, *,
@@ -306,7 +314,8 @@ def ssd_bwd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
     may be the strided views :func:`ssd` takes. On a CUDA tensor the
     kernels of ``route`` (default: the one :func:`bwd_variant` picks;
     another only to compare the two, and both take any S ≥ 1) run in turn
-    (:data:`BWD_KERNELS`); on a CPU tensor, :func:`ssd_bwd_plain`."""
+    (:data:`BWD_KERNELS`); on a CPU tensor, :func:`ssd_bwd_plain`; on a
+    meta tensor, the CUDA path with nothing launched."""
     _check(x, b, c, dt, a, d, s0, None)
     for name, t, want in (("dy", dy, x.shape), ("ds", ds, s0.shape)):
         if (t.shape != want or t.dtype != torch.float32
@@ -314,7 +323,7 @@ def ssd_bwd(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
             raise ValueError(f"{name}: expected a contiguous float32 tensor "
                              f"of shape {tuple(want)} on {x.device}; got "
                              f"{tuple(t.shape)}, {t.dtype}, {t.device}")
-    tier = dispatch.tier(x)
+    tier = dispatch.tier(x, meta=True)
     dispatch.note_tier("mamba2_ssd.bwd", tier)
     if tier == "torch":
         return ssd_bwd_plain(x, b, c, dt, a, d, s0, dy, ds)

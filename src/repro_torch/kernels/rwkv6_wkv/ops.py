@@ -172,7 +172,7 @@ def _run(var: str, r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
         _build.launch("rwkv6_wkv", "rt_wkv_tc", r.device, *ptrs, b, s, h, hd,
                       variant=var)
         return y, s_out
-    n_sms = torch.cuda.get_device_properties(r.device).multi_processor_count
+    n_sms = dispatch.n_sms(r.device)
     if var == "dec":
         if s != 1:
             raise ValueError(f"the dec kernel takes one step, got S = {s}")
@@ -212,10 +212,12 @@ class _WKV(torch.autograd.Function):
         return wkv_bwd(*ctx.saved_tensors, dy.contiguous(), ds.contiguous())
 
 
+@dispatch.kernel_op("wkv", lambda r, *a: variant(r.shape[1], r.shape[3]))
 def _forward(r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
     """The forward of a checked call: a kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
-    t = dispatch.tier(r)
+    version on a CPU tensor, the CUDA path with nothing launched on a meta
+    tensor."""
+    t = dispatch.tier(r, meta=True)
     dispatch.note_tier("wkv", t)
     if t == "torch":
         return wkv_plain(r, k, v, w, u, s0)
@@ -299,6 +301,11 @@ def bwd_variant(s: int, hd: int) -> str:
     return "tc" if s >= TC_CHUNK else "rec"
 
 
+def _bwd_route(r, *args, route: Optional[str] = None) -> str:
+    return route or bwd_variant(r.shape[1], r.shape[3])
+
+
+@dispatch.kernel_op("wkv.bwd", _bwd_route)
 def wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             w: torch.Tensor, u: torch.Tensor, s0: torch.Tensor,
             dy: torch.Tensor, ds: torch.Tensor, *,
@@ -318,7 +325,8 @@ def wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
       gradient but du, and du's part of each (b, h)), then the sum of
       those parts over b.
 
-    On a CPU tensor, :func:`wkv_bwd_plain`."""
+    On a CPU tensor, :func:`wkv_bwd_plain`; on a meta tensor, the CUDA
+    path with nothing launched."""
     _check(r, k, v, w, u, s0)
     for name, x, want in (("dy", dy, r.shape), ("ds", ds, s0.shape)):
         if (x.shape != want or x.dtype != torch.float32
@@ -326,7 +334,7 @@ def wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             raise ValueError(f"{name}: expected a contiguous float32 tensor "
                              f"of shape {tuple(want)} on {r.device}; got "
                              f"{tuple(x.shape)}, {x.dtype}, {x.device}")
-    t = dispatch.tier(r)
+    t = dispatch.tier(r, meta=True)
     dispatch.note_tier("wkv.bwd", t)
     if t == "torch":
         return wkv_bwd_plain(r, k, v, w, u, s0, dy, ds)

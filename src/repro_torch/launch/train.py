@@ -7,7 +7,7 @@ hand-written forward and backward kernels under ``--use-flash``) ->
 supervisor (async checkpoint / restore-on-failure / straggler monitor).
 Runs on the card unless ``--device cpu`` is given (``cuda`` without a
 card raises). One card is one rank: no mesh, so ``data_parallel`` and
-``model_parallel`` other than 1 raise (ROADMAP items 6, 7).
+``model_parallel`` other than 1 raise (ROADMAP item 7).
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --reduced --device cpu --steps 50 --batch 8 --seq 128
@@ -51,7 +51,7 @@ def build(arch: str, *, reduced: bool, batch: int, seq: int, steps: int,
     if data_parallel != 1 or model_parallel != 1:
         raise ValueError(f"data_parallel={data_parallel}, model_parallel="
                          f"{model_parallel}: one card is one rank; a mesh "
-                         "across cards is ROADMAP items 6 and 7")
+                         "across cards is ROADMAP item 7")
     dev = dispatch.resolve_device(device)
     cfg = configs.get(arch)
     if reduced:

@@ -408,6 +408,56 @@ def decode_step(model: transformer.Transformer, caches, batch: Batch,
                                    batch["pos"], cfg)
 
 
+# --------------------------------------------------------------------------- #
+# specs on the meta device (the dry run): shapes and dtypes, nothing stored
+# --------------------------------------------------------------------------- #
+
+META = torch.device("meta")
+
+
+def input_specs(cfg: ArchConfig, shape_name: str,
+                batch_override: Optional[int] = None) -> Batch:
+    """The model inputs of a shape cell as meta tensors, the reference's
+    ``input_specs``: tokens (B, S) int32, or for ``embedding_inputs``
+    bf16 embeddings (B, S, d) (with int32 labels and a bool mask to train);
+    a decode step's ``token`` (B,) and ``pos`` () int32."""
+    info = SHAPES[shape_name]
+    s, b = info["seq_len"], batch_override or info["global_batch"]
+
+    def spec(shape, dt):
+        return torch.empty(shape, dtype=dt, device=META)
+
+    if info["kind"] == "decode":
+        return {"token": spec((b,), torch.int32),
+                "pos": spec((), torch.int32)}
+    if not cfg.embedding_inputs:
+        return {"tokens": spec((b, s), torch.int32)}
+    out = {"embeddings": spec((b, s, cfg.d_model), torch.bfloat16)}
+    if info["kind"] == "train":
+        out.update(labels=spec((b, s), torch.int32),
+                   mask=spec((b, s), torch.bool))
+    return out
+
+
+def cache_specs(cfg: ArchConfig, shape_name: str,
+                batch_override: Optional[int] = None):
+    """The decode caches of a shape cell (``seq_len`` slots) as meta
+    tensors, the reference's ``cache_specs``."""
+    info = SHAPES[shape_name]
+    s, b = info["seq_len"], batch_override or info["global_batch"]
+    return transformer.init_decode_caches(cfg, b, s, device=META)
+
+
+def meta_flat(cfg: ArchConfig) -> Dict[str, torch.Tensor]:
+    """:func:`param_shapes`' tree as meta tensors in :func:`init_flat`'s
+    dtypes (the parameter dtype; the MoE router float32, the slot map
+    int32): the weights of the dry run, nothing drawn or stored."""
+    return {path: torch.empty(
+        shape, dtype=(torch.int32 if path.endswith("inv_perm")
+                      else _master_dtype(path, cfg)), device=META)
+        for path, shape in param_shapes(cfg).items()}
+
+
 def make_batch(cfg: ArchConfig, shape_name: str, rng: np.random.Generator,
                batch_override: Optional[int] = None, *,
                device="cuda") -> Batch:

@@ -76,12 +76,24 @@ def _expert_ffn(wg, wi, wo, x, cfg: ArchConfig):
     return h @ wo
 
 
+def meta_routes(n_pairs: int, n_experts: int) -> list:
+    """The group sizes :func:`moe_apply` takes on the meta device (the dry
+    run), where no route can be read: the ``n_pairs`` (token, expert)
+    pairs spread as evenly as they go, ``n_pairs // n_experts`` or one
+    more an expert (the first ones), summing to ``n_pairs``. The experts'
+    FLOPs do not depend on the routes, so they count exactly."""
+    q, r = divmod(n_pairs, n_experts)
+    return [q + (i < r) for i in range(n_experts)]
+
+
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ArchConfig
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux): ``moe_apply_dense``'s function. The
     (token, expert) pairs are grouped by logical expert with a stable sort;
     one device->host read a call fetches the group sizes and the slot map,
-    and only the experts that received tokens run."""
+    and only the experts that received tokens run. On the meta device the
+    routes are :func:`meta_routes`' balanced ones, the slot map the
+    identity."""
     cd = dtype(cfg.compute_dtype)
     b, s, d = x.shape
     x2 = x.reshape(-1, d).to(cd)
@@ -91,8 +103,11 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ArchConfig
     order = torch.argsort(flat, stable=True)
     tok = order // k                           # each group's tokens, rising
     w = topw.reshape(-1)[order].to(cd)
-    counts = torch.bincount(flat, minlength=e)
-    meta = torch.cat([counts, p.inv_perm.to(counts.dtype)]).tolist()
+    if x.device.type == "meta":     # the dry run: no route can be read
+        meta = meta_routes(flat.numel(), e) + list(range(e))
+    else:
+        counts = torch.bincount(flat, minlength=e)
+        meta = torch.cat([counts, p.inv_perm.to(counts.dtype)]).tolist()
     y = torch.zeros_like(x2)
     start = 0
     for ex in range(e):                        # logical id, increasing

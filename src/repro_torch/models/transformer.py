@@ -25,10 +25,14 @@ Rematerialization (``cfg.remat``), while autograd records: ``"full"`` runs
 each block (and each application of the hybrid's shared block) under
 ``torch.utils.checkpoint`` (non-reentrant), so only the blocks' inputs are
 kept and each block's forward runs again in the backward, as the
-reference's ``jax.checkpoint`` does; ``"none"`` keeps every activation.
-``"dots"`` (keep the matrix products' outputs) is not ported (ROADMAP
-item 3) and raises. Without autograd (serving) every setting runs the
-blocks plainly.
+reference's ``jax.checkpoint`` does; ``"dots"`` runs them under the same
+checkpoint with a selective policy that keeps the outputs of ``aten.mm``
+and ``aten.addmm`` and recomputes everything else, as the reference's
+``dots_with_no_batch_dims_saveable`` policy does: a projection of (B, S,
+d) by (d, f) is a product with no batch dimension, and it is kept;
+attention's batched products and the kernels' autograd Functions (flash,
+WKV, SSD) are recomputed; ``"none"`` keeps every activation. Without
+autograd (serving) every setting runs the blocks plainly.
 """
 from __future__ import annotations
 
@@ -181,11 +185,22 @@ def _remat(cfg: ArchConfig):
         return functools.partial(torch_checkpoint.checkpoint,
                                  use_reentrant=False)
     if cfg.remat == "dots":
-        raise ValueError("remat='dots' (keep the matrix products' outputs) "
-                         "is not ported: ROADMAP item 3; use 'full' or "
-                         "'none'")
+        return functools.partial(
+            torch_checkpoint.checkpoint, use_reentrant=False,
+            context_fn=functools.partial(
+                torch_checkpoint.create_selective_checkpoint_contexts,
+                _dots_policy))
     raise ValueError(f"unknown remat {cfg.remat!r}: expected full, dots or "
                      "none")
+
+
+# the products "dots" keeps: those without a batch dimension
+DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (torch_checkpoint.CheckpointPolicy.MUST_SAVE if op in DOTS_SAVED
+            else torch_checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
 
 
 def _run(remat, fn, *args, **kw):

@@ -45,7 +45,12 @@ channels, is ill-conditioned; not a trajectory that drifts).
 
 Then: ``_cross_entropy`` equal to the reference's one-hot version;
 ``remat="full"`` giving the same gradients as ``"none"`` bit for bit;
-``"dots"`` raising; bf16 compute carrying float32 master copies.
+``"dots"`` (the products' outputs kept, the rest recomputed) giving
+``"full"``'s loss bit for bit and its gradients within the tolerances
+above on all ten reduced configs, and one step equal to the reference's
+step at ``remat="dots"`` (its ``dots_with_no_batch_dims_saveable``
+policy) as above; an unknown setting raising; bf16 compute carrying
+float32 master copies.
 """
 import dataclasses
 import functools
@@ -261,15 +266,70 @@ def test_remat_full_gives_the_gradients_of_none_bit_for_bit(arch):
 
 
 def test_remat_dots_raises():
-    cfg = dataclasses.replace(tconfigs.get("qwen3-0.6b").reduced(),
-                              remat="dots")
+    """"dots" trains (the step "full" takes, its loss bit for bit); a
+    setting that is none of full, dots and none raises."""
+    base = tconfigs.get("qwen3-0.6b").reduced()
+    batch = {"tokens": torch.from_numpy(_batches(base, 1)[0]["tokens"])}
+    losses = {}
+    for remat in ("full", "dots"):
+        cfg = dataclasses.replace(base, remat=remat)
+        model, opt = tlm.init_all(cfg, device="cpu")
+        _, _, met = tlm.train_step(model, opt, batch, cfg, AdamWConfig())
+        losses[remat] = met["loss"]
+    assert torch.equal(losses["full"], losses["dots"])
+    cfg = dataclasses.replace(base, remat="selective")
     model, opt = tlm.init_all(cfg, device="cpu")
-    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
-    with pytest.raises(ValueError, match="ROADMAP item 3"):
+    with pytest.raises(ValueError, match="expected full, dots or none"):
         tlm.train_step(model, opt, batch, cfg, AdamWConfig())
     # serving records no graph: the setting does not matter there
     logits, _ = tlm.prefill_step(model, batch, cfg)
-    assert logits.shape == (1, cfg.vocab_size)
+    assert logits.shape == (B, cfg.vocab_size)
+
+
+@pytest.mark.parametrize("arch", rconfigs.ARCH_IDS)
+def test_remat_dots_gives_the_gradients_of_full(arch):
+    base = dataclasses.replace(tconfigs.get(arch).reduced(),
+                               use_flash=_with_attention(arch))
+    full = _grads(dataclasses.replace(base, remat="full"))
+    dots = _grads(dataclasses.replace(base, remat="dots"))
+    assert set(full) == set(dots)
+    for name in full:
+        err = _rel(dots[name].numpy(), full[name].numpy())
+        assert err <= _tol(base), (name, err)
+
+
+@pytest.mark.parametrize("arch", rconfigs.ARCH_IDS)
+def test_remat_dots_step_matches_reference(arch):
+    flash = _with_attention(arch)
+    rcfg = dataclasses.replace(rconfigs.get(arch).reduced(), use_flash=flash,
+                               remat="dots")
+    tcfg = dataclasses.replace(tconfigs.get(arch).reduced(), use_flash=flash,
+                               remat="dots")
+    params = _weights(rcfg)
+    zero_grad = _zero_grad_leaf(rcfg)
+    ropt = radamw_init(params)
+    model = tlm.make_trainable(
+        interop.lm_params(_flat(params), tcfg, device="cpu"), tcfg)
+    topt = interop.adamw_state(
+        {"mu": _flat(ropt["mu"]), "nu": _flat(ropt["nu"]),
+         "step": ropt["step"]}, model)
+    batch = _batches(rcfg, 1)[0]
+    params, ropt, rmet = jax.jit(functools.partial(
+        rlm.train_step, cfg=rcfg, ctx=None, opt_cfg=RAdamWConfig(**OPT)))(
+        params, ropt, {k: jnp.asarray(v) for k, v in batch.items()})
+    model, topt, tmet = tlm.train_step(
+        model, topt, {k: torch.from_numpy(v) for k, v in batch.items()},
+        tcfg, AdamWConfig(**OPT))
+    for key in rmet:
+        want, got = float(rmet[key]), float(tmet[key])
+        assert abs(got - want) <= _tol(tcfg) * max(abs(want), 1e-6), \
+            (key, got, want)
+    st = interop.adamw_tree(topt, tcfg)
+    for name, g, w in zip(("params", "mu", "nu"),
+                          (interop.lm_tree(model, tcfg), st["mu"], st["nu"]),
+                          (_flat(params), _flat(ropt["mu"]),
+                           _flat(ropt["nu"]))):
+        _check_trees(g, w, zero_grad, _tol(tcfg), f"{name} after a step")
 
 
 def test_bf16_compute_trains_float32_masters():
