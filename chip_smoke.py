@@ -1,7 +1,8 @@
 """Smoke run of repro_torch on one CUDA card: build the kernels, hold each
 against its plain PyTorch version, drive the AWAPart serving loop and the
-LM serving paths (MoE with AWAPart expert placement among them) end to
-end on the card, and report.
+LM serving paths (MoE with AWAPart expert placement among them, on one
+rank and expert-parallel across four) end to end on the card, and
+report.
 
     python3 chip_smoke.py
 
@@ -175,6 +176,9 @@ Phases (any failure raises and ends the run with a nonzero exit):
    rows whose routes agree are held to the limits; then the flash kernel
    at the prefill and decode shapes and both Jaccard variants at the
    placement shape against their plain versions, timed as in phase 10;
+   and, for phase 20, the one-device outputs saved to a temporary file
+   (the bf16 serving run's logits, inputs and routes, and check (b)'s
+   float32 forward's logits at positions 1023 to 1031 and its routes);
 16. the same for qwen3-moe-30b-a3b (48 layers, 128 experts top-8, GQA
    32/4) in bfloat16 parameters (61 GB), its float32 checks (b) and (c)
    at full width and 12 of the 48 layers;
@@ -259,6 +263,40 @@ Phases (any failure raises and ends the run with a nonzero exit):
    its ops' own bounds (``launch/roofline.py``) against the measured
    step, and the step's model-FLOPs share at 989 TFLOP/s (N from the
    config and from the tensors), beside the card's ``total_memory``.
+20. expert-parallel MoE serving (``[moe-ep]`` lines): the main process
+   frees its models and spawns four processes on the one card, a
+   ``gloo`` group over them and a 1 x 4 ``DeviceMesh`` (gloo stages each
+   collective through host memory: the wire is no speed figure). (g) an
+   all-to-all, all-gather and all-reduce of CUDA tensors; (e) one MoE
+   layer of olmoe-1b-7b's width (d 2048, f 1024, 64 experts top-8),
+   float32, on 4 x 2048 tokens drawn topically, each rank holding 16
+   experts: both dispatch modes at the config's capacity factor 1.25
+   against ``moe_apply_ranks_plain`` on the card and at the least factor
+   at which nothing drops (from the routes) against the one-device
+   layer, within 1e-5 of the largest output, with each all-to-all's
+   wire bytes, the rows occupied and the pairs dropped; (p) one
+   ``plan_expert_placement`` on that layer's routes (its Jaccard matrix
+   on the tile kernel, one launch, read), migrated across the ranks by
+   ``migrate_experts`` bit for bit the one-device
+   ``apply_expert_placement``, its bytes the plan's, and (e) again
+   (where nothing drops the
+   output unchanged within 1e-5); (s) olmoe-1b-7b at full width and
+   depth, each rank drawing phase 15's weights and keeping its 16 of the
+   64 experts, phase 15's 4 prompts of 2048 tokens and 32 decode steps
+   (on phase 15's inputs) through ``lm.prefill_step``/``decode_step``
+   with the ``ShardCtx`` in rank mode at factors that drop nothing
+   (asserted): in float32, held to phase 15's one-device float32 run of
+   the same requests (its flash forward's last-position logits and its
+   32 decode steps from the forward's caches) under its route rule (a
+   differing route a root only where the oracle's gap is under 2^-10,
+   the agreeing rows within 2^-12 of the largest logit); then in bf16,
+   phase 15's main path, launch counts reset just before and read just
+   after on every rank (flash tc 16 a prefill, dec 16 a decode step),
+   walls, each rank's peak memory, the wire bytes a layer, and its
+   distance to phase 15's bf16 run held (rank mode adds a token's
+   experts rank by rank, another bf16 rounding, and the routes it moves
+   move the logits after them): the prefill logits within 2^-3 of the
+   largest, at least 3/4 of the greedy tokens equal.
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -279,10 +317,13 @@ import math
 import os
 import pathlib
 import pstats
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -310,7 +351,9 @@ PROFILE_TRIES = 12               # profiles of a call before its trace counts
 
 
 def log(*args) -> None:
-    print(*args, flush=True)
+    # one write a line: phase 20's ranks share the output
+    sys.stdout.write(" ".join(map(str, args)) + "\n")
+    sys.stdout.flush()
 
 
 @functools.lru_cache(maxsize=None)
@@ -2984,11 +3027,13 @@ def _placement_round(model, cfg, prefix, dev, placement):
     return dict(_build.launches)
 
 
-def moe_serving(arch, prefix, param_dtype, f32_layers):
+def moe_serving(arch, prefix, param_dtype, f32_layers, oracle=None):
     """Phase 15 (olmoe-1b-7b) or 16 (qwen3-moe-30b-a3b): serving at full
     width and depth, check (p), then checks (b) and (c) in float32 at
-    ``f32_layers`` layers (all when None) and (d). Returns the serving
-    run's launches and check (p)'s round's."""
+    ``f32_layers`` layers (all when None) and (d). With ``oracle`` (a
+    path), it also saves phase 20's one-device outputs there
+    (:func:`_save_oracle`). Returns the serving run's launches and check
+    (p)'s round's."""
     from repro_torch import configs
     from repro_torch.core import placement
     from repro_torch.kernels import _build
@@ -3071,7 +3116,9 @@ def moe_serving(arch, prefix, param_dtype, f32_layers):
     # (p) AWAPart expert placement, then the same requests again: logits
     # and tokens equal to the unplaced run's bit for bit
     place_launches = _placement_round(model, cfg, prefix, dev, placement)
-    again = _serve(model, cfg, prompts, dev, transformer, lm)
+    bf16_log = RouteLog()
+    with bf16_log.watching():
+        again = _serve(model, cfg, prompts, dev, transformer, lm)
     same = (torch.equal(again[0], first), torch.equal(again[1], steps),
             torch.equal(again[2], generated))
     log(f"[{prefix}] (p) after placement: the prefill's logits, the {LM_NEW}"
@@ -3135,6 +3182,10 @@ def moe_serving(arch, prefix, param_dtype, f32_layers):
                 "float32", [(step[True], step[False], flipped[:, 0])],
                 MOE_F32_REL)
 
+    if oracle is not None:
+        _save_oracle(oracle, model, cfg32, xf, pre_f, fwd, prompts, first,
+                     steps, generated, bf16_log, transformer, lm, dev)
+
     # (c) teacher-forced decode of the last 8 prompt positions against the
     # flash forward at those positions, from the forward's caches (their
     # slots from the first decoded position on are rewritten as the steps
@@ -3197,17 +3248,53 @@ def moe_serving(arch, prefix, param_dtype, f32_layers):
     log(f"[{prefix}] flash variants of the float32 checks (b), (c), (d): "
         f"{f32_var}")
     # each call on the variant its shape gives: (b)'s flash forward over
-    # the prompt, (b)'s flash decode step and (c)'s eight, then (d)'s
-    # prefill of 16 and 8 steps
+    # the prompt, (b)'s flash decode step and (c)'s eight (and phase 20's
+    # oracle's decode steps), then (d)'s prefill of 16 and 8 steps
     want_var = collections.Counter({v_: 0 for v_ in FLASH_VARIANTS})
     g, hd = cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
     want_var[FA.variant(torch.float32, LM_PROMPT, g, hd)] += n32
-    want_var[FA.variant(torch.float32, 1, g, hd)] += (1 + LM_TEACHER) * n32
+    want_var[FA.variant(torch.float32, 1, g, hd)] += (
+        1 + LM_TEACHER + (LM_NEW if oracle is not None else 0)) * n32
     g, hd = small.n_heads // small.n_kv_heads, small.resolved_head_dim
     want_var[FA.variant(torch.float32, 16, g, hd)] += small.n_layers
     want_var[FA.variant(torch.float32, 1, g, hd)] += 8 * small.n_layers
     assert f32_var == dict(want_var), (f32_var, want_var)
     return launches, place_launches
+
+
+def _save_oracle(path, model, cfg32, xf, pre_f, fwd, prompts, first, steps,
+                 generated, bf16_log, transformer, lm, dev) -> None:
+    """Phase 20's one-device outputs, on the host: the bf16 serving run's
+    prefill and decode logits, its decode steps' inputs and its routes;
+    the float32 run of the same requests: the flash forward's logits at
+    the last prompt position (``xf``) and LM_NEW decode steps from its
+    caches (``pre_f``) on the bf16 run's inputs, with the routes of both.
+    The decode steps' flash launches count in the caller's variants."""
+    n = cfg32.n_layers
+    inputs = torch.cat([first.argmax(-1)[:, None], generated[:, :-1]], 1)
+    big = _copy_caches(pre_f, transformer.init_decode_caches(
+        cfg32, LM_BATCH, LM_CACHE, device=dev), LM_PROMPT)
+    dec_log, got = RouteLog(), []
+    with dec_log.watching():
+        for i in range(LM_NEW):
+            lg, big = lm.decode_step(model, big, {
+                "token": inputs[:, i], "pos": LM_PROMPT + i}, cfg32)
+            got.append(lg)
+    del big
+    dec = dec_log.routes(n, LM_BATCH, (1,) * LM_NEW)
+    bf16 = bf16_log.routes(n, LM_BATCH, (LM_PROMPT,) + (1,) * LM_NEW)
+    torch.save({
+        "prompts": prompts.cpu(), "inputs": inputs.cpu(),
+        "bf16": {"first": first.cpu(), "steps": steps.cpu(),
+                 "ids": bf16[0], "gaps": bf16[1]},
+        "f32": {"first": transformer.lm_head(model, xf[:, -1:],
+                                             cfg32)[:, 0].cpu(),
+                "steps": torch.stack(got, 1).cpu(),
+                "ids": torch.cat([fwd[0], dec[0]], 2),
+                "gaps": torch.cat([fwd[1], dec[1]], 2)}}, path)
+    log(f"[olmoe] phase 20's one-device outputs saved: the bf16 run's, and "
+        f"the float32 run's (the forward's last logits and {LM_NEW} decode "
+        f"steps on the bf16 run's inputs) with their routes")
 
 
 def moe_kernel_rows(rows, arch, launches, place_launches):
@@ -4911,6 +4998,485 @@ def tensor_core_kernels(lib) -> None:
             f"(1 to 8): {[found[ks] for ks in sorted(found)]}")
 
 
+# --------------------------------------------------------------------------- #
+# phase 20: expert-parallel MoE serving, four ranks on the one card
+# --------------------------------------------------------------------------- #
+
+EP_ARCH = "olmoe-1b-7b"
+EP_MESH = (1, 4)            # (data, model): four expert-parallel ranks
+EP_TOKENS = (4, 2048)       # (e): the layer's tokens, (batch, sequence)
+# (e): each token is its topic's direction (the sum of its k experts'
+# router columns) times this, plus unit noise: about 0.9 of its top-k
+# picks fall in its topic, as phase 15's topical routing draws them
+EP_TOPIC_GAIN = 3.5
+EP_LAYER_REL = 1e-5         # (e): of the largest |output|, float32
+# (s): the prefill's capacity factor: this times the least factor at
+# which no pair of phase 15's routes drops (over layers, both dtypes; the
+# runs' routes differ from those in a few tokens of 8192 a layer); the
+# decode steps' E/k, at which none can drop (a rank receives tp copies of
+# every token)
+EP_MARGIN = 1.05
+# (s): the bf16 main path against phase 15's bf16 one-device run. Rank
+# mode adds a token's experts rank by rank, another bf16 rounding, which
+# flips routes where router logits nearly tie, and a flipped route moves
+# the logits after it: three runs on the H100 read 0.0499 to 0.0598 of the
+# largest prefill logit and 114 to 119 of 124 greedy tokens equal. A
+# dispatch fault (a wrong expert, a lost row) moves logits by the order of
+# the largest and greedy tokens to chance; the limits leave twice the
+# readings' gap and a quarter of the tokens. The float32 run holds the
+# function itself, to 2^-12
+EP_BF16_REL, EP_BF16_AGREE = 2.0 ** -3, 0.75
+EP_TIMEOUT_S = 300          # a collective that waits longer fails the run
+
+
+def no_drop_factor(slots, tp, n_experts, mode):
+    """The least capacity factor at which ``models.moe._capacity`` leaves
+    room for every pair of ``slots`` ((B, S, k) physical slots, numpy),
+    the sequence split over the ``tp`` ranks as a prefill dispatches it:
+    in expert mode the largest (source, slot) count; in rank mode the
+    largest (source, destination rank) row count and the largest slot's
+    jobs from all sources."""
+    b, s, k = slots.shape
+    per = slots.reshape(b, tp, s // tp, k).transpose(1, 0, 2, 3).reshape(
+        tp, -1, k)                                   # (source, tokens, k)
+    t = per.shape[1]
+    if mode == "expert":
+        need = max(np.bincount(p.reshape(-1), minlength=n_experts).max()
+                   for p in per)
+        return need * n_experts / (t * k)
+    e_loc = n_experts // tp
+    rows = 0
+    for p in per:
+        hit = np.zeros((t, tp), bool)
+        hit[np.repeat(np.arange(t), k), p.reshape(-1) // e_loc] = True
+        rows = max(rows, hit.sum(0).max())
+    jobs = np.bincount(slots.reshape(-1), minlength=n_experts).max()
+    return max(rows * tp / (t * min(k, tp)),
+               jobs * n_experts / (t * tp * k))
+
+
+def _ep_sum(t, group):
+    """Sum of a tensor over the tp group (a copy)."""
+    import torch.distributed as dist
+    t = t.detach().clone().to(torch.float64)
+    dist.all_reduce(t, group=group)
+    return t
+
+
+def _ep_collectives(rank, group, dev) -> None:
+    """(g): an all-to-all, all-gather and all-reduce of CUDA tensors over
+    the tp group; a backend that refuses them raises."""
+    import torch.distributed as dist
+    tp = dist.get_world_size(group)
+    x = torch.arange(tp, dtype=torch.float32, device=dev) + 10 * rank
+    y = torch.empty_like(x)
+    dist.all_to_all_single(y, x, group=group)
+    parts = [torch.empty(1, device=dev) for _ in range(tp)]
+    dist.all_gather(parts, torch.full((1,), float(rank), device=dev),
+                    group=group)
+    r = torch.full((1,), float(rank), device=dev)
+    dist.all_reduce(r, group=group)
+    assert all(t.device == dev for t in (y, parts[0], r))
+    assert y.tolist() == [10.0 * s + rank for s in range(tp)], y
+    assert [p.item() for p in parts] == list(range(tp)), parts
+    assert r.item() == tp * (tp - 1) / 2, r
+    if rank == 0:
+        log(f"[moe-ep] (g) all_to_all_single, all_gather and all_reduce of "
+            f"{dev.type} tensors over the {tp} ranks' "
+            f"{dist.get_backend(group)} group: right")
+
+
+def _ep_dispatch_line(tag, mode, cf, stats, group):
+    """One rank's stats of a dispatch, summed over the group, printed on
+    rank 0: the bytes of each all-to-all, rows, drops, distinct ranks."""
+    import torch.distributed as dist
+    tot = _ep_sum(torch.stack([stats.rows, stats.dropped, stats.distinct]),
+                  group).tolist()
+    tp = dist.get_world_size(group)
+    if dist.get_rank(group) == 0:
+        parts = "; ".join(
+            f"{name}: " + ", ".join(f"{k} {shape} {n} B"
+                                    for k, (shape, n) in bufs.items())
+            + f", wire {wire} B a rank"
+            for name, bufs, wire in stats.exchanges)
+        log(f"[moe-ep] {tag} {mode} at {cf:.4g}: {parts}; wire "
+            f"{stats.wire_bytes} B a rank, {stats.wire_bytes * tp} B over "
+            f"the {tp} ranks a layer; rows occupied {int(tot[0])}; pairs "
+            f"dropped {int(tot[1])} of {stats.pairs * tp}; distinct ranks a "
+            f"token {tot[2] / (stats.tokens * tp):.4f}")
+    return tot
+
+
+def _ep_layer(ctx, dev, rank):
+    """(e) and (p): the MoE layer at full width in float32 across the
+    ranks, against the plain twin and the one-device layer, then AWAPart
+    placement on its routes, migrated across the ranks, and (e) again."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.core import placement
+    from repro_torch.kernels import _build
+    from repro_torch.models import moe
+
+    base = dataclasses.replace(configs.get(EP_ARCH), param_dtype="float32",
+                               compute_dtype="float32")
+    d, f, e, k = base.d_model, base.d_ff, base.n_experts, base.top_k
+    tp, group = ctx.tp, ctx.mesh.get_group(ctx.tp_axis)
+    mine_sl = moe.expert_slice(base, ctx)
+    gen = torch.Generator(device=dev).manual_seed(20)   # the same on all
+    w = {"wr": torch.randn(d, e, generator=gen, device=dev) / d ** 0.5,
+         "wg": torch.randn(e, d, f, generator=gen, device=dev) / d ** 0.5,
+         "wi": torch.randn(e, d, f, generator=gen, device=dev) / d ** 0.5,
+         "wo": torch.randn(e, f, d, generator=gen, device=dev) / f ** 0.5,
+         "inv_perm": torch.arange(e, dtype=torch.int32, device=dev)}
+    rng = np.random.default_rng(20)
+    topics = rng.permutation(e).reshape(-1, k)
+    b, s = EP_TOKENS
+    tid = torch.from_numpy(rng.integers(len(topics), size=b * s)).to(dev)
+    dirs = torch.stack([w["wr"][:, torch.from_numpy(t).to(dev)].sum(1)
+                        for t in topics])
+    x = (EP_TOPIC_GAIN * dirs[tid] + torch.randn(
+        b * s, d, generator=gen, device=dev)).reshape(b, s, d)
+    expert_bytes = 3 * d * f * 4
+
+    def run(state, tag):
+        full = moe.MoE(base, state)
+        mine = moe.MoE(base, {n: (v[mine_sl] if n in ("wg", "wi", "wo")
+                                  else v) for n, v in state.items()})
+        _, topi, _ = moe._router(full, x.reshape(-1, d), base)
+        slots = full.inv_perm[topi].long().cpu().numpy().reshape(b, s, k)
+        outs = {}
+        for mode in ("expert", "rank"):
+            for cf in (base.capacity_factor,
+                       no_drop_factor(slots, tp, e, mode)):
+                cfg = dataclasses.replace(base, moe_dispatch=mode,
+                                          capacity_factor=cf)
+                y, aux, st = moe.moe_dispatch(mine, x, cfg, ctx)
+                tot = _ep_dispatch_line(tag, mode, cf, st, group)
+                scale = float(y.abs().max())
+                # the aux loss is the mean of the ranks' own (the
+                # reference's pmean): held against the plain twin only
+                if cf == base.capacity_factor:
+                    want, want_aux, _ = moe.moe_apply_ranks_plain(
+                        full, x, cfg, EP_MESH)
+                    what = "the plain twin on the card"
+                else:
+                    assert tot[1] == 0, (tag, mode, tot)
+                    want, want_aux = moe.moe_apply(full, x, cfg)[0], aux
+                    what = "the one-device layer"
+                    outs[mode] = y
+                err = float((y - want).abs().max())
+                aux_err = abs(float(aux) - float(want_aux))
+                if rank == 0:
+                    log(f"[moe-ep] (e) {tag} {mode} at {cf:.4g}, 4 ranks vs "
+                        f"{what}: max abs diff {err:.3e}, max |y| "
+                        f"{scale:.4f}, ratio {err / scale:.3e} (limit "
+                        f"{EP_LAYER_REL:g}); aux {float(aux):.6f}, diff "
+                        f"{aux_err:.2e}")
+                assert err <= EP_LAYER_REL * scale, (tag, mode, cf, err)
+                assert aux_err <= EP_LAYER_REL, (tag, mode, cf, aux_err)
+        return outs, slots
+
+    # unplaced, a slot is its expert: the slots are the logical routes
+    before, routing = run(w, "unplaced")
+    routing = routing.reshape(-1, k)
+    # (p): AWAPart placement on the layer's routes, the distance matrix on
+    # the card (the tile kernel, one launch), migrated across the ranks
+    _build.reset_launches()
+    e2r, rep = placement.plan_expert_placement(routing, e, tp, None,
+                                               expert_bytes, device=dev)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    assert launches == {"jaccard": 1, "jaccard.tile": 1}, launches
+    maps = [torch.empty(e, dtype=torch.int64) for _ in range(tp)]
+    dist.all_gather(maps, torch.from_numpy(e2r.astype(np.int64)),
+                    group=group)
+    assert all(torch.equal(m, maps[0]) for m in maps), "plans differ"
+    assert rep.accepted, rep
+    mine = {n: (v[mine_sl] if n in ("wg", "wi", "wo") else v)
+            for n, v in w.items()}
+    t = time.perf_counter()
+    moved, sent = placement.migrate_experts(mine, e2r, ctx)
+    torch.cuda.synchronize()
+    move_s = time.perf_counter() - t
+    one = placement.apply_expert_placement(w, e2r)
+    same = all(torch.equal(moved[n], one[n][mine_sl])
+               for n in ("wg", "wi", "wo")) and torch.equal(
+        moved["inv_perm"], one["inv_perm"])
+    total = int(_ep_sum(torch.tensor(float(sent)), group))
+    if rank == 0:
+        log(f"[moe-ep] (p) placement of the layer on its {len(routing)} "
+            f"tokens' routes: accepted {rep.accepted}, distinct ranks a "
+            f"token {rep.ranks_before:.4f} -> {rep.ranks_after:.4f}, "
+            f"{rep.moved_experts} experts change rank, "
+            f"{rep.migration_bytes} B planned; launches {launches}")
+        log(f"[moe-ep] (p) migrated across the ranks: {total} B sent over "
+            f"the group (rank 0: {sent} B, {move_s * 1e3:.1f} ms, one "
+            f"all-to-all a leaf); every rank's slots equal to the one-device "
+            f"apply bit for bit: {same}")
+    assert same and total == rep.migration_bytes, (same, total)
+    after, _ = run(one, "placed")
+    for mode in ("expert", "rank"):
+        err = float((after[mode] - before[mode]).abs().max())
+        scale = float(before[mode].abs().max())
+        if rank == 0:
+            log(f"[moe-ep] (p) {mode} mode where nothing drops: placed vs "
+                f"unplaced output max abs diff {err:.3e} (ratio "
+                f"{err / scale:.3e}, limit {EP_LAYER_REL:g})")
+        assert err <= EP_LAYER_REL * scale, (mode, err)
+    return launches
+
+
+def _ep_routes(log_, n_layers, group, prefill, steps):
+    """(ids, gaps) of the whole requests from each rank's RouteLog of a
+    prefill of ``prefill`` tokens (its sequence slice) and ``steps``
+    decode steps (every token): the prefill's gathered over the tp group
+    along the sequence."""
+    import torch.distributed as dist
+    tp = dist.get_world_size(group)
+    cut = prefill // tp
+    ids, gaps = log_.routes(n_layers, LM_BATCH, (cut,) + (1,) * steps)
+    out = []
+    for t in (ids, gaps):
+        pre = t[:, :, :cut].contiguous()
+        parts = [torch.empty_like(pre) for _ in range(tp)]
+        dist.all_gather(parts, pre, group=group)
+        out.append(torch.cat(parts + [t[:, :, cut:]], 2))
+    return out
+
+
+def _ep_serve(model, cfg_p, cfg_d, prompts, inputs, ctx, dev):
+    """Phase 15's requests through the steps with ``ctx``: one prefill
+    (``cfg_p``) and a decode step (``cfg_d``) on each column of
+    ``inputs``; the logits, the walls, the flash launches and every
+    dispatch's stats."""
+    from repro_torch.kernels import _build
+    from repro_torch.models import lm, transformer
+
+    ctx = dataclasses.replace(ctx, dispatch_log=[])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t = time.perf_counter()
+    first, pre = lm.prefill_step(model, {"tokens": prompts}, cfg_p, ctx)
+    torch.cuda.synchronize()
+    st = dict(prefill_s=time.perf_counter() - t,
+              prefill_var=flash_variants(), steps_var=[])
+    s, steps = prompts.shape[1], inputs.shape[1]
+    caches = _copy_caches(pre, transformer.init_decode_caches(
+        cfg_d, LM_BATCH, s + steps, device=dev), s)
+    del pre
+    out = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for i in range(steps):
+        before = flash_variants()
+        lg, caches = lm.decode_step(model, caches, {
+            "token": inputs[:, i], "pos": s + i}, cfg_d, ctx)
+        st["steps_var"].append(flash_variants(before))
+        out.append(lg)
+    torch.cuda.synchronize()
+    st["decode_s"] = time.perf_counter() - t
+    st["stats"] = ctx.dispatch_log
+    return first, torch.stack(out, 1), st
+
+
+def _ep_rank(rank, world, pg, oracle_path, out_dir):
+    """One rank of phase 20 (a process of its own on the one card)."""
+    import datetime
+
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method="file://" + pg, rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=EP_TIMEOUT_S))
+    try:
+        result = _ep_run(rank, oracle_path)
+        pathlib.Path(out_dir, f"rank{rank}.json").write_text(
+            json.dumps(result))
+    except BaseException:
+        # spawn reports one rank's error: print every rank's own
+        log(f"[moe-ep] rank {rank} failed:\n{traceback.format_exc()}")
+        raise
+    finally:
+        dist.destroy_process_group()
+
+
+def _ep_run(rank, oracle_path):
+    """(g), (e), (p) and (s) on this rank; returns its numbers."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.models import lm, moe, transformer
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = meshes.make_host_mesh(*EP_MESH)
+    ctx = moe.ShardCtx(mesh, meshes.dp_axes(mesh))
+    group = mesh.get_group(ctx.tp_axis)
+    lead = rank == 0
+    _ep_collectives(rank, group, dev)
+    t = time.perf_counter()
+    place_launches = _ep_layer(ctx, dev, rank)
+    layer_s = time.perf_counter() - t
+    torch.cuda.empty_cache()        # (e)'s layers are gone
+
+    # (s): the model at full width and depth, this rank's 16 of the 64
+    # experts, phase 15's weights (the same draw, this rank's slots)
+    oracle = torch.load(oracle_path, map_location=dev)
+    cfg = dataclasses.replace(configs.get(EP_ARCH), use_flash=True,
+                              param_dtype="float32", moe_dispatch="rank")
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    flat = lm.init_flat(cfg, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0), ctx=ctx)
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model32 = transformer.Transformer(cfg32, flat)     # the draw itself
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    n = cfg.n_layers
+    e_loc = model32.blocks[0].moe.wg.shape[0]
+    assert e_loc * ctx.tp == cfg.n_experts, e_loc
+
+    # the factors: the decode steps' E/k; each prefill's from phase 15's
+    # routes of its tokens, split over the ranks' sequence slices
+    def need(dt, length):
+        return max(no_drop_factor(
+            oracle[dt]["ids"][i, :, :length].cpu().numpy(), ctx.tp,
+            cfg.n_experts, "rank") for i in range(n))
+    need32, need16 = need("f32", LM_PROMPT), need("bf16", LM_PROMPT)
+    cf32, cf16 = (max(1.0, EP_MARGIN * x) for x in (need32, need16))
+    cf_d = cfg.n_experts / cfg.top_k
+    prompts, inputs = oracle["prompts"], oracle["inputs"]
+    if lead:
+        log(f"[moe-ep] (s) {n} layers, {e_loc} of {cfg.n_experts} experts "
+            f"a rank, built in {build_s:.2f} s; capacity factors: the "
+            f"prefills' {EP_MARGIN} x the least with no drop over phase "
+            f"15's routes, float32 {cf32:.4f} ({need32:.4f}), bf16 "
+            f"{cf16:.4f} ({need16:.4f}); the decode steps' {cf_d:g}; "
+            f"memory_allocated {torch.cuda.memory_allocated() / 2**30:.3f} "
+            "GiB a rank")
+    out = {"rank": rank, "place_launches": place_launches,
+           "layer_s": layer_s, "build_s": build_s, "cf_f32": cf32,
+           "cf_bf16": cf16, "cf_decode": cf_d}
+
+    # the float32 run, held to phase 15's float32 one-device run of the
+    # same requests: the prompts, then LM_NEW steps on phase 15's inputs
+    routes = RouteLog()
+    with routes.watching():
+        first, steps, st32 = _ep_serve(
+            model32, dataclasses.replace(cfg32, capacity_factor=cf32),
+            dataclasses.replace(cfg32, capacity_factor=cf_d), prompts,
+            inputs, ctx, dev)
+    ids, gaps = _ep_routes(routes, n, group, LM_PROMPT, LM_NEW)
+    dropped = int(_ep_sum(sum(s.dropped for s in st32["stats"]), group))
+    assert dropped == 0, dropped
+    assert torch.isfinite(first).all() and torch.isfinite(steps).all()
+    want = oracle["f32"]
+    if lead:
+        log(f"[moe-ep] (s) float32 run: pairs dropped over the ranks 0; "
+            f"flash variants: prefill {st32['prefill_var']}, decode steps "
+            f"{_distinct(st32['steps_var'])}; prefill wall "
+            f"{st32['prefill_s'] * 1e3:.1f} ms, decode "
+            f"{st32['decode_s'] / LM_NEW * 1e3:.2f} ms a step")
+        flipped = _route_check("moe-ep", "(s) float32, 4 ranks vs one "
+                               "device (phase 15)", (ids, gaps),
+                               (want["ids"].cpu(), want["gaps"].cpu()))
+        out["f32_ratio"] = _rows_check(
+            "moe-ep", f"(s) float32 prefill of {LM_BATCH} x {LM_PROMPT} + "
+            f"{LM_NEW} decode steps, 4 ranks vs one device (phase 15)",
+            [(first, want["first"], flipped[:, LM_PROMPT - 1]),
+             (steps, want["steps"], flipped[:, LM_PROMPT:])],
+            MOE_F32_REL)
+    g = cfg.n_heads // cfg.n_kv_heads
+    from repro_torch.kernels.flash_attention import ops as FA
+    var32 = FA.variant(torch.float32, LM_PROMPT, g, cfg.resolved_head_dim)
+    dec32 = FA.variant(torch.float32, 1, g, cfg.resolved_head_dim)
+    assert st32["prefill_var"][var32] == n, st32["prefill_var"]
+    assert all(v[dec32] == n for v in st32["steps_var"]), st32["steps_var"]
+    del model32, first, steps
+    model16 = transformer.Transformer(cfg, flat)       # a bf16 copy
+    del flat
+    torch.cuda.empty_cache()
+    held = collections.Counter()
+    for dt, numel in [(str(p.dtype), p.numel())
+                      for p in model16.parameters()]:
+        held[dt] += numel
+
+    # the main path: bf16 compute, as phase 15 serves, on phase 15's tokens
+    torch.cuda.reset_peak_memory_stats()
+    first, steps, st = _ep_serve(
+        model16, dataclasses.replace(cfg, capacity_factor=cf16),
+        dataclasses.replace(cfg, capacity_factor=cf_d), prompts, inputs,
+        ctx, dev)
+    peak = torch.cuda.max_memory_allocated()
+    dropped = int(_ep_sum(sum(s.dropped for s in st["stats"]), group))
+    assert dropped == 0, dropped
+    assert torch.isfinite(first).all() and torch.isfinite(steps).all()
+    assert st["prefill_var"] == dict(tc=n, scalar=0, dec=0), \
+        st["prefill_var"]
+    assert st["steps_var"] == [dict(tc=0, scalar=0, dec=n)] * LM_NEW, \
+        st["steps_var"]
+    pre_stats, dec_stats = st["stats"][:n], st["stats"][n:2 * n]
+    bf = oracle["bf16"]
+    gap = float((first - bf["first"]).abs().max())
+    scale = float(bf["first"].abs().max())
+    # phase 15's step i + 1 took step i's greedy token
+    agree = int((steps.argmax(-1)[:, :-1] == inputs[:, 1:]).sum())
+    n_agree = LM_BATCH * (LM_NEW - 1)
+    out.update(prefill_s=st["prefill_s"], decode_s=st["decode_s"],
+               peak_gib=peak / 2 ** 30,
+               prefill_wire=sum(s.wire_bytes for s in pre_stats),
+               decode_wire=sum(s.wire_bytes for s in dec_stats))
+    log(f"[moe-ep] (s) rank {rank}: {dict(held)} parameters held ({e_loc} "
+        f"of {cfg.n_experts} experts a layer), built in {build_s:.2f} s; "
+        f"peak memory of the bf16 serving run {peak / 2 ** 30:.3f} GiB; "
+        f"prefill wall {st['prefill_s'] * 1e3:.1f} ms, decode "
+        f"{st['decode_s'] / LM_NEW * 1e3:.2f} ms a step; flash launches "
+        f"prefill {st['prefill_var']}, every decode step "
+        f"{_distinct(st['steps_var'])}; {card()}")
+    if lead:
+        log(f"[moe-ep] (s) bf16 serving (the main path; launches reset "
+            f"before, read after, on every rank): prefill {LM_BATCH} x "
+            f"{LM_PROMPT} tokens {st['prefill_s'] * 1e3:.1f} ms, "
+            f"{LM_NEW} decode steps {st['decode_s'] * 1e3:.1f} ms; wire "
+            f"bytes a rank: prefill {out['prefill_wire']} "
+            f"({out['prefill_wire'] // n} a layer), a decode step "
+            f"{out['decode_wire']} ({out['decode_wire'] // n} a layer); "
+            f"rows occupied a prefill layer "
+            f"{int(_ep_sum(pre_stats[0].rows, group))}; over gloo through "
+            f"host memory, no speed figure")
+        log(f"[moe-ep] check (s) bf16 against phase 15's bf16 one-device "
+            f"run (rank mode sums a token's experts rank by rank, another "
+            f"bf16 rounding): prefill logits max abs diff {gap:.4f} of max "
+            f"|logit| {scale:.4f}, ratio {gap / scale:.4f} (limit "
+            f"{EP_BF16_REL:g}); greedy tokens equal {agree} of {n_agree} "
+            f"(limit {EP_BF16_AGREE:g} of them)")
+    else:
+        _ep_sum(pre_stats[0].rows, group)
+    assert gap <= EP_BF16_REL * scale, (gap, scale)
+    assert agree >= EP_BF16_AGREE * n_agree, agree
+    out.update(bf16_ratio=gap / scale, bf16_agree=agree)
+    return out
+
+
+def moe_ep(oracle_path) -> None:
+    """Phase 20: spawn the four ranks on the one card, wait for them, and
+    print what they returned."""
+    import torch.multiprocessing as mp
+    world = EP_MESH[0] * EP_MESH[1]
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="moe_ep") as tmp:
+        mp.spawn(_ep_rank, args=(world, os.path.join(tmp, "pg"),
+                                 oracle_path, tmp), nprocs=world, join=True)
+        results = [json.loads(pathlib.Path(tmp, f"rank{r}.json")
+                              .read_text()) for r in range(world)]
+    log(f"[moe-ep] every rank passed; (e) and (p) "
+        f"{max(r['layer_s'] for r in results):.1f} s; bf16 prefill walls "
+        f"{[round(r['prefill_s'] * 1e3, 1) for r in results]} ms, peaks "
+        f"{[round(r['peak_gib'], 3) for r in results]} GiB; phase wall "
+        f"{time.perf_counter() - t:.1f} s")
+
+
 def timed(label, fn, *args):
     """``fn(*args)``, and a line with its wall time."""
     t = time.perf_counter()
@@ -5017,17 +5583,24 @@ def main() -> int:
                       ZAMBA_PROMPT, *zshape)
     flash_decode_row(rows, zamba_launches, rand, "zamba2-7b", ZAMBA_BATCH,
                      *zshape, ZAMBA_CACHE)
+    ep_dir = tempfile.mkdtemp(prefix="moe_ep_oracle")
+    ep_oracle = os.path.join(ep_dir, "oracle.pt")
     for arch, prefix, param_dtype, f32_layers in MOE_PHASES:
         torch.cuda.empty_cache()   # the earlier phases' models are gone
         moe_launches, place_launches = timed(
             f"{arch} serving", moe_serving, arch, prefix, param_dtype,
-            f32_layers)
+            f32_layers, ep_oracle if arch == EP_ARCH else None)
         moe_kernel_rows(rows, arch, moe_launches, place_launches)
     torch.cuda.empty_cache()       # the MoE phases' models are gone
     timed("17 training", training, rows)
     torch.cuda.empty_cache()       # the training phase's models are gone
     timed("18 RWKV6 and zamba2 training", ssm_training, rows, f2_cpu)
     timed("19 the reckoning against the card", reckoning_vs_card)
+    torch.cuda.empty_cache()       # nothing of the main process stays
+    try:
+        timed("20 expert-parallel MoE serving", moe_ep, ep_oracle)
+    finally:
+        shutil.rmtree(ep_dir)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card())
     print(json.dumps({"kernels": rows}))

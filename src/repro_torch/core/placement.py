@@ -24,7 +24,9 @@ constraint, applied to the embedding gather load).
 The planning is the reference's host numpy, with two changes: the expert
 distance matrix comes from the Jaccard kernel on ``device`` (the card
 unless the caller asks for the CPU), and :func:`apply_expert_placement`
-permutes torch tensors on their own device.
+permutes torch tensors on their own device; :func:`migrate_experts` does
+the same across the ranks of a ``models.moe.ShardCtx`` that hold them: the
+paper's triple exchange between shards.
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import hac
 from repro_torch.kernels.jaccard import ops as jaccard_ops
@@ -169,6 +172,22 @@ def plan_expert_placement(routing: np.ndarray, n_experts: int, n_ranks: int,
     return old_expert_to_rank, PlacementReport(False, before, after, 0, 0)
 
 
+def _new_layout(moe_params: Mapping[str, torch.Tensor],
+                expert_to_rank: np.ndarray):
+    """(gather, state): each new slot's current slot, and ``moe_params``
+    with the logical->slot map ``inv_perm`` (int32, on its device) of the
+    new layout and every other entry passed through."""
+    cur_inv = moe_params["inv_perm"].cpu().numpy()       # logical -> old slot
+    perm_new = rank_map_to_perm(expert_to_rank)         # new slot -> logical
+    # new slot s' holds logical expert perm_new[s'], currently stored at
+    # old slot cur_inv[perm_new[s']]
+    out = dict(moe_params)
+    out["inv_perm"] = torch.from_numpy(
+        np.argsort(perm_new).astype(np.int32)).to(
+            moe_params["inv_perm"].device)
+    return cur_inv[perm_new].astype(np.int64), out
+
+
 def apply_expert_placement(moe_params: Mapping[str, torch.Tensor],
                            expert_to_rank: np.ndarray
                            ) -> Dict[str, torch.Tensor]:
@@ -181,19 +200,64 @@ def apply_expert_placement(moe_params: Mapping[str, torch.Tensor],
     other entries pass through. Composes with the CURRENT physical layout
     (repeated migrations are the normal case — like successive triple
     exchanges). Load it back with ``MoE.load_state_dict``."""
-    cur_inv = moe_params["inv_perm"].cpu().numpy()       # logical -> old slot
-    perm_new = rank_map_to_perm(expert_to_rank)         # new slot -> logical
-    # new slot s' holds logical expert perm_new[s'], currently stored at
-    # old slot cur_inv[perm_new[s']]
-    gather = cur_inv[perm_new].astype(np.int64)
-    out = dict(moe_params)
+    gather, out = _new_layout(moe_params, expert_to_rank)
     for w in ("wg", "wi", "wo"):
         t = moe_params[w]
         out[w] = t.index_select(0, torch.from_numpy(gather).to(t.device))
-    out["inv_perm"] = torch.from_numpy(
-        np.argsort(perm_new).astype(np.int32)).to(
-            moe_params["inv_perm"].device)
     return out
+
+
+def migrate_experts(moe_params: Mapping[str, torch.Tensor],
+                    expert_to_rank: np.ndarray, ctx
+                    ) -> Tuple[Dict[str, torch.Tensor], int]:
+    """:func:`apply_expert_placement` across the ranks that hold the
+    experts: the paper's triple exchange between shards. ``ctx`` is a
+    ``models.moe.ShardCtx``; every rank of its tp group calls with the
+    same map, and ``moe_params`` holds this rank's slots. Returns
+    ``(state, bytes)``: the state holds slots ``[r*E_loc, (r+1)*E_loc)``
+    of the one-device result, bit for bit, and ``bytes`` is what this rank
+    sent. Each stacked leaf takes one all-to-all over the tp group
+    carrying only the experts that change rank; the others move within
+    the rank."""
+    gather, out = _new_layout(moe_params, expert_to_rank)
+    tp, r = ctx.tp, ctx.tp_rank
+    e_loc = len(gather) // tp
+    if moe_params["wg"].shape[0] != e_loc:
+        raise ValueError(f"the rank holds {moe_params['wg'].shape[0]} "
+                         f"experts, not {len(gather)}/{tp}")
+    src = gather // e_loc                    # each new slot's current rank
+    # to rank q: q's new slots whose expert is here, in slot order
+    sends = [np.flatnonzero(src[q * e_loc:(q + 1) * e_loc] == r) + q * e_loc
+             if q != r else np.empty(0, np.int64) for q in range(tp)]
+    send_rows = np.concatenate(sends)
+    mine = np.arange(r * e_loc, (r + 1) * e_loc)
+    recv_counts = [int((src[mine] == q).sum()) if q != r else 0
+                   for q in range(tp)]
+    # each new local slot's row in cat(held, received): received rows come
+    # source by source, each source's in slot order
+    index = np.empty(e_loc, np.int64)
+    start = np.cumsum([0] + recv_counts)[:-1]
+    for j, s_new in enumerate(mine):
+        q = src[s_new]
+        if q == r:
+            index[j] = gather[s_new] - r * e_loc
+        else:
+            index[j] = e_loc + start[q]
+            start[q] += 1
+    group = ctx.mesh.get_group(ctx.tp_axis)
+    sent = 0
+    for w in ("wg", "wi", "wo"):
+        t = moe_params[w]
+        send = t.index_select(0, torch.from_numpy(
+            gather[send_rows] - r * e_loc).to(t.device))
+        recv = t.new_empty((sum(recv_counts),) + tuple(t.shape[1:]))
+        dist.all_to_all_single(recv, send, output_split_sizes=recv_counts,
+                               input_split_sizes=[len(x) for x in sends],
+                               group=group)
+        out[w] = torch.cat([t, recv]).index_select(
+            0, torch.from_numpy(index).to(t.device))
+        sent += send.numel() * send.element_size()
+    return out, sent
 
 
 # --------------------------------------------------------------------------- #

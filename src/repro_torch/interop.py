@@ -100,7 +100,7 @@ def lubm_dataset(triples: np.ndarray, terms: Sequence[str],
 
 
 def lm_params(tree: Mapping[str, np.ndarray], cfg: ArchConfig, *,
-              device="cuda"):
+              device="cuda", ctx=None):
     """A language model's parameter tree -> the port's
     ``models.transformer.Transformer`` on ``device``. ``tree`` maps each
     leaf's path (``"embed"``, ``"ln_f/scale"``, ``"blocks/attn/wq"``; for
@@ -109,8 +109,10 @@ def lm_params(tree: Mapping[str, np.ndarray], cfg: ArchConfig, *,
     and the integer slot map ``"blocks/moe/inv_perm"``, ...) to its array,
     blocks stacked on a leading ``layers`` axis; the paths and shapes must
     be exactly those of ``models.lm.param_shapes(cfg)``. Every leaf is
-    carried as float32 but ``inv_perm``, which stays an integer (int32)."""
-    from repro_torch.models import lm, transformer
+    carried as float32 but ``inv_perm``, which stays an integer (int32).
+    With a ``ctx`` (a ``models.moe.ShardCtx``) an expert leaf keeps only
+    this rank's slots (``models.moe.expert_slice``)."""
+    from repro_torch.models import lm, moe, transformer
     dev = dispatch.resolve_device(device)
     want = lm.param_shapes(cfg)
     if set(tree) != set(want):
@@ -123,6 +125,8 @@ def lm_params(tree: Mapping[str, np.ndarray], cfg: ArchConfig, *,
         if a.shape != shape:
             raise ValueError(f"{path}: shape {a.shape}, expected {shape}")
         dt = np.int32 if path.endswith("/inv_perm") else np.float32
+        if path in lm.MOE_EXPERT_LEAVES:
+            a = a[:, moe.expert_slice(cfg, ctx)]
         flat[path] = torch.from_numpy(np.array(a, dtype=dt)).to(dev)
     return transformer.Transformer(cfg, flat)
 

@@ -6,8 +6,10 @@ random weights as a trainable model (float32 parameters and AdamW state)
 hand-written forward and backward kernels under ``--use-flash``) ->
 supervisor (async checkpoint / restore-on-failure / straggler monitor).
 Runs on the card unless ``--device cpu`` is given (``cuda`` without a
-card raises). One card is one rank: no mesh, so ``data_parallel`` and
-``model_parallel`` other than 1 raise (ROADMAP item 7).
+card raises). Training runs on one rank: ``data_parallel`` and
+``model_parallel`` other than 1 raise. Expert-parallel serving runs across
+ranks (``models.moe.ShardCtx``); expert-parallel training, with autograd
+through the all-to-all, is ROADMAP item 9.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --reduced --device cpu --steps 50 --batch 8 --seq 128
@@ -50,8 +52,8 @@ def build(arch: str, *, reduced: bool, batch: int, seq: int, steps: int,
     -> (model, opt_state, metrics)``."""
     if data_parallel != 1 or model_parallel != 1:
         raise ValueError(f"data_parallel={data_parallel}, model_parallel="
-                         f"{model_parallel}: one card is one rank; a mesh "
-                         "across cards is ROADMAP item 7")
+                         f"{model_parallel}: training runs on one rank; "
+                         "expert-parallel training is ROADMAP item 9")
     dev = dispatch.resolve_device(device)
     cfg = configs.get(arch)
     if reduced:

@@ -5,7 +5,13 @@ Counterpart of ``repro/models/lm.py``. Entry points run on the card unless
 the caller passes ``device="cpu"``.
 
 Serving (``prefill_step``, ``decode_step``) runs under ``torch.no_grad()``
-and builds no graph. Training (``loss_fn``, ``train_step``) needs a model
+and builds no graph. With a ``models.moe.ShardCtx`` it runs on every rank
+of the mesh, as the reference's SPMD steps do: the global batch in, the
+global logits out on every rank; each rank computes the dense layers for
+its dp slice of the batch and keeps that slice's caches, and each MoE
+layer dispatches across the tp ranks, whose modules hold their expert
+slots (``init_params(..., ctx=)``, ``interop.lm_params(..., ctx=)``).
+Training (``loss_fn``, ``train_step``) needs a model
 made trainable (``init_all`` or :func:`make_trainable`): every floating
 parameter requires grad; the MoE slot map ``inv_perm`` is an int32 buffer
 that nothing updates (the reference's ``allow_int=True``). The modules
@@ -22,10 +28,11 @@ from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import SHAPES, ArchConfig
 from repro_torch.kernels import dispatch
-from repro_torch.models import rwkv, ssm, transformer
+from repro_torch.models import moe, rwkv, ssm, transformer
 from repro_torch.models.layers import dtype
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
 
@@ -118,6 +125,84 @@ def param_shapes(cfg: ArchConfig) -> Dict[str, tuple]:
     return shapes
 
 
+def _attn_block_axes(cfg: ArchConfig, norms: Dict[str, tuple]
+                     ) -> Dict[str, tuple]:
+    """The logical axes of :func:`_attn_block_shapes`' leaves
+    (``attn_block_init``'s axes tree)."""
+    heads, kv = ("embed", "heads", "head_dim"), ("embed", "kv_heads",
+                                                 "head_dim")
+    blk = {"attn/wq": heads, "attn/wk": kv, "attn/wv": kv,
+           "attn/wo": ("heads", "head_dim", "embed")}
+    if cfg.qkv_bias:
+        blk.update({"attn/bq": ("heads", "head_dim"),
+                    "attn/bk": ("kv_heads", "head_dim"),
+                    "attn/bv": ("kv_heads", "head_dim"),
+                    "attn/bo": ("embed",)})
+    if cfg.qk_norm:
+        blk.update({"attn/q_norm": ("head_dim",),
+                    "attn/k_norm": ("head_dim",)})
+    for ln in ("ln1", "ln2"):
+        blk.update({f"{ln}/{name}": a for name, a in norms.items()})
+    if cfg.is_moe:                          # ``moe_init``'s axes
+        blk.update({"moe/wr": ("embed", None),
+                    "moe/wg": ("experts", "embed", None),
+                    "moe/wi": ("experts", "embed", None),
+                    "moe/wo": ("experts", None, "embed"),
+                    "moe/inv_perm": (None,)})
+        return blk
+    if cfg.qkv_bias:
+        blk.update({"mlp/bi": ("ff",), "mlp/bo": ("embed",)})
+    if cfg.activation == "silu":
+        blk["mlp/wg"] = ("embed", "ff")
+    blk.update({"mlp/wi": ("embed", "ff"), "mlp/wo": ("ff", "embed")})
+    return blk
+
+
+# the logical axes of one RWKV6 block's ``tm`` leaves (``rwkv6_init``) and
+# one Mamba2 layer's ``mamba`` leaves (``mamba2_init``)
+RWKV_AXES = {"mu_x": ("embed",), "mu": (None, "embed"),
+             "mix_w1": ("embed", None), "mix_w2": (None, None, "embed"),
+             "w0": ("embed",), "decay_w1": ("embed", None),
+             "decay_w2": (None, "embed"), "u": ("heads", "head_dim"),
+             **{name: ("embed", "heads_x_dim")
+                for name in ("wr", "wk", "wv", "wg", "wo")},
+             "ln_x_scale": ("embed",), "ln_x_bias": ("embed",),
+             "cm_mu_k": ("embed",), "cm_mu_r": ("embed",),
+             "cm_k": ("embed", "ff"), "cm_v": ("ff", "embed"),
+             "cm_r": ("embed", "embed2")}
+MAMBA_AXES = {"in_proj": ("embed", "ff"), "conv_w": (None, "ff"),
+              "conv_b": ("ff",), "dt_bias": ("heads",), "A_log": ("heads",),
+              "D": ("heads",), "norm": ("ff",), "out_proj": ("ff", "embed")}
+
+
+def param_axes(cfg: ArchConfig) -> Dict[str, tuple]:
+    """The logical axes of every leaf of :func:`param_shapes`, by path:
+    the axes tree the reference's ``transformer.init_params`` returns
+    (``launch.sharding`` resolves them to specs)."""
+    names = ("scale", "bias") if cfg.norm == "layernorm" else ("scale",)
+    norms = {name: ("embed",) for name in names}
+    axes: Dict[str, tuple] = {}
+    if not cfg.embedding_inputs:
+        axes["embed"] = ("vocab", "embed")
+    axes.update({f"ln_f/{name}": a for name, a in norms.items()})
+    if not cfg.tied_embeddings:
+        axes["head"] = ("embed", "vocab")
+    if cfg.rwkv:
+        blk = {f"tm/{name}": a for name, a in RWKV_AXES.items()}
+        for ln in ("ln1", "ln2"):
+            blk.update({f"{ln}/{name}": a for name, a in norms.items()})
+    elif cfg.family in ("ssm", "hybrid"):
+        blk = {f"mamba/{name}": a for name, a in MAMBA_AXES.items()}
+        blk.update({f"ln/{name}": a for name, a in norms.items()})
+        if cfg.attn_every:
+            axes.update({f"shared/{key}": a for key, a in
+                         _attn_block_axes(cfg, norms).items()})
+    else:
+        blk = _attn_block_axes(cfg, norms)
+    axes.update({f"blocks/{key}": ("layers",) + a for key, a in blk.items()})
+    return axes
+
+
 def _fan_in(path: str, shape: tuple, cfg: ArchConfig) -> int:
     if path == "embed":
         return cfg.d_model
@@ -167,15 +252,15 @@ MAMBA_CONV_SCALE = 0.1      # conv_w ~ N(0, 1) * 0.1, not 1/sqrt(fan_in)
 
 
 def init_params(cfg: ArchConfig, *, device="cuda",
-                generator: Optional[torch.Generator] = None
+                generator: Optional[torch.Generator] = None, ctx=None
                 ) -> transformer.Transformer:
     """The model of :func:`init_flat`'s weights."""
     return transformer.Transformer(
-        cfg, init_flat(cfg, device=device, generator=generator))
+        cfg, init_flat(cfg, device=device, generator=generator, ctx=ctx))
 
 
 def init_flat(cfg: ArchConfig, *, device="cuda",
-              generator: Optional[torch.Generator] = None
+              generator: Optional[torch.Generator] = None, ctx=None
               ) -> Dict[str, torch.Tensor]:
     """Random weights in the reference's distribution (normal scaled by
     1/sqrt(fan_in) for matrices, ones for norm scales, zeros for biases;
@@ -185,8 +270,11 @@ def init_flat(cfg: ArchConfig, *, device="cuda",
     int32), drawn on ``device`` from ``generator`` (a generator on that
     device; seed 0 when omitted). The stacked expert leaves are drawn one
     layer at a time in float32 and cast into the parameter dtype, so no
-    float32 copy of a whole leaf exists. Returns the parameter tree keyed
-    by path (``param_shapes``), in the parameter dtype."""
+    float32 copy of a whole leaf exists. With a ``ctx`` an expert leaf
+    keeps this rank's slots (``moe.expert_slice``) of each layer's draw:
+    exactly the values the one-device draw puts there. Returns the
+    parameter tree keyed by path (``param_shapes``), in the parameter
+    dtype."""
     dev = dispatch.resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -198,11 +286,13 @@ def init_flat(cfg: ArchConfig, *, device="cuda",
         rwkv_leaf = cfg.rwkv and path.startswith("blocks/tm/")
         mamba_leaf = path.startswith("blocks/mamba/")
         if path in MOE_EXPERT_LEAVES:
-            t = torch.empty(shape, dtype=pdt, device=dev)
+            mine = moe.expert_slice(cfg, ctx)
+            n = len(range(shape[1])[mine])
+            t = torch.empty((shape[0], n) + shape[2:], dtype=pdt, device=dev)
             scale = 1.0 / np.sqrt(max(_fan_in(path, shape, cfg), 1))
             for i in range(shape[0]):
                 t[i] = torch.randn(shape[1:], generator=generator,
-                                   device=dev) * scale
+                                   device=dev)[mine] * scale
             flat[path] = t
             continue
         if leaf == "inv_perm":
@@ -293,12 +383,14 @@ def trainable(model: transformer.Transformer) -> Dict[str, torch.Tensor]:
             for name, p in model.named_parameters() if p.requires_grad}
 
 
-def init_all(cfg: ArchConfig, *, seed: int = 0, device="cuda"):
+def init_all(cfg: ArchConfig, *, seed: int = 0, device="cuda", ctx=None):
     """Random weights (:func:`init_flat`, drawn from ``seed`` on
-    ``device``) as a trainable model, and zero AdamW state."""
+    ``device``, this rank's expert slots with a ``ctx``) as a trainable
+    model, and zero AdamW state."""
     dev = dispatch.resolve_device(device)
     flat = init_flat(cfg, device=dev,
-                     generator=torch.Generator(device=dev).manual_seed(seed))
+                     generator=torch.Generator(device=dev).manual_seed(seed),
+                     ctx=ctx)
     model = make_trainable(transformer.Transformer(cfg, flat), cfg, flat)
     return model, adamw_init(trainable(model))
 
@@ -386,26 +478,57 @@ def train_step(model: transformer.Transformer, opt_state: Dict,
     return model, opt_state, dict(metrics, total=total, **opt_metrics)
 
 
+def _dp_slice(t: torch.Tensor, ctx) -> torch.Tensor:
+    """This rank's slice of a global batch (the reference's
+    ``P(dp_axes)``: contiguous, row major over the dp axes)."""
+    if ctx is None or ctx.dp == 1:
+        return t
+    if t.shape[0] % ctx.dp:
+        raise ValueError(f"batch {t.shape[0]} does not divide over "
+                         f"{ctx.dp} data-parallel ranks")
+    n = t.shape[0] // ctx.dp
+    return t[ctx.dp_rank * n:(ctx.dp_rank + 1) * n]
+
+
+def _dp_gather(t: torch.Tensor, ctx) -> torch.Tensor:
+    """The global batch of every rank's slice, on every rank."""
+    if ctx is None:
+        return t
+    for axis in reversed(ctx.dp_axes):          # minor axis first
+        if ctx.size(axis) > 1:
+            parts = [torch.empty_like(t) for _ in range(ctx.size(axis))]
+            dist.all_gather(parts, t.contiguous(),
+                            group=ctx.mesh.get_group(axis))
+            t = torch.cat(parts, 0)
+    return t
+
+
 @torch.no_grad()
 def prefill_step(model: transformer.Transformer, batch: Batch,
-                 cfg: ArchConfig):
+                 cfg: ArchConfig, ctx=None):
     """Full-sequence forward -> (float32 logits of the last position (B, V),
     decode-ready caches). The head runs on the last position only: the
     reference computes (B, S, V) logits and keeps ``[:, -1]``, the same
-    numbers."""
+    numbers. With a ``ctx`` (module docstring) the logits are the global
+    batch's on every rank and the caches this rank's slice's."""
     inputs = batch["embeddings"] if cfg.embedding_inputs else batch["tokens"]
-    x, caches = transformer.hidden(model, inputs, cfg,
-                                   collect_cache=cfg.has_decode)
-    return transformer.lm_head(model, x[:, -1:], cfg)[:, 0], caches
+    x, caches = transformer.hidden(model, _dp_slice(inputs, ctx), cfg,
+                                   collect_cache=cfg.has_decode, ctx=ctx)
+    logits = transformer.lm_head(model, x[:, -1:], cfg)[:, 0]
+    return _dp_gather(logits, ctx), caches
 
 
 @torch.no_grad()
 def decode_step(model: transformer.Transformer, caches, batch: Batch,
-                cfg: ArchConfig):
+                cfg: ArchConfig, ctx=None):
     """One new token per sequence against caches of ``seq_len`` slots;
-    ``batch = {"token": (B,), "pos": int}``. Caches update in place."""
-    return transformer.decode_step(model, caches, batch["token"],
-                                   batch["pos"], cfg)
+    ``batch = {"token": (B,), "pos": int}``. Caches update in place. With
+    a ``ctx``: the global batch's tokens in and logits out, this rank's
+    slice's caches."""
+    logits, caches = transformer.decode_step(
+        model, caches, _dp_slice(batch["token"], ctx), batch["pos"], cfg,
+        ctx=ctx)
+    return _dp_gather(logits, ctx), caches
 
 
 # --------------------------------------------------------------------------- #

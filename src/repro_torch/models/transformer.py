@@ -17,9 +17,11 @@ The hybrid (zamba2) applies one shared attention + MLP block, with its own
 residual, before every ``attn_every``-th Mamba2 layer (layers 0,
 ``attn_every``, ...); ``attn_every = 0`` is the pure Mamba2 stack.
 
-A mixture-of-experts config (``cfg.is_moe``) puts a one-device
-``models.moe.MoE`` layer where the dense block has its MLP; the forward
-sums the layers' router aux losses, as the reference's does.
+A mixture-of-experts config (``cfg.is_moe``) puts a ``models.moe.MoE``
+layer where the dense block has its MLP; the forward sums the layers'
+router aux losses, as the reference's does. The forward, hidden and
+decode functions take the reference's ``ctx`` (a ``models.moe.ShardCtx``)
+and hand it to each MoE layer, which then dispatches across ranks.
 
 Rematerialization (``cfg.remat``), while autograd records: ``"full"`` runs
 each block (and each application of the hybrid's shared block) under
@@ -71,7 +73,8 @@ class Block(nn.Module):
 
 
 def attn_block_apply(p: Block, x: torch.Tensor, cfg: ArchConfig, *,
-                     positions: torch.Tensor, cache=None, cache_pos=None):
+                     positions: torch.Tensor, cache=None, cache_pos=None,
+                     ctx=None):
     """Pre-norm attention + MLP (or MoE) block -> (x, new_cache, aux); aux
     is the MoE router's load-balancing term, 0 for a dense block."""
     h = norm_apply(p.ln1, x, cfg)
@@ -80,7 +83,7 @@ def attn_block_apply(p: Block, x: torch.Tensor, cfg: ArchConfig, *,
     x = x + y
     h = norm_apply(p.ln2, x, cfg)
     if p.moe is not None:
-        y, aux = moe.moe_apply(p.moe, h, cfg)
+        y, aux = moe.moe_apply(p.moe, h, cfg, ctx)
         return x + y, new_cache, aux
     return x + mlp_apply(p.mlp, h, cfg), new_cache, 0.0
 
@@ -164,7 +167,7 @@ def lm_head(p: Transformer, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 
 def hidden(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
-           collect_cache: bool = False
+           collect_cache: bool = False, ctx=None
            ) -> Tuple[torch.Tensor, Optional[Caches]]:
     """The forward through the blocks, before the final norm: (B, S, d)
     activations and, with ``collect_cache``, the decode caches: (L, B, S,
@@ -172,7 +175,8 @@ def hidden(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
     (shift states cast to float32, as the reference's forward casts them
     when it collects them), or the Mamba2 states after position S-1 with
     the shared block's (A, B, S, K, D) key/value caches."""
-    x, _, caches = _blocks(p, inputs, cfg, collect_cache=collect_cache)
+    x, _, caches = _blocks(p, inputs, cfg, collect_cache=collect_cache,
+                           ctx=ctx)
     return x, caches
 
 
@@ -210,7 +214,7 @@ def _run(remat, fn, *args, **kw):
 
 
 def _blocks(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
-            collect_cache: bool):
+            collect_cache: bool, ctx=None):
     """:func:`hidden`'s activations and caches, with the sum of the
     blocks' aux losses between them (0 but for MoE); each block run as
     ``cfg.remat`` says."""
@@ -241,7 +245,8 @@ def _blocks(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
                       else None)
                 x, _, _ = _run(remat, attn_block_apply, p.shared, x, cfg,
                                positions=positions, cache=kv,
-                               cache_pos=0 if collect_cache else None)
+                               cache_pos=0 if collect_cache else None,
+                               ctx=ctx)
             x, st = _run(remat, _mamba_layer, blk, x, cfg,
                          return_state=collect_cache)
             if collect_cache:
@@ -255,7 +260,7 @@ def _blocks(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
         kv = (caches["k"][i], caches["v"][i]) if collect_cache else None
         x, _, a = _run(remat, attn_block_apply, blk, x, cfg,
                        positions=positions, cache=kv,
-                       cache_pos=0 if collect_cache else None)
+                       cache_pos=0 if collect_cache else None, ctx=ctx)
         aux = aux + a
     return x, aux, caches
 
@@ -269,10 +274,11 @@ def _mamba_layer(blk: MambaBlock, x: torch.Tensor, cfg: ArchConfig, *,
 
 
 def forward(p: Transformer, inputs: torch.Tensor, cfg: ArchConfig, *,
-            collect_cache: bool = False):
+            collect_cache: bool = False, ctx=None):
     """inputs: tokens (B, S) or embeddings (B, S, d) -> (logits (B, S, V)
     float32, aux, caches)."""
-    x, aux, caches = _blocks(p, inputs, cfg, collect_cache=collect_cache)
+    x, aux, caches = _blocks(p, inputs, cfg, collect_cache=collect_cache,
+                             ctx=ctx)
     return lm_head(p, x, cfg), aux, caches
 
 
@@ -306,7 +312,7 @@ def init_decode_caches(cfg: ArchConfig, batch: int, max_len: int, *,
 
 
 def decode_step(p: Transformer, caches: Caches, token: torch.Tensor,
-                pos: int, cfg: ArchConfig):
+                pos: int, cfg: ArchConfig, ctx=None):
     """token: (B,) ids, pos: int -> (logits (B, V) float32, caches). The
     caches are updated in place (at ``pos`` for the attention family and
     the shared block; RWKV6's and Mamba2's states do not read ``pos``) and
@@ -322,7 +328,7 @@ def decode_step(p: Transformer, caches: Caches, token: torch.Tensor,
                 y, _, _ = attn_block_apply(
                     p.shared, x[:, None], cfg, positions=positions,
                     cache=(caches["k"][app], caches["v"][app]),
-                    cache_pos=pos)
+                    cache_pos=pos, ctx=ctx)
                 x = y[:, 0]
             h = norm_apply(blk.ln, x, cfg)
             y, _ = ssm.mamba2_decode(
@@ -345,5 +351,5 @@ def decode_step(p: Transformer, caches: Caches, token: torch.Tensor,
     for i, blk in enumerate(p.blocks):
         x, _, _ = attn_block_apply(
             blk, x, cfg, positions=positions,
-            cache=(caches["k"][i], caches["v"][i]), cache_pos=pos)
+            cache=(caches["k"][i], caches["v"][i]), cache_pos=pos, ctx=ctx)
     return lm_head(p, x, cfg)[:, 0], caches

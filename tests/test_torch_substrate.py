@@ -419,7 +419,7 @@ def test_supervisor_raises_a_failure_before_the_first_checkpoint(
 # --------------------------------------------------------------------------- #
 
 def test_build_refuses_a_mesh_and_a_missing_card():
-    with pytest.raises(ValueError, match="ROADMAP item 7"):
+    with pytest.raises(ValueError, match="ROADMAP item 9"):
         train.build("qwen3-0.6b", reduced=True, batch=2, seq=8, steps=1,
                     data_parallel=2, device="cpu")
     if not torch.cuda.is_available():
