@@ -1,8 +1,8 @@
 """Smoke run of repro_torch on one CUDA card: build the kernels, hold each
-against its plain PyTorch version, drive the AWAPart serving loop and the
+against its plain PyTorch version, drive the AWAPart serving loop, the
 LM serving paths (MoE with AWAPart expert placement among them, on one
-rank and expert-parallel across four) end to end on the card, and
-report.
+rank and expert-parallel across four) and training (on one rank and
+expert-parallel across four) end to end on the card, and report.
 
     python3 chip_smoke.py
 
@@ -216,10 +216,11 @@ Phases (any failure raises and ends the run with a nonzero exit):
    steps 2-5 (as (t)) and the peak beside (t)'s and beside the dry run's
    reckoning of the same step on the meta device, a profiled step's idle
    share; then the
-   backward kernels at the main path's and hubert-xlarge's shapes (tc,
-   beside the scalar route on the same call) and a float32 shape
-   (scalar), timed per kernel and summed beside the plain version, the
-   SDPA backward and the bounds;
+   backward kernels at the main path's, hubert-xlarge's and phase 21
+   (et-t)'s olmoe-1b-7b shapes (tc, beside the scalar route on the same
+   call) and a float32 shape (scalar), timed per kernel and summed beside
+   the plain version, the SDPA backward and the bounds, the flash forward
+   giving each shape's o checked against its plain version;
 18. RWKV6 and zamba2 training (``[train-ssm]`` lines): (k2) the WKV and
    SSD backward kernels against ``wkv_bwd_plain`` and ``ssd_bwd_plain``
    at edge cases, each backward on one of two routes by length: rec below
@@ -296,7 +297,29 @@ Phases (any failure raises and ends the run with a nonzero exit):
    distance to phase 15's bf16 run held (rank mode adds a token's
    experts rank by rank, another bf16 rounding, and the routes it moves
    move the logits after them): the prefill logits within 2^-3 of the
-   largest, at least 3/4 of the greedy tokens equal.
+   largest, at least 3/4 of the greedy tokens equal;
+21. expert-parallel MoE training (``[moe-ep-train]`` lines), in phase
+   20's four processes after (s)'s models are freed: (et-e) (e)'s layer
+   and tokens in float32 under a seeded cotangent on y and aux, the
+   gradients of the tokens, the router and each rank's expert slots
+   through ``moe_dispatch`` (autograd through the all-to-alls) in both
+   modes: at 1.25 against autograd through ``moe_apply_ranks_plain`` on
+   the card, at the least no-drop factor against the one-device layer
+   (the cotangent on y alone: aux is the ranks' mean), each gradient
+   within 1e-5 of its largest, bit for bit reported; (et-t) the main path:
+   olmoe-1b-7b at full width in rank mode through
+   ``launch.train.build(data_parallel=1, model_parallel=4)`` (float32
+   masters and AdamW, bf16 compute, remat full, flash attention) at the
+   deepest of 4, 3, 2 layers whose peaks, reckoned by hand
+   (``et_reckon``), fit 70 GB over the four ranks, 5 steps of the
+   pipeline's first 4 x 1024 batch through ``TrainSupervisor`` (no
+   checkpoint): launch counts reset just before and read just after on
+   every rank (flash tc 2 a layer a step, each tc backward kernel 1),
+   every loss finite, the first within 0.5 of ln V + 1/2, the last below
+   the first; after the last step grad_norm and every whole leaf the same
+   bits on every rank (hashed), each rank's expert slots unlike the
+   others'; step walls (staged through host memory: no speed figure) and
+   each rank's peak against its reckoning (within 15%).
 
 The line before the last is ``{"kernels": [...]}``, the last
 ``{"ok": true, "device": {...}}``.
@@ -553,8 +576,7 @@ def profile_window(svc, window, tag="profile") -> None:
         log(f"[{tag}]   self {self_s * 1e3:8.1f} ms  cum {cum_s * 1e3:8.1f}"
             f" ms  {ncalls:6d}x  {where[:80]}")
     prof = torch.profiler
-    acts = [prof.ProfilerActivity.CPU, prof.ProfilerActivity.CUDA]
-    with prof.profile(activities=acts) as p:
+    with prof.profile(activities=[prof.ProfilerActivity.CUDA]) as p:
         t = time.perf_counter()
         svc.executor.run_batch(plans, kg)
         torch.cuda.synchronize()
@@ -1469,10 +1491,9 @@ def _profile_idle(label, run, ref_wall, prefix, share_of=None) -> None:
     ``share_of``, the share of device time of the kernels whose name holds
     it. Returns the number of device operations."""
     prof = torch.profiler
-    acts = [prof.ProfilerActivity.CPU, prof.ProfilerActivity.CUDA]
     for attempt in range(PROFILE_TRIES):   # an empty trace is taken again
         torch.cuda.synchronize()
-        with prof.profile(activities=acts) as p:
+        with prof.profile(activities=[prof.ProfilerActivity.CUDA]) as p:
             t = time.perf_counter()
             run()
             torch.cuda.synchronize()
@@ -3567,9 +3588,10 @@ def device_ms_parts(fn, parts, reps: int = 5) -> dict:
 
 
 def flash_bwd_rows(rows, shapes, row_launches, prefix="train") -> None:
-    """(k) timed: the backward kernels of each shape's route at each of
-    ``shapes`` (device time per call from the profiler and per call
-    with launch overhead from CUDA events), their sum, at the bf16 shapes
+    """(k) timed: the flash forward that gives each shape's o checked
+    against its plain version, then the backward kernels of each shape's
+    route at each of ``shapes`` (device time per call from the profiler
+    and per call with launch overhead from CUDA events), their sum, at the bf16 shapes
     the scalar route's beside them, the plain version (the pre kernel
     beside ``flash_attention_bwd_stats_plain``, dq and dkv beside the
     whole plain backward), the backward of
@@ -3584,6 +3606,11 @@ def flash_bwd_rows(rows, shapes, row_launches, prefix="train") -> None:
     for what, b, s, h, kh, d, dt, causal in shapes:
         q, k, v, o, do, kw = _bwd_case(gen, b, s, s, h, kh, d, dt, causal,
                                        0, None)
+        fwd_err = _flash_err(o, FA.flash_attention_plain(q, k, v, **kw))
+        log(f"[{prefix}] (k) the forward at {what} on "
+            f"{FA.variant(dt, s, h // kh, d)} against its plain version: "
+            f"largest abs diff {fwd_err:.3e} (within 1e-5, plus for bf16 "
+            f"2^-7 of each element)")
         route = FA.bwd_variant(dt, s, h // kh, d)
         parts = FLASH_BWD_PARTS[route]
         got = FA.flash_attention_bwd(q, k, v, o, do, **kw)
@@ -4098,13 +4125,13 @@ def supervised_training(prefix, label, built, t0, batch, seq, steps, check,
 
 def training(rows) -> None:
     """Phase 17: (k) at the edges, (f), (r), the main path (t), then (k)
-    timed at the main path's shapes."""
+    timed at the main path's shapes and at phase 21's (et-t)."""
     t0 = time.perf_counter()
     flash_bwd_edges()
     f32_launches = train_f32_grads()
     train_reduced()
     launches = training_run()
-    flash_bwd_rows(rows, FLASH_BWD_SHAPES,
+    flash_bwd_rows(rows, FLASH_BWD_SHAPES + [OLMOE_FLASH_BWD],
                    {"qwen3-0.6b training": ("main path", launches),
                     "float32": ("check (f)", f32_launches)})
     log(f"[train] phase wall {time.perf_counter() - t0:.1f} s")
@@ -5107,21 +5134,14 @@ def _ep_dispatch_line(tag, mode, cf, stats, group):
     return tot
 
 
-def _ep_layer(ctx, dev, rank):
-    """(e) and (p): the MoE layer at full width in float32 across the
-    ranks, against the plain twin and the one-device layer, then AWAPart
-    placement on its routes, migrated across the ranks, and (e) again."""
-    import torch.distributed as dist
+def _ep_layer_inputs(dev):
+    """(e)'s float32 layer config, its weights (the same draw on every
+    rank) and its EP_TOKENS topical tokens."""
     from repro_torch import configs
-    from repro_torch.core import placement
-    from repro_torch.kernels import _build
-    from repro_torch.models import moe
 
     base = dataclasses.replace(configs.get(EP_ARCH), param_dtype="float32",
                                compute_dtype="float32")
     d, f, e, k = base.d_model, base.d_ff, base.n_experts, base.top_k
-    tp, group = ctx.tp, ctx.mesh.get_group(ctx.tp_axis)
-    mine_sl = moe.expert_slice(base, ctx)
     gen = torch.Generator(device=dev).manual_seed(20)   # the same on all
     w = {"wr": torch.randn(d, e, generator=gen, device=dev) / d ** 0.5,
          "wg": torch.randn(e, d, f, generator=gen, device=dev) / d ** 0.5,
@@ -5136,6 +5156,23 @@ def _ep_layer(ctx, dev, rank):
                         for t in topics])
     x = (EP_TOPIC_GAIN * dirs[tid] + torch.randn(
         b * s, d, generator=gen, device=dev)).reshape(b, s, d)
+    return base, w, x
+
+
+def _ep_layer(ctx, dev, rank):
+    """(e) and (p): the MoE layer at full width in float32 across the
+    ranks, against the plain twin and the one-device layer, then AWAPart
+    placement on its routes, migrated across the ranks, and (e) again."""
+    import torch.distributed as dist
+    from repro_torch.core import placement
+    from repro_torch.kernels import _build
+    from repro_torch.models import moe
+
+    base, w, x = _ep_layer_inputs(dev)
+    d, f, e, k = base.d_model, base.d_ff, base.n_experts, base.top_k
+    tp, group = ctx.tp, ctx.mesh.get_group(ctx.tp_axis)
+    mine_sl = moe.expert_slice(base, ctx)
+    b, s = EP_TOKENS
     expert_bytes = 3 * d * f * 4
 
     def run(state, tag):
@@ -5280,7 +5317,8 @@ def _ep_serve(model, cfg_p, cfg_d, prompts, inputs, ctx, dev):
 
 
 def _ep_rank(rank, world, pg, oracle_path, out_dir):
-    """One rank of phase 20 (a process of its own on the one card)."""
+    """One rank of phases 20 and 21 (a process of its own on the one
+    card)."""
     import datetime
 
     import torch.distributed as dist
@@ -5290,6 +5328,8 @@ def _ep_rank(rank, world, pg, oracle_path, out_dir):
                             timeout=datetime.timedelta(seconds=EP_TIMEOUT_S))
     try:
         result = _ep_run(rank, oracle_path)
+        torch.cuda.empty_cache()    # (s)'s models are gone
+        result["train"] = _et_run(rank)
         pathlib.Path(out_dir, f"rank{rank}.json").write_text(
             json.dumps(result))
     except BaseException:
@@ -5459,9 +5499,297 @@ def _ep_run(rank, oracle_path):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 21: expert-parallel MoE training, in phase 20's four ranks
+# --------------------------------------------------------------------------- #
+
+ET_GRAD_REL = 1e-5          # (et-e): of each gradient's largest magnitude
+ET_BATCH, ET_SEQ, ET_STEPS = 4, 1024, 5     # (et-t): the global batch
+ET_DEPTHS = (4, 3, 2)       # (et-t): the deepest whose reckoning fits
+ET_BUDGET = 70e9            # bytes: the four ranks' reckoned peaks together
+# (et-t)'s attention on each rank, olmoe-1b-7b's 16 heads of 128 over the
+# whole global batch: the flash forward and backward checked and timed at
+# it in phase 17 (flash_bwd_rows)
+OLMOE_FLASH_BWD = ("olmoe-1b-7b training", ET_BATCH, ET_SEQ, 16, 16, 128,
+                   BF16, True)
+
+
+def et_reckon(cfg, tp) -> int:
+    """(et-t)'s peak bytes a rank, reckoned by hand from the config (the
+    expert leaves a tp-th): held all along, 14 B a parameter kept in bf16
+    (the module, its float32 master, AdamW's two moments) and 12 B one kept
+    in float32 (the router, the norms: the module and the moments); on
+    top, the largest of three moments: the backward's end (a gradient in
+    the module's dtype, and 16 B a logit of the rank's batch: the float32
+    logits and their gradient, each beside a bf16 copy), the gradients'
+    cast (each bf16 gradient beside its float32 copy) and the update (the
+    float32 gradients, and 12 B an element of the largest leaf: AdamW's
+    temporaries)."""
+    from repro_torch.models import lm
+
+    bf16 = f32 = largest = 0
+    for path, shape in lm.param_shapes(cfg).items():
+        n = math.prod(shape)
+        if path in lm.MOE_EXPERT_LEAVES:
+            n //= tp
+        if path.endswith("inv_perm"):
+            continue
+        if path == "blocks/moe/wr" or path.startswith("ln_f") or (
+                len(shape) == 2 and path.startswith("blocks/")):  # norms
+            f32 += n
+        else:
+            bf16 += n
+        largest = max(largest, n // (shape[0] if path.startswith("blocks/")
+                                     else 1))
+    logits = ET_BATCH * (ET_SEQ - 1) * cfg.vocab_size
+    held = 14 * bf16 + 12 * f32
+    backward = 2 * bf16 + 4 * f32 + 16 * logits
+    cast = 6 * bf16 + 4 * f32
+    update = 4 * (bf16 + f32) + 12 * largest
+    return held + max(backward, cast, update)
+
+
+def _et_grads(layer, x, cy, ca, run):
+    """The gradients of ``sum(y * cy) + ca * aux`` through ``run(layer,
+    x) -> (y, aux)``: of ``x`` and of each of the layer's leaves."""
+    for p in layer.parameters():
+        p.requires_grad_(True)
+        p.grad = None
+    x = x.detach().clone().requires_grad_(True)
+    y, aux = run(layer, x)
+    ((y * cy).sum() + ca * aux).backward()
+    out = {"x": x.grad}
+    out.update((n, p.grad) for n, p in layer.named_parameters())
+    return out
+
+
+def _et_layer(ctx, dev, rank):
+    """(et-e): phase 20 (e)'s layer and tokens in float32 under a seeded
+    cotangent, the gradients of the tokens, the router and this rank's
+    expert slots through the distributed dispatch: in both modes at the
+    config's factor against autograd through ``moe_apply_ranks_plain`` on
+    the card, and at the least factor that drops nothing against the
+    one-device layer (its cotangent on y alone: the aux loss is the ranks'
+    mean, not the one-device value)."""
+    from repro_torch.models import moe
+
+    base, w, x = _ep_layer_inputs(dev)
+    e, k = base.n_experts, base.top_k
+    sl = moe.expert_slice(base, ctx)
+    gen = torch.Generator(device=dev).manual_seed(21)   # the same on all
+    cy = torch.randn(x.shape, generator=gen, device=dev)
+    ca = float(torch.randn((), generator=gen, device=dev))
+    _, topi, _ = moe._router(moe.MoE(base, w), x.reshape(-1, base.d_model),
+                             base)
+    slots = topi.long().cpu().numpy().reshape(*x.shape[:2], k)
+    out = {}
+    for mode in ("expert", "rank"):
+        for cf in (base.capacity_factor,
+                   no_drop_factor(slots, ctx.tp, e, mode)):
+            cfg = dataclasses.replace(base, moe_dispatch=mode,
+                                      capacity_factor=cf)
+            twin = cf == base.capacity_factor
+            c = ca if twin else 0.0
+            mine = moe.MoE(cfg, {n: (v[sl] if n in ("wg", "wi", "wo")
+                                     else v) for n, v in w.items()})
+            got = _et_grads(mine, x, cy, c, lambda m, xx: moe.moe_dispatch(
+                m, xx, cfg, ctx)[:2])
+            full = moe.MoE(cfg, w)
+            if twin:
+                want = _et_grads(full, x, cy, c, lambda m, xx:
+                                 moe.moe_apply_ranks_plain(m, xx, cfg,
+                                                           EP_MESH)[:2])
+                what = "autograd through the plain twin on the card"
+            else:
+                want = _et_grads(full, x, cy, c, lambda m, xx:
+                                 moe.moe_apply(m, xx, cfg))
+                what = "the one-device layer (cotangent on y alone)"
+            for n in ("wg", "wi", "wo"):
+                want[n] = want[n][sl]
+            ratios, same = {}, True
+            for n, g in got.items():
+                scale = float(want[n].abs().max())
+                ratios[n] = float((g - want[n]).abs().max()) / scale
+                same = same and torch.equal(g, want[n])
+            worst = max(ratios.values())
+            if rank == 0:
+                log(f"[moe-ep-train] (et-e) {mode} at {cf:.4g}, 4 ranks vs "
+                    f"{what}: gradients' max abs diff over their largest: "
+                    + ", ".join(f"{n} {r:.3e}" for n, r in ratios.items())
+                    + f" (limit {ET_GRAD_REL:g}); bit for bit: {same}")
+            assert worst <= ET_GRAD_REL, (mode, cf, ratios)
+            out[f"{mode}/{'twin' if twin else 'one'}"] = (worst, same)
+            del got, want, mine, full
+    return out
+
+
+def _et_hashes(tensors) -> dict:
+    """A digest of each tensor's bytes."""
+    return {n: hashlib.sha256(t.detach().reshape(-1).contiguous().view(
+                torch.uint8).cpu().numpy().tobytes()).hexdigest()
+            for n, t in tensors.items()}
+
+
+def _et_train(ctx, dev, rank):
+    """(et-t): olmoe-1b-7b at full width through
+    ``launch.train.build(data_parallel=1, model_parallel=4)`` in rank mode,
+    float32 masters and AdamW, bf16 compute, remat full, flash attention,
+    at the deepest of ET_DEPTHS whose reckoned peaks fit ET_BUDGET; the
+    pipeline's first global batch of ET_BATCH x ET_SEQ tokens for ET_STEPS
+    steps through ``TrainSupervisor`` (no checkpoint), launch counts reset
+    just before and read just after on every rank."""
+    import torch.distributed as dist
+    from repro_torch import configs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import ops as FA
+    from repro_torch.launch import train
+    from repro_torch.models import lm
+    from repro_torch.runtime.resilience import (SupervisorConfig,
+                                                TrainSupervisor)
+
+    full = configs.get(EP_ARCH)
+    tp = ctx.tp
+    reckoned = {n: et_reckon(dataclasses.replace(full, n_layers=n), tp)
+                for n in ET_DEPTHS}
+    depth = next(n for n in ET_DEPTHS if tp * reckoned[n] <= ET_BUDGET)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    built = train.build(EP_ARCH, reduced=False, batch=ET_BATCH, seq=ET_SEQ,
+                        steps=ET_STEPS, use_flash=True, device=dev,
+                        data_parallel=EP_MESH[0], model_parallel=EP_MESH[1],
+                        overrides=dict(n_layers=depth, moe_dispatch="rank"))
+    cfg, model, opt, stream, step_fn = built
+    tctx = step_fn.keywords["ctx"]
+    assert (cfg.remat, cfg.param_dtype, cfg.compute_dtype, cfg.use_flash) \
+        == ("full", "float32", "bfloat16", True)
+    assert tctx.tp == tp and model.blocks[0].moe.wg.shape[0] * tp == \
+        cfg.n_experts
+    first = train.to_device(stream.host_batch(0), dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    held = sum(p.numel() for p in model.parameters())
+    if rank == 0:
+        log(f"[moe-ep-train] (et-t) {EP_ARCH}: depth {depth} of "
+            f"{full.n_layers} (reckoned peaks a rank "
+            + ", ".join(f"{n} layers {reckoned[n] / 1e9:.2f} GB"
+                        for n in ET_DEPTHS)
+            + f"; the deepest with 4 x its peak under {ET_BUDGET / 1e9:g} "
+            f"GB), d {cfg.d_model}, {cfg.n_experts} experts top-"
+            f"{cfg.top_k} ({cfg.n_experts // tp} a rank), expert ff "
+            f"{cfg.d_ff}, vocab {cfg.vocab_size}, rank mode at "
+            f"{cfg.capacity_factor}, {held} parameters a rank; built in "
+            f"{build_s:.2f} s; global batch {ET_BATCH} x {ET_SEQ}, every "
+            "step on the pipeline's first batch")
+    walls, losses, norms = [], [], []
+
+    def one_step(state, step):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, o, met = step_fn(state.model, state.opt_state, first)
+        metrics = {k: float(v) for k, v in met.items()}   # synchronizes
+        walls.append(time.perf_counter() - t0)
+        norms.append(met["grad_norm"])
+        return train.TrainState(m, o, metrics)
+
+    def on_metrics(step, state, dt):
+        losses.append(state.metrics["loss"])
+        if rank == 0:
+            log(f"[moe-ep-train] (et-t) step {step + 1}: loss "
+                f"{state.metrics['loss']:.5f}, aux "
+                f"{state.metrics['aux']:.5f}, grad_norm "
+                f"{state.metrics['grad_norm']:.4f}, lr "
+                f"{state.metrics['lr']:.3e}, wall {walls[-1] * 1e3:.1f} ms")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        sup = TrainSupervisor(
+            SupervisorConfig(ckpt_dir=tmp, ckpt_every=ET_STEPS + 1),
+            one_step, train.state_tree, train.load_state, device=dev)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        state = sup.run(train.TrainState(model, opt, {}), ET_STEPS,
+                        on_metrics=on_metrics)
+        torch.cuda.synchronize()
+        launches = dict(_build.launches)
+    assert sup.failures == 0
+    peak = torch.cuda.max_memory_allocated()
+    n = cfg.n_layers * ET_STEPS
+    assert launches.get("flash_attention_fwd.tc") == 2 * n, launches
+    assert launches.get("flash_attention_fwd") == 2 * n, launches
+    for key, c in _bwd_route_counts(FA, "tc", n).items():
+        assert launches.get(key, 0) == c, (key, launches)
+    random_loss = math.log(cfg.vocab_size) + 0.5
+    assert all(math.isfinite(x) for x in losses), losses
+    assert abs(losses[0] - random_loss) <= 0.5, losses[0]
+    assert losses[-1] < losses[0], losses
+
+    # after the last step: the whole leaves and grad_norm the same bits on
+    # every rank, each rank's expert slots its own
+    trained = lm.trainable(state.model)
+    experts = set(lm.expert_leaves(state.model))
+    mine = _et_hashes({n: t for n, t in trained.items() if n not in experts})
+    mine["grad_norm"] = _et_hashes({"g": norms[-1]})["g"]
+    slots = _et_hashes({n: t for n, t in trained.items() if n in experts})
+    group = tctx.mesh.get_group(tctx.tp_axis)
+    every = [None] * tp
+    dist.all_gather_object(every, (mine, slots, peak, walls), group=group)
+    same = all(m == every[0][0] for m, _, _, _ in every)
+    distinct = all(every[a][1][n] != every[b][1][n] for n in slots
+                   for a in range(tp) for b in range(a + 1, tp))
+    steady = statistics.median(walls[1:])
+    if rank == 0:
+        log(f"[moe-ep-train] (et-t) launches over the {ET_STEPS} steps, on "
+            f"every rank (reset before, read after): {launches} (flash tc "
+            f"2 a layer a step, each tc backward kernel 1)")
+        log(f"[moe-ep-train] (et-t) step walls (gloo stages every "
+            f"collective through host memory and four processes share the "
+            f"card: no speed figure) " + ", ".join(
+                f"{w * 1e3:.1f}" for w in walls) + f" ms, median of steps "
+            f"2-{ET_STEPS} {steady * 1e3:.1f} ms; peaks a rank "
+            + ", ".join(f"{p / 2**30:.3f}" for _, _, p, _ in every)
+            + f" GiB, together {sum(p for _, _, p, _ in every) / 1e9:.2f} GB "
+            f"(reckoned {tp * reckoned[depth] / 1e9:.2f} GB; the largest / "
+            f"its reckoning "
+            f"{max(p for _, _, p, _ in every) / reckoned[depth]:.3f},"
+            f" limit 1 +- {RECKON_PEAK_REL}); {card()}")
+        log(f"[moe-ep-train] (et-t) check: every loss finite; step-1 loss "
+            f"{losses[0]:.4f} within 0.5 of ln V + 1/2 = {random_loss:.4f}; "
+            f"it falls over the {ET_STEPS} steps on one batch: "
+            + " -> ".join(f"{x:.4f}" for x in losses) + f"; grad_norm and "
+            f"the {len(mine) - 1} whole leaves the same bits on every rank: "
+            f"{same}; the {len(slots)} expert leaves differ between every "
+            f"two ranks: {distinct}")
+    assert same and distinct, (same, distinct)
+    ratio = max(p for _, _, p, _ in every) / reckoned[depth]
+    assert abs(ratio - 1) <= RECKON_PEAK_REL, (ratio, reckoned[depth])
+    del state, model, opt, first, sup, built, trained
+    torch.cuda.empty_cache()
+    return dict(depth=depth, walls=walls, peak=peak, launches=launches,
+                reckoned=reckoned[depth])
+
+
+def _et_run(rank):
+    """Phase 21 on this rank: (et-e), then (et-t); returns its numbers."""
+    from repro_torch.launch import mesh as meshes
+    from repro_torch.models import moe
+
+    t = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    mesh = meshes.make_host_mesh(*EP_MESH)
+    ctx = moe.ShardCtx(mesh, meshes.dp_axes(mesh))
+    layer = _et_layer(ctx, dev, rank)
+    torch.cuda.empty_cache()        # (et-e)'s layers are gone
+    out = _et_train(ctx, dev, rank)
+    out.update(layer={k: list(v) for k, v in layer.items()},
+               wall=time.perf_counter() - t)
+    return out
+
+
+
+
 def moe_ep(oracle_path) -> None:
-    """Phase 20: spawn the four ranks on the one card, wait for them, and
-    print what they returned."""
+    """Phases 20 and 21: spawn the four ranks on the one card, wait for
+    them, and print what they returned."""
     import torch.multiprocessing as mp
     world = EP_MESH[0] * EP_MESH[1]
     t = time.perf_counter()
@@ -5470,11 +5798,19 @@ def moe_ep(oracle_path) -> None:
                                  oracle_path, tmp), nprocs=world, join=True)
         results = [json.loads(pathlib.Path(tmp, f"rank{r}.json")
                               .read_text()) for r in range(world)]
+    train_s = max(r["train"]["wall"] for r in results)
+    total = time.perf_counter() - t
     log(f"[moe-ep] every rank passed; (e) and (p) "
         f"{max(r['layer_s'] for r in results):.1f} s; bf16 prefill walls "
         f"{[round(r['prefill_s'] * 1e3, 1) for r in results]} ms, peaks "
         f"{[round(r['peak_gib'], 3) for r in results]} GiB; phase wall "
-        f"{time.perf_counter() - t:.1f} s")
+        f"{total - train_s:.1f} s")
+    depth = results[0]["train"]["depth"]
+    log(f"[moe-ep-train] every rank passed; (et-t) at {depth} layers, peaks "
+        f"{[round(r['train']['peak'] / 2**30, 3) for r in results]} GiB; "
+        f"{card()}")
+    log(f"[phase] 21 expert-parallel MoE training (in phase 20's ranks): "
+        f"{train_s:.1f} s; {card()}")
 
 
 def timed(label, fn, *args):
@@ -5598,7 +5934,8 @@ def main() -> int:
     timed("19 the reckoning against the card", reckoning_vs_card)
     torch.cuda.empty_cache()       # nothing of the main process stays
     try:
-        timed("20 expert-parallel MoE serving", moe_ep, ep_oracle)
+        timed("20 expert-parallel MoE serving, with 21", moe_ep,
+              ep_oracle)
     finally:
         shutil.rmtree(ep_dir)
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -153,19 +153,23 @@ def adamw_state(ref_state: Mapping, model) -> Dict:
     return out
 
 
-def _by_path(tensors: Mapping[str, torch.Tensor], cfg: ArchConfig
-             ) -> Dict[str, np.ndarray]:
+def _by_path(tensors: Mapping[str, torch.Tensor], cfg: ArchConfig,
+             ctx=None) -> Dict[str, np.ndarray]:
     """Tensors keyed by the model's names -> numpy arrays keyed by leaf
-    path, layers stacked, in ``param_shapes``' shapes."""
-    from repro_torch.models import lm
+    path, layers stacked, in ``param_shapes``' shapes (copies: an update
+    in place does not reach them); with a ``ctx`` the expert slots
+    gathered over tp."""
+    from repro_torch.models import lm, moe
     shapes = lm.param_shapes(cfg)
     parts: Dict[str, Dict] = {}
     for name, t in tensors.items():
         path, layer = lm.leaf_path(name)
+        if ctx is not None and path in lm.MOE_EXPERT_LEAVES:
+            t = moe.gather_slots(t, ctx)
         if path in shapes:
-            parts.setdefault(path, {})[layer] = (
+            parts.setdefault(path, {})[layer] = np.array(   # a copy
                 t.detach().to("cpu", torch.float32 if t.dtype.is_floating_point
-                              else t.dtype).numpy())
+                              else t.dtype))
     out = {}
     for path, by_layer in parts.items():
         if None in by_layer:
@@ -176,22 +180,24 @@ def _by_path(tensors: Mapping[str, torch.Tensor], cfg: ArchConfig
     return out
 
 
-def lm_tree(model, cfg: ArchConfig) -> Dict[str, np.ndarray]:
+def lm_tree(model, cfg: ArchConfig, ctx=None) -> Dict[str, np.ndarray]:
     """The inverse of :func:`lm_params`: the model's parameter tree keyed
     by leaf path, layers stacked, as float32 numpy arrays (the trained
     values: the master copies where the model has them) and the int32
-    ``inv_perm``."""
+    ``inv_perm``. With a ``ctx`` (on every rank of its mesh) the expert
+    leaves are gathered over tp: every rank gets the whole tree."""
     from repro_torch.models import lm
     tensors = dict(model.named_parameters())
     tensors.update(lm.trainable(model))
     tensors.update((n, b) for n, b in model.named_buffers()
                    if n.endswith("inv_perm"))
-    return _by_path(tensors, cfg)
+    return _by_path(tensors, cfg, ctx)
 
 
-def adamw_tree(state: Mapping, cfg: ArchConfig) -> Dict:
+def adamw_tree(state: Mapping, cfg: ArchConfig, ctx=None) -> Dict:
     """The inverse of :func:`adamw_state`: ``{"mu", "nu"}`` keyed by leaf
-    path (trained leaves only), ``"step"`` a numpy int32."""
-    return {"mu": _by_path(state["mu"], cfg),
-            "nu": _by_path(state["nu"], cfg),
+    path (trained leaves only), ``"step"`` a numpy int32; with a ``ctx``
+    the expert leaves' moments gathered over tp, as :func:`lm_tree`."""
+    return {"mu": _by_path(state["mu"], cfg, ctx),
+            "nu": _by_path(state["nu"], cfg, ctx),
             "step": np.int32(int(state["step"]))}

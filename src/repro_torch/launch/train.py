@@ -6,10 +6,11 @@ random weights as a trainable model (float32 parameters and AdamW state)
 hand-written forward and backward kernels under ``--use-flash``) ->
 supervisor (async checkpoint / restore-on-failure / straggler monitor).
 Runs on the card unless ``--device cpu`` is given (``cuda`` without a
-card raises). Training runs on one rank: ``data_parallel`` and
-``model_parallel`` other than 1 raise. Expert-parallel serving runs across
-ranks (``models.moe.ShardCtx``); expert-parallel training, with autograd
-through the all-to-all, is ROADMAP item 9.
+card raises). ``build`` with ``data_parallel`` or ``model_parallel``
+other than 1 trains on every rank of a mesh over the process group the
+caller has initialised (``models.moe.ShardCtx``: MoE layers expert-parallel
+over ``model``, the batch over ``data``); ``main`` trains on one rank, as
+the reference's does.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --reduced --device cpu --steps 50 --batch 8 --seq 128
@@ -24,14 +25,16 @@ import functools
 import os
 import tempfile
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Mapping, Optional
 
 import torch
 
 import repro_torch.configs as configs
 from repro_torch.data.pipeline import DataConfig, Prefetcher, make_stream
 from repro_torch.kernels import dispatch
+from repro_torch.launch.mesh import dp_axes, make_host_mesh
 from repro_torch.models import lm
+from repro_torch.models.moe import ShardCtx
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime.resilience import SupervisorConfig, TrainSupervisor
 
@@ -45,26 +48,37 @@ class TrainState:
 
 def build(arch: str, *, reduced: bool, batch: int, seq: int, steps: int,
           seed: int = 0, data_parallel: int = 1, model_parallel: int = 1,
-          use_flash: bool = False, device="cuda"):
+          use_flash: bool = False, device="cuda",
+          overrides: Optional[Mapping[str, Any]] = None):
     """-> (cfg, model, opt_state, stream, step_fn): the config, its random
     weights (seed ``seed``) as a trainable model on ``device`` with zero
     AdamW state, the data stream, and ``step_fn(model, opt_state, batch)
-    -> (model, opt_state, metrics)``."""
-    if data_parallel != 1 or model_parallel != 1:
-        raise ValueError(f"data_parallel={data_parallel}, model_parallel="
-                         f"{model_parallel}: training runs on one rank; "
-                         "expert-parallel training is ROADMAP item 9")
+    -> (model, opt_state, metrics)``. With ``data_parallel`` or
+    ``model_parallel`` other than 1, on this rank of a (data, model) mesh
+    (``launch.mesh.make_host_mesh``) over the initialised process group,
+    which raises without one: the model holds this rank's expert slots of
+    the one-device draw, every rank reads the same global batch from the
+    stream, and ``step_fn`` takes the ``ShardCtx`` (``step_fn.keywords``).
+    ``overrides``: config fields to replace (a depth cut, the dispatch
+    mode)."""
     dev = dispatch.resolve_device(device)
+    ctx = None
+    if data_parallel != 1 or model_parallel != 1:
+        mesh = make_host_mesh(data_parallel, model_parallel,
+                              device_type=dev.type)
+        ctx = ShardCtx(mesh, dp_axes(mesh))
     cfg = configs.get(arch)
     if reduced:
         cfg = cfg.reduced()
     if use_flash:
         cfg = dataclasses.replace(cfg, use_flash=True)
+    cfg = dataclasses.replace(cfg, **(overrides or {}))
     opt_cfg = AdamWConfig(total_steps=steps, warmup_steps=max(steps // 20, 5))
-    model, opt_state = lm.init_all(cfg, seed=seed, device=dev)
+    model, opt_state = lm.init_all(cfg, seed=seed, device=dev, ctx=ctx)
     stream = make_stream(cfg, DataConfig(seed=seed, global_batch=batch,
                                          seq_len=seq))
-    step_fn = functools.partial(lm.train_step, cfg=cfg, opt_cfg=opt_cfg)
+    step_fn = functools.partial(lm.train_step, cfg=cfg, opt_cfg=opt_cfg,
+                                ctx=ctx)
     return cfg, model, opt_state, stream, step_fn
 
 

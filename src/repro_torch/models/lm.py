@@ -14,7 +14,10 @@ slots (``init_params(..., ctx=)``, ``interop.lm_params(..., ctx=)``).
 Training (``loss_fn``, ``train_step``) needs a model
 made trainable (``init_all`` or :func:`make_trainable`): every floating
 parameter requires grad; the MoE slot map ``inv_perm`` is an int32 buffer
-that nothing updates (the reference's ``allow_int=True``). The modules
+that nothing updates (the reference's ``allow_int=True``). With a
+``ShardCtx`` training runs expert-parallel on every rank of the mesh, as
+serving does: autograd through the dispatch, the gradients reduced over
+the dp axes, the expert slots' kept on their rank. The modules
 hold their matrices in the compute dtype; where that differs from a
 leaf's parameter dtype (bf16 compute over float32 parameters, the full
 configs), the model carries float32 master copies in ``model.master``
@@ -35,6 +38,7 @@ from repro_torch.kernels import dispatch
 from repro_torch.models import moe, rwkv, ssm, transformer
 from repro_torch.models.layers import dtype
 from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+from repro_torch.optim.adamw import sum_of_squares
 
 Batch = Dict[str, torch.Tensor]
 
@@ -407,39 +411,51 @@ def _cross_entropy(logits: torch.Tensor, targets: torch.Tensor
     return torch.logsumexp(lf, dim=-1) - picked
 
 
-def loss_fn(model: transformer.Transformer, batch: Batch, cfg: ArchConfig
-            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+def loss_fn(model: transformer.Transformer, batch: Batch, cfg: ArchConfig,
+            ctx=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """-> (total, {"loss", "aux"}): next-token CE, the mean over B x
     (S - 1) positions (the head runs on positions :-1 only: the reference
     computes all S and drops the last, the same numbers), or for
     ``embedding_inputs`` HuBERT's masked CE, ``sum(nll * mask) /
     max(mask.sum(), 1)``; ``total = loss + AUX_WEIGHT * aux`` with aux the
-    MoE router's load-balancing term (0 otherwise)."""
+    MoE router's load-balancing term (0 otherwise). With a ``ctx`` the
+    batch is the global one: this rank runs its dp slice, and the values
+    are the global batch's on every rank (the CE's mean, and masked sums,
+    over the dp axes), their gradients this rank's share
+    (``models.moe``'s docstring)."""
+    if ctx is not None:
+        batch = {k: _dp_slice(v, ctx) for k, v in batch.items()}
+    dp = ctx is not None and ctx.dp > 1
     if cfg.embedding_inputs:
         x, aux, _ = transformer._blocks(model, batch["embeddings"], cfg,
-                                        collect_cache=False)
+                                        collect_cache=False, ctx=ctx)
         nll = _cross_entropy(transformer.lm_head(model, x, cfg),
                              batch["labels"])
         mask = batch["mask"].to(torch.float32)
-        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1)
+        num, den = (nll * mask).sum(), mask.sum()
+        if dp:      # the sums' means: the ratio of the global sums
+            num, den = moe.dp_mean(num, ctx), moe.dp_mean(den, ctx)
+        loss = num / torch.clamp(den, min=1.0 / ctx.dp if dp else 1)
     else:
         tokens = batch["tokens"]
         x, aux, _ = transformer._blocks(model, tokens, cfg,
-                                        collect_cache=False)
+                                        collect_cache=False, ctx=ctx)
         nll = _cross_entropy(transformer.lm_head(model, x[:, :-1], cfg),
                              tokens[:, 1:])
-        loss = nll.mean()
+        loss = moe.dp_mean(nll.mean(), ctx) if dp else nll.mean()
     aux = torch.as_tensor(aux, dtype=torch.float32, device=loss.device)
     return loss + AUX_WEIGHT * aux, {"loss": loss, "aux": aux}
 
 
 def loss_and_grads(model: transformer.Transformer, batch: Batch,
-                   cfg: ArchConfig):
+                   cfg: ArchConfig, ctx=None):
     """-> (total, {"loss", "aux"}, grads): :func:`loss_fn` and its
     gradients (flash attention's hand-written backward where
     ``cfg.use_flash``), keyed by parameter name, each in the dtype of the
     tensor the optimizer updates (:func:`trainable`); None for a parameter
-    the loss does not reach. The parameters' ``.grad`` are left None."""
+    the loss does not reach. The parameters' ``.grad`` are left None.
+    With a ``ctx`` the gradients are this rank's, before
+    :func:`reduce_grads`."""
     params = {name: p for name, p in model.named_parameters()
               if p.requires_grad}
     if not params:
@@ -448,7 +464,7 @@ def loss_and_grads(model: transformer.Transformer, batch: Batch,
     for p in params.values():
         p.grad = None
     with torch.enable_grad():
-        total, metrics = loss_fn(model, batch, cfg)
+        total, metrics = loss_fn(model, batch, cfg, ctx)
         total.backward()
     opt = trainable(model)
     grads = {name: None if p.grad is None else p.grad.to(opt[name].dtype)
@@ -459,16 +475,66 @@ def loss_and_grads(model: transformer.Transformer, batch: Batch,
             grads)
 
 
+def expert_leaves(model: transformer.Transformer) -> list:
+    """The names of the model's parameters that hold expert slots, split
+    over tp under a ``ctx``."""
+    return [name for name, _ in model.named_parameters()
+            if leaf_path(name)[0] in MOE_EXPERT_LEAVES]
+
+
+def reduce_grads(grads: Dict[str, Optional[torch.Tensor]], ctx
+                 ) -> Dict[str, Optional[torch.Tensor]]:
+    """A rank's gradients (:func:`loss_and_grads` with ``ctx``) summed over
+    the dp axes, IN PLACE, in the order of their names: every whole leaf
+    (embedding, attention, norms, router, head) then holds the
+    reference's gradient, the same bits on every rank; an expert leaf the
+    gradient of this rank's slots, which stay on their rank. Its tp
+    ranks need no sum: a whole leaf's gradient is already whole on each
+    (the dispatch's backward sums the router's parts over tp)."""
+    if ctx is None or ctx.dp == 1:
+        return grads
+    for axis in ctx.dp_axes:
+        if ctx.size(axis) > 1:
+            group = ctx.mesh.get_group(axis)
+            for name in sorted(grads):
+                if grads[name] is not None:
+                    dist.all_reduce(grads[name], group=group)
+    return grads
+
+
+def _split_norm(grads: Dict[str, Optional[torch.Tensor]], experts: list,
+                ctx) -> torch.Tensor:
+    """The global norm of a rank's reduced gradients whose ``experts``
+    leaves hold its slots: the whole leaves' squares once, plus the
+    expert leaves' summed over tp in rank order; the same bits on every
+    rank."""
+    whole = sum_of_squares({k: g for k, g in grads.items()
+                            if k not in experts})
+    mine = sum_of_squares({k: g for k, g in grads.items() if k in experts})
+    return torch.sqrt(whole + moe.tp_sum(mine, ctx))
+
+
 def train_step(model: transformer.Transformer, opt_state: Dict,
-               batch: Batch, cfg: ArchConfig, opt_cfg: AdamWConfig):
+               batch: Batch, cfg: ArchConfig, opt_cfg: AdamWConfig,
+               ctx=None):
     """One step: :func:`loss_and_grads`, then AdamW. Updates the model's
     parameters (and masters) and ``opt_state`` IN PLACE and returns
     ``(model, opt_state, metrics)``, metrics ``loss``, ``aux``, ``total``,
-    ``lr`` and ``grad_norm`` as float32 tensors on the model's device."""
-    total, metrics, grads = loss_and_grads(model, batch, cfg)
+    ``lr`` and ``grad_norm`` as float32 tensors on the model's device.
+    With a ``ctx`` (the reference's ``train_step(..., ctx, ...)``) every
+    rank of the mesh runs it on the global batch: the gradients are
+    reduced over dp (:func:`reduce_grads`), the global norm takes the
+    expert leaves' squares over tp, and every rank reports the global
+    batch's metrics; the AdamW state of an expert leaf holds this rank's
+    slots."""
+    total, metrics, grads = loss_and_grads(model, batch, cfg, ctx)
+    grads = reduce_grads(grads, ctx)
+    norm = {}
+    if ctx is not None and ctx.tp > 1:      # expert slots split over tp
+        norm["grad_norm"] = _split_norm(grads, expert_leaves(model), ctx)
     params = dict(model.named_parameters())
     _, opt_state, opt_metrics = adamw_update(trainable(model), grads,
-                                             opt_state, opt_cfg)
+                                             opt_state, opt_cfg, **norm)
     with torch.no_grad():
         for name, master in (getattr(model, "master", None) or {}).items():
             params[name].copy_(master)

@@ -47,6 +47,25 @@ on the wire from its static buffers, ``(g - 1)/g`` of the buffer (the
 reference's ``launch/hlo_analysis.py`` rule), and returns them beside the
 output (:class:`DispatchStats`). Nothing here names a backend: the
 process group behind the mesh is the caller's.
+
+Autograd runs through the distributed layer. Each collective is an
+autograd Function whose backward is its adjoint: an all-to-all (row r to
+rank r) is its own, and only its floating buffers carry a cotangent; the
+sequence slice's is the all-gather of the slices' cotangents over tp; the
+all-gather of ``y`` takes this rank's slice of the incoming cotangent.
+Everything downstream of the layer runs the same on every tp rank, so a
+value the tp ranks share is one value: its cotangent is taken once. Where
+every tp rank uses a whole tensor for its part of the work (the router;
+the tokens themselves when they are replicated over tp) the parts'
+cotangents are summed over tp in rank order, the same bits on every rank;
+with replicated tokens only tp rank 0's output carries a cotangent (every
+rank keeps its result); and a mean over ranks (aux over tp and dp, the
+loss over dp) passes each rank's own term alone its share. A rank's
+gradients are then those of its dp slice's share of the loss: whole
+leaves the same on every tp rank, expert leaves its slots'; summing them
+over the dp axes (``models.lm.reduce_grads``) gives the reference's. The
+plain twin reaches the same gradients through plain autograd, bit for
+bit.
 """
 from __future__ import annotations
 
@@ -62,6 +81,7 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import _param, dtype
+from repro_torch.optim.adamw import sum_in_order
 
 
 class MoE(nn.Module):
@@ -132,7 +152,10 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: ArchConfig,
     identity."""
     if ctx is not None and ctx.tp * ctx.dp > 1:
         y, aux, stats = moe_dispatch(p, x, cfg, ctx)
-        if ctx.dispatch_log is not None:
+        # a checkpointed block's recompute dispatches again inside
+        # autograd's backward: the first run's stats stand for it
+        if (ctx.dispatch_log is not None
+                and torch._C._current_graph_task_id() == -1):
             ctx.dispatch_log.append(stats)
         return y, aux
     cd = dtype(cfg.compute_dtype)
@@ -177,7 +200,8 @@ class ShardCtx:
     tokens over ``tp`` by sequence where the length divides (a prefill);
     otherwise they are split by batch only and replicated over ``tp`` (the
     decode steps). Where ``dispatch_log`` is a list, :func:`moe_apply`
-    appends each dispatch's :class:`DispatchStats` to it."""
+    appends each dispatch's :class:`DispatchStats` to it (not a remat
+    recompute's)."""
     mesh: Any
     dp_axes: Tuple[str, ...]
     tp_axis: str = "model"
@@ -397,12 +421,11 @@ def _exchange_bytes(name: str, parts: Dict[str, torch.Tensor], tp: int
     return name, nbytes, total * (tp - 1) // tp
 
 
-def _all_to_all(parts: Dict[str, torch.Tensor], group, tp: int
-                ) -> Dict[str, torch.Tensor]:
+def _swap(parts: List[torch.Tensor], group, tp: int) -> List[torch.Tensor]:
     """One ``all_to_all_single`` over ``group`` for the buffers of one
-    exchange, packed as bytes, row r of each to rank r."""
-    flat = [t.contiguous().view(torch.uint8).reshape(tp, -1)
-            for t in parts.values()]
+    exchange, packed as bytes, row r of each to rank r; the received
+    buffers, row s from rank s, in the same shapes and dtypes."""
+    flat = [t.contiguous().view(torch.uint8).reshape(tp, -1) for t in parts]
     send = torch.cat(flat, 1) if len(flat) > 1 else flat[0]
     del flat
     recv = torch.empty_like(send)
@@ -410,12 +433,163 @@ def _all_to_all(parts: Dict[str, torch.Tensor], group, tp: int
     del send
     # views of the received bytes (every buffer's bytes a multiple of 4:
     # capacities are multiples of 8)
-    out, at = {}, 0
-    for name, t in parts.items():
+    out, at = [], 0
+    for t in parts:
         n = t.numel() * t.element_size() // tp
-        out[name] = recv[:, at:at + n].view(t.dtype).reshape(t.shape)
+        out.append(recv[:, at:at + n].view(t.dtype).reshape(t.shape))
         at += n
     return out
+
+
+class _Exchange(torch.autograd.Function):
+    """An exchange's all-to-all; its backward is the same all-to-all of
+    the cotangents of the buffers that carry one (an all-to-all with row
+    r going to rank r is its own adjoint)."""
+
+    @staticmethod
+    def forward(ctx, group, tp, *parts):
+        ctx.group, ctx.tp = group, tp
+        ctx.live = [i for i in range(len(parts))
+                    if ctx.needs_input_grad[2 + i]]
+        out = _swap(list(parts), group, tp)
+        ctx.mark_non_differentiable(*[t for i, t in enumerate(out)
+                                      if i not in ctx.live])
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *cts):
+        grads = [None] * len(cts)
+        back = _swap([cts[i] for i in ctx.live], ctx.group, ctx.tp)
+        for i, g in zip(ctx.live, back):
+            grads[i] = g
+        return (None, None, *grads)
+
+
+def _all_to_all(parts: Dict[str, torch.Tensor], group, tp: int, rank: int
+                ) -> Dict[str, torch.Tensor]:
+    """An exchange's buffers through :class:`_Exchange`. aux rides the
+    return, but not its cotangent: each rank's own aux, which it sends
+    itself, is the row that carries it (the mean's share of this rank's
+    term, as the plain twin's rank 0 gives every rank's)."""
+    live = parts.get("aux")
+    if live is not None:
+        parts = dict(parts, aux=live.detach())
+    out = dict(zip(parts, _Exchange.apply(group, tp, *parts.values())))
+    if live is not None:
+        got = out["aux"]
+        out["aux"] = torch.cat([got[:rank], live[rank:rank + 1],
+                                got[rank + 1:]])
+    return out
+
+
+def _gather(t: torch.Tensor, group, n: int) -> List[torch.Tensor]:
+    got = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(got, t.contiguous(), group=group)
+    return got
+
+
+class _SumOverTp(torch.autograd.Function):
+    """A whole tensor every tp rank uses for its part of the work: the
+    identity; its cotangent is the parts' summed over tp in rank order,
+    the same bits on every rank."""
+
+    @staticmethod
+    def forward(ctx, t, group, tp):
+        ctx.group, ctx.tp = group, tp
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return sum_in_order(_gather(ct, ctx.group, ctx.tp)), None, None
+
+
+class _Copies(torch.autograd.Function):
+    """The plain twin's :class:`_SumOverTp`: ``n`` copies of a tensor, one
+    for each rank's block; its cotangent is theirs summed in rank
+    order."""
+
+    @staticmethod
+    def forward(ctx, t, n):
+        return tuple(t.view_as(t) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        return sum_in_order(cts), None
+
+
+class _SeqSlice(torch.autograd.Function):
+    """This rank's sequence slice of the (B, S, d) tokens; its cotangent,
+    the slices' all-gathered over tp, reaches every tp rank whole."""
+
+    @staticmethod
+    def forward(ctx, x, group, tp, rank):
+        ctx.group, ctx.tp = group, tp
+        n = x.shape[1] // tp
+        return x[:, rank * n:(rank + 1) * n].contiguous()
+
+    @staticmethod
+    def backward(ctx, ct):
+        return (torch.cat(_gather(ct, ctx.group, ctx.tp), 1), None, None,
+                None)
+
+
+class _GatherSeq(torch.autograd.Function):
+    """The sequence slices' outputs all-gathered over tp; the cotangent
+    every tp rank holds whole is one: each takes its slice."""
+
+    @staticmethod
+    def forward(ctx, y, group, tp, rank):
+        ctx.rank, ctx.n = rank, y.shape[1]
+        return torch.cat(_gather(y, group, tp), 1)
+
+    @staticmethod
+    def backward(ctx, ct):
+        r, n = ctx.rank, ctx.n
+        return ct[:, r * n:(r + 1) * n], None, None, None
+
+
+class _FirstRankGrad(torch.autograd.Function):
+    """The output of tokens replicated over tp (every rank holds tp rank
+    0's result): the identity; only tp rank 0's copy passes a cotangent,
+    the others zeros (so that every rank's backward runs the same
+    collectives)."""
+
+    @staticmethod
+    def forward(ctx, y, rank):
+        ctx.rank = rank
+        return y.view_as(y)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return (ct if ctx.rank == 0 else torch.zeros_like(ct)), None
+
+
+def dp_mean(t: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """The mean of a scalar over each dp axis in turn (the reference's
+    ``pmean``s), the same value on every rank; only this rank's own term
+    carries a cotangent, so its gradient is this rank's share (module
+    docstring)."""
+    for axis in ctx.dp_axes:
+        n = ctx.size(axis)
+        if n > 1:
+            got = _gather(t.detach(), ctx.mesh.get_group(axis), n)
+            got[ctx.mesh.get_local_rank(axis)] = t
+            t = _mean(got)
+    return t
+
+
+def tp_sum(t: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """A tensor summed over the tp ranks in rank order (no gradient), the
+    same bits on every rank."""
+    return sum_in_order(_gather(t.detach(),
+                                ctx.mesh.get_group(ctx.tp_axis), ctx.tp))
+
+
+def gather_slots(t: torch.Tensor, ctx: ShardCtx) -> torch.Tensor:
+    """A leaf of this rank's expert slots (slots first) -> every slot, the
+    tp ranks' parts all-gathered in rank order (no gradient)."""
+    return torch.cat(_gather(t.detach(), ctx.mesh.get_group(ctx.tp_axis),
+                             ctx.tp))
 
 
 def _mean(values: List[torch.Tensor]) -> torch.Tensor:
@@ -456,8 +630,9 @@ def moe_dispatch(p: MoE, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx
     the same (B_loc, S, d) (sequence slices all-gathered over tp; with
     replicated tokens every rank takes tp rank 0's results, the
     reference's visible output). aux is averaged over tp and then over
-    each dp axis, as the reference's ``pmean``s are. Returns (y, aux,
-    this rank's :class:`DispatchStats`)."""
+    each dp axis, as the reference's ``pmean``s are. Autograd runs
+    through it (module docstring). Returns (y, aux, this rank's
+    :class:`DispatchStats`)."""
     tp, b, s, d = ctx.tp, *x.shape
     expert_slice(cfg, ctx)          # raises where the experts do not divide
     if p.wg.shape[0] * tp != cfg.n_experts:
@@ -465,16 +640,19 @@ def moe_dispatch(p: MoE, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx
                          f"{cfg.n_experts}/{tp}")
     seq_tp = _dispatch_layout(tp, s, ctx.seq_shard_moe)
     rank = ctx.tp_rank
-    x_loc = x[:, rank * (s // tp):(rank + 1) * (s // tp)] if seq_tp else x
     group = ctx.mesh.get_group(ctx.tp_axis)
-    block = BLOCKS[cfg.moe_dispatch](p, x_loc.reshape(-1, d), cfg, tp, rank,
-                                     not seq_tp)
+    x_loc = (_SeqSlice.apply(x, group, tp, rank) if seq_tp
+             else _SumOverTp.apply(x, group, tp))
+    shard = ExpertShard(_SumOverTp.apply(p.wr, group, tp), p.wg, p.wi, p.wo,
+                        p.inv_perm)
+    block = BLOCKS[cfg.moe_dispatch](shard, x_loc.reshape(-1, d), cfg, tp,
+                                     rank, not seq_tp)
     name, parts = next(block)
     sent = []
     try:
         while True:
             sent.append(_exchange_bytes(name, parts, tp))
-            got = _all_to_all(parts, group, tp)
+            got = _all_to_all(parts, group, tp, rank)
             del parts               # the block frees what it shipped
             name, parts = block.send(got)
             del got
@@ -482,16 +660,9 @@ def moe_dispatch(p: MoE, x: torch.Tensor, cfg: ArchConfig, ctx: ShardCtx
         y, aux, stats = done.value
     stats.exchanges = sent
     y = y.reshape(b, -1, d).to(x.dtype)
-    if seq_tp:
-        ys = [torch.empty_like(y) for _ in range(tp)]
-        dist.all_gather(ys, y.contiguous(), group=group)
-        y = torch.cat(ys, 1)
-    for axis in ctx.dp_axes:
-        if ctx.size(axis) > 1:
-            got = [torch.empty_like(aux) for _ in range(ctx.size(axis))]
-            dist.all_gather(got, aux, group=ctx.mesh.get_group(axis))
-            aux = _mean(got)
-    return y, aux, stats
+    y = (_GatherSeq.apply(y, group, tp, rank) if seq_tp
+         else _FirstRankGrad.apply(y, rank))
+    return y, dp_mean(aux, ctx), stats
 
 
 def moe_apply_ranks_plain(p: MoE, x: torch.Tensor, cfg: ArchConfig,
@@ -504,7 +675,10 @@ def moe_apply_ranks_plain(p: MoE, x: torch.Tensor, cfg: ArchConfig,
     sizes with the dp axes first and tp last (``(data, model)`` or
     ``(pod, data, model)``). Every rank's block runs in turn, each
     all-to-all a transpose of the stacked per-rank buffers. Returns the
-    global y, the aux and every rank's stats (dp-major)."""
+    global y, the aux and every rank's stats (dp-major). Plain autograd
+    through it gives :func:`moe_dispatch`'s gradients, the whole router's
+    and, with replicated tokens, the tokens' summed over tp in rank
+    order."""
     *dp_shape, tp = mesh_shape
     b, s, d = x.shape
     _rank_slots(cfg, tp, 0)
@@ -512,12 +686,14 @@ def moe_apply_ranks_plain(p: MoE, x: torch.Tensor, cfg: ArchConfig,
     ys, auxes, all_stats = [], [], []
     for xg in x.chunk(math.prod(dp_shape)):
         blocks, sent = [], []
+        routers = _Copies.apply(p.wr, tp)
+        xs = None if seq_tp else _Copies.apply(xg, tp)
         for r in range(tp):
             x_loc = (xg[:, r * (s // tp):(r + 1) * (s // tp)] if seq_tp
-                     else xg)
+                     else xs[r])
             mine = _rank_slots(cfg, tp, r)
-            shard = ExpertShard(p.wr, p.wg[mine], p.wi[mine], p.wo[mine],
-                                p.inv_perm)
+            shard = ExpertShard(routers[r], p.wg[mine], p.wi[mine],
+                                p.wo[mine], p.inv_perm)
             blocks.append(BLOCKS[cfg.moe_dispatch](
                 shard, x_loc.reshape(-1, d), cfg, tp, r, not seq_tp))
         sent = [next(blk) for blk in blocks]

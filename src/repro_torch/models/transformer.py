@@ -21,13 +21,16 @@ A mixture-of-experts config (``cfg.is_moe``) puts a ``models.moe.MoE``
 layer where the dense block has its MLP; the forward sums the layers'
 router aux losses, as the reference's does. The forward, hidden and
 decode functions take the reference's ``ctx`` (a ``models.moe.ShardCtx``)
-and hand it to each MoE layer, which then dispatches across ranks.
+and hand it to each MoE layer, which then dispatches across ranks, in
+training too (autograd runs through the dispatch).
 
 Rematerialization (``cfg.remat``), while autograd records: ``"full"`` runs
 each block (and each application of the hybrid's shared block) under
 ``torch.utils.checkpoint`` (non-reentrant), so only the blocks' inputs are
 kept and each block's forward runs again in the backward, as the
-reference's ``jax.checkpoint`` does; ``"dots"`` runs them under the same
+reference's ``jax.checkpoint`` does (an MoE block's collectives with it,
+in the same order on every rank; ``models.moe`` logs the first run's
+dispatch stats only); ``"dots"`` runs them under the same
 checkpoint with a selective policy that keeps the outputs of ``aten.mm``
 and ``aten.addmm`` and recomputes everything else, as the reference's
 ``dots_with_no_batch_dims_saveable`` policy does: a projection of (B, S,

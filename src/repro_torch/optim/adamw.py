@@ -65,32 +65,50 @@ def adamw_init(params: Mapping[str, torch.Tensor]) -> Dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def global_norm(tree: Mapping[str, Optional[torch.Tensor]]) -> torch.Tensor:
-    """sqrt of the sum of squares of every floating leaf, float32 (0 for
-    a tree without one)."""
+def sum_in_order(values):
+    """The sum of ``values``, added one by one in their order: the same
+    bits wherever the same values come in the same order."""
+    total = values[0]
+    for v in values[1:]:
+        total = total + v
+    return total
+
+
+def sum_of_squares(tree: Mapping[str, Optional[torch.Tensor]]
+                   ) -> Optional[torch.Tensor]:
+    """The sum of squares of every floating leaf, float32, in the tree's
+    order (None for a tree without one)."""
     sq = [torch.sum(torch.square(g.to(torch.float32)))
           for g in tree.values()
           if g is not None and g.dtype.is_floating_point]
-    if not sq:
+    return sum_in_order(sq) if sq else None
+
+
+def global_norm(tree: Mapping[str, Optional[torch.Tensor]]) -> torch.Tensor:
+    """sqrt of the sum of squares of every floating leaf, float32 (0 for
+    a tree without one)."""
+    total = sum_of_squares(tree)
+    if total is None:
         return torch.zeros((), dtype=torch.float32)
-    total = sq[0]
-    for s in sq[1:]:
-        total = total + s
     return torch.sqrt(total)
 
 
 @torch.no_grad()
 def adamw_update(params: Tree, grads: Mapping[str, Optional[torch.Tensor]],
-                 state: Dict, cfg: AdamWConfig
+                 state: Dict, cfg: AdamWConfig,
+                 grad_norm: Optional[torch.Tensor] = None
                  ) -> Tuple[Tree, Dict, Dict[str, torch.Tensor]]:
     """One AdamW step, IN PLACE on ``params`` and ``state``; returns them
     with the metrics ``lr`` and ``grad_norm`` (float32 tensors). A leaf
     whose gradient is None (no path from the loss) is updated as with a
-    zero gradient, as the reference's dense gradient tree has it."""
+    zero gradient, as the reference's dense gradient tree has it. The
+    clip scale is that of ``grad_norm``, the global norm of a gradient
+    tree split across ranks where the caller gives it (every rank then
+    scales alike), else :func:`global_norm` of ``grads``."""
     state["step"] += 1
     step = state["step"]
     lr = cosine_schedule(cfg, step)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     stepf = step.to(torch.float32)
